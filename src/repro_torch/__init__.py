@@ -1,0 +1,41 @@
+"""PyTorch/CUDA port of the LSS reproduction (Local Thresholding in General
+Network Graphs).
+
+The package mirrors the JAX package ``repro`` module for module, on torch
+tensors, and imports neither JAX nor ``repro``.  Every Pallas kernel of the
+JAX package on a ported path is a hand-written CUDA C++ kernel for Hopper
+(``sm_90a``) under :mod:`repro_torch.kernels`; a tensor on the CPU takes the
+kernel's plain PyTorch version instead.
+
+Ported so far: the paper's formulas (:mod:`.core.wvs`, :mod:`.core.regions`,
+:mod:`.core.stopping`, :mod:`.core.correction`), the topologies, Alg. 1
+(:mod:`.core.lss`) and the Sec.-VI experiment driver (:mod:`.core.sim`),
+with the ``lss_state`` and ``correction`` kernels.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without an explicit device they raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["default_device", "resolve_device"]
+
+
+def default_device() -> torch.device:
+    """The device an entry point runs on when none is given: ``cuda``.
+
+    Raises ``RuntimeError`` when CUDA is unavailable; there is no silent
+    fallback to the CPU (pass ``device="cpu"`` explicitly for that).
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> :func:`default_device`; anything else -> ``torch.device``."""
+    return default_device() if device is None else torch.device(device)

@@ -1,0 +1,76 @@
+"""Launcher of the ``correction`` CUDA kernel (``csrc/correction.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/correction.py::
+correction_kernel`` (launched by ``correction_call``): the Eq.-10
+corrected out-messages on the violating set.
+
+What bounds it on the H100: bytes.  It reads the in-messages and agreement
+weights of every slot and writes a message for every slot, with a handful
+of flops each.  Its design: one thread per peer, one pass for T_i and
+|V_i| that reads the agreement moments only on V_i, one pass writing
+``out'``; d is a template parameter so T_i stays in registers, and beta and
+eps are runtime arguments.  As in ``lss_state``, a hub row of a
+Barabási–Albert graph is one thread's serial loop.
+
+``launches`` counts the kernel launches made by :func:`launch`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+__all__ = ["launch", "launches", "MAX_D"]
+
+MAX_D = 16  # largest d the kernel is instantiated for (kMaxD in csrc)
+
+launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _fn():
+    fn = _build.library("correction").repro_correction
+    fn.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P] * 3
+    fn.restype = _I
+    return fn
+
+
+def launch(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta: float, eps: float):
+    """Run the kernel on CUDA tensors; returns ``(out_m', out_c')``.
+
+    Inputs are float32 (``v_set`` bool), contiguous, on one CUDA device, in
+    the layouts of ``csrc/correction.cu``.
+    """
+    global launches
+    n, D, d = a_m.shape
+    dev = a_m.device
+    if dev.type != "cuda":
+        raise ValueError(f"correction kernel needs CUDA tensors, got {dev}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"correction kernel supports 1 <= d <= {MAX_D}, "
+                         f"got d={d}")
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ("s_m", s_m, (n, d), f32), ("s_c", s_c, (n,), f32),
+            ("a_m", a_m, (n, D, d), f32), ("a_c", a_c, (n, D), f32),
+            ("in_m", in_m, (n, D, d), f32), ("in_c", in_c, (n, D), f32),
+            ("v_set", v_set, (n, D), torch.bool)):
+        _build.check_arg("correction", name, t, shape, dtype, dev)
+    o_m = torch.empty((n, D, d), dtype=f32, device=dev)
+    o_c = torch.empty((n, D), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _fn()(s_m.data_ptr(), s_c.data_ptr(), a_m.data_ptr(),
+                a_c.data_ptr(), in_m.data_ptr(), in_c.data_ptr(),
+                v_set.data_ptr(), n, D, d, float(beta), float(eps),
+                o_m.data_ptr(), o_c.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"correction kernel launch failed: cudaError {err}")
+    if n > 0:
+        launches += 1
+    return o_m, o_c

@@ -1,0 +1,57 @@
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``).
+
+They restate the kernels' math on the core formulas (:mod:`..core.stopping`,
+:mod:`..core.correction`, :func:`..core.regions.decide_packed`), take
+unpadded moment-form tensors and return what the kernels return.  A CPU
+tensor in :mod:`.ops` runs these; ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.
+
+``calls`` counts the calls of each plain version, so a run can show that
+the main path on the card never took them.
+"""
+
+from __future__ import annotations
+
+from ..core import correction as corr_lib
+from ..core import regions, stopping, wvs
+
+__all__ = ["lss_state_ref", "correction_ref", "calls", "reset_calls"]
+
+calls = {"lss_state_ref": 0, "correction_ref": 0}
+
+
+def reset_calls() -> None:
+    for name in calls:
+        calls[name] = 0
+
+
+def _decide(region):
+    """Decision fn of a packed slot / family / bare Voronoi centers."""
+    slot = regions.as_packed_slot(region)
+    return lambda u: regions.decide_packed(u, *slot)
+
+
+def lss_state_ref(x_m, x_c, out_m, out_c, in_m, in_c, mask, region,
+                  eps: float = 1e-9):
+    """Fused S / A / Alg.-1 violations / decision.
+
+    Returns (s_m (n,d), s_c (n,), viol (n,D) bool, decision (n,) int32).
+    """
+    calls["lss_state_ref"] += 1
+    s = stopping.status(x_m, x_c, out_m, out_c, in_m, in_c, mask)
+    a = stopping.agreements(out_m, out_c, in_m, in_c)
+    decide = _decide(region)
+    viol = stopping.violations_alg1(decide, s, a, mask, eps)
+    decision = decide(wvs.vec(s, eps))
+    return s.m, s.c, viol, decision
+
+
+def correction_ref(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta,
+                   eps: float = 1e-9):
+    """Eq.-10 corrected out-messages on the violating set.
+
+    Returns (out_m' (n,D,d), out_c' (n,D)) — meaningful on v_set slots.
+    """
+    calls["correction_ref"] += 1
+    return corr_lib.corrected_messages(wvs.WV(s_m, s_c), wvs.WV(a_m, a_c),
+                                       in_m, in_c, v_set, beta, eps)

@@ -1,0 +1,139 @@
+"""KernelSuite — the registry the hot loop plugs into (port of
+``repro/kernels/suite.py``).
+
+A :class:`KernelSuite` bundles the operations Alg. 1's per-cycle hot path
+needs — ``decide``, ``status_viol`` and ``corrected`` — with region
+families in the packed :class:`~repro_torch.core.regions.PackedSlot` form
+and ``beta``/``eps`` as runtime values:
+
+* ``reference`` — the plain PyTorch formulas (:mod:`..core.stopping`,
+  :mod:`..core.correction`, :func:`..core.regions.decide_packed`).  This IS
+  the algorithm.
+* ``fused`` — :mod:`.ops`: the CUDA kernels on a CUDA tensor, their plain
+  versions on a CPU tensor.
+
+``resolve_suite(None, device)`` picks ``fused`` on ``cuda`` and
+``reference`` on the CPU, as the JAX package picks the Pallas suite on the
+TPU only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+from ..core import correction as corr_lib
+from ..core import regions, stopping, wvs
+from . import ops
+
+__all__ = ["KernelSuite", "ReferenceSuite", "FusedSuite", "register_suite",
+           "get_suite", "resolve_suite", "suite_names"]
+
+
+class KernelSuite:
+    """Fused decide/correction operations for one execution strategy."""
+
+    name: str = "abstract"
+    fused: bool = False
+
+    def decide(self, v, slot: regions.PackedSlot, eps=1e-9):
+        """Region ids of batched vectors ``v`` (..., d) -> int32 (...)."""
+        raise NotImplementedError
+
+    def status_viol(self, x_m, x_c, out_m, out_c, in_m, in_c, live,
+                    slot: regions.PackedSlot, eps):
+        """One pass: returns ``(S: WV, viol bool (n, D))`` (Alg. 1)."""
+        raise NotImplementedError
+
+    def corrected(self, old_s: wvs.WV, a0: wvs.WV, in_m, in_c, v_set,
+                  beta, eps):
+        """Eq.-10 corrected out-messages on the ``v_set`` slots."""
+        raise NotImplementedError
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging nicety
+        return f"<KernelSuite {self.name!r} fused={self.fused}>"
+
+
+class ReferenceSuite(KernelSuite):
+    """The plain PyTorch formulas — the semantics every suite must match."""
+
+    name = "reference"
+    fused = False
+
+    def decide(self, v, slot, eps=1e-9):
+        return regions.decide_packed(v, *slot)
+
+    def status_viol(self, x_m, x_c, out_m, out_c, in_m, in_c, live, slot,
+                    eps):
+        s = stopping.status(x_m, x_c, out_m, out_c, in_m, in_c, live)
+        a = stopping.agreements(out_m, out_c, in_m, in_c)
+        decide = lambda u: regions.decide_packed(u, *slot)  # noqa: E731
+        viol = stopping.violations_alg1(decide, s, a, live, eps)
+        return s, viol
+
+    def corrected(self, old_s, a0, in_m, in_c, v_set, beta, eps):
+        return corr_lib.corrected_messages(old_s, a0, in_m, in_c, v_set,
+                                           beta, eps)
+
+
+class FusedSuite(KernelSuite):
+    """The hand-written CUDA kernels (plain versions on CPU tensors)."""
+
+    name = "fused"
+    fused = True
+
+    def decide(self, v, slot, eps=1e-9):
+        raise NotImplementedError(
+            "FusedSuite.decide needs the region_decide kernel, which is not "
+            "ported yet (ROADMAP B.3)")
+
+    def status_viol(self, x_m, x_c, out_m, out_c, in_m, in_c, live, slot,
+                    eps):
+        s_m, s_c, viol, _ = ops.lss_state(x_m, x_c, out_m, out_c, in_m,
+                                          in_c, live, slot, eps=eps)
+        return wvs.WV(s_m, s_c), viol
+
+    def corrected(self, old_s, a0, in_m, in_c, v_set, beta, eps):
+        return ops.correction(old_s.m, old_s.c, a0.m, a0.c, in_m, in_c,
+                              v_set, beta=beta, eps=eps)
+
+
+_REGISTRY: Dict[str, KernelSuite] = {}
+
+
+def register_suite(suite: KernelSuite) -> KernelSuite:
+    """Add a suite to the registry (keyed by ``suite.name``)."""
+    _REGISTRY[suite.name] = suite
+    return suite
+
+
+register_suite(ReferenceSuite())
+register_suite(FusedSuite())
+
+
+def suite_names():
+    return tuple(_REGISTRY)
+
+
+def get_suite(name: str) -> KernelSuite:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown kernel suite {name!r}; "
+                       f"registered: {sorted(_REGISTRY)}") from None
+
+
+def resolve_suite(use_kernels: Union[bool, str, None],
+                  device=None) -> KernelSuite:
+    """Map the public ``use_kernels`` knob to a suite.
+
+    ``True`` -> ``fused``; ``False`` -> ``reference``; a string -> that
+    registered suite; ``None`` (auto) -> ``fused`` when ``device`` is a
+    CUDA device and ``reference`` otherwise.
+    """
+    if isinstance(use_kernels, str):
+        return get_suite(use_kernels)
+    if use_kernels is None:
+        use_kernels = device is not None and torch.device(device).type == "cuda"
+    return get_suite("fused" if use_kernels else "reference")

@@ -14,6 +14,11 @@ if SRC not in sys.path:
     sys.path.insert(0, SRC)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without CUDA)")
+
+
 def run_with_devices(code: str, n_devices: int, timeout: int = 600) -> str:
     """Run a python snippet in a subprocess with N fake host devices.
 

@@ -1,0 +1,153 @@
+"""The CUDA kernels on the card (``cuda`` marker; they skip without CUDA).
+
+This file imports neither JAX nor the JAX package, so it runs on a GPU
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Each kernel is held against its plain PyTorch version on the same inputs.
+The inputs are multiples of 1/64, so every sum is exact in float32 in any
+order: float outputs must agree to rtol 1e-5 / atol 1e-5, and ``viol`` /
+``dec`` exactly, except where the plain version's decision is a near tie
+(best and second-best score, or v.w and b, within 1e-5 relative), where
+its matrix product may round differently from the kernel's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import regions, sim, topology, wvs
+from repro_torch.kernels import correction as k_corr
+from repro_torch.kernels import lss_state as k_state
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+TIE = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+def _inputs(n, D, d, seed, dev):
+    rng = np.random.default_rng(seed)
+    q = lambda a: torch.tensor(np.round(a * 64) / 64, dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    zero = rng.random((n, D)) < 0.25
+    keep = (~zero).astype(np.float32)
+    x_m = q(rng.standard_normal((n, d)))
+    x_c = torch.ones((n,), device=dev)
+    out_m = q(rng.standard_normal((n, D, d)) * 0.3 * keep[..., None])
+    out_c = q(rng.uniform(0.05, 2.0, (n, D)) * keep)
+    in_m = q(rng.standard_normal((n, D, d)) * 0.3 * keep[..., None])
+    in_c = q(rng.uniform(0.05, 2.0, (n, D)) * keep)
+    mask = torch.tensor(rng.random((n, D)) > 0.2, device=dev)
+    return [x_m, x_c, out_m, out_c, in_m, in_c, mask]
+
+
+def _slot(fam, d, k, seed, dev):
+    rng = np.random.default_rng(seed)
+    cent = torch.tensor(rng.standard_normal((k, d)), dtype=torch.float32,
+                        device=dev)
+    if fam == "halfspace":
+        w = torch.tensor(rng.standard_normal(d), dtype=torch.float32,
+                         device=dev)
+        return regions.PackedSlot.halfspace(w, 0.1)
+    if fam == "padded-voronoi":
+        return regions.PackedRegions.pack([regions.VoronoiRegions(cent)],
+                                          k_max=k + 3).slot(0)
+    return regions.PackedSlot.voronoi(cent)
+
+
+def _margin(v, slot):
+    """Relative gap of each decision of ``v`` (..., d), in float64."""
+    v = v.double()
+    if int(slot.kind) == regions.KIND_VORONOI:
+        c = slot.centers.double()
+        s = torch.where(slot.cmask, -2.0 * v @ c.T + (c * c).sum(-1),
+                        torch.inf)
+        if s.shape[-1] < 2:
+            return torch.full(v.shape[:-1], torch.inf, device=v.device)
+        a, b = torch.topk(s, 2, dim=-1, largest=False).values.unbind(-1)
+    else:
+        a, b = v @ slot.w.double(), slot.b.double().expand(v.shape[:-1])
+    return (b - a).abs() / torch.clamp(torch.maximum(a.abs(), b.abs()),
+                                       min=1.0)
+
+
+def _row_margin(args, s_m, s_c, slot, eps):
+    """The smallest decision margin each peer's Alg.-1 test involves."""
+    _, _, out_m, out_c, in_m, in_c, mask = args
+    a = wvs.WV(out_m + in_m, out_c + in_c)
+    sa = wvs.WV(s_m[:, None] - a.m, s_c[:, None] - a.c)
+    slot_m = torch.minimum(_margin(wvs.vec(a, eps), slot),
+                           _margin(wvs.vec(sa, eps), slot))
+    slot_m = torch.where(mask, slot_m, torch.inf)
+    return torch.minimum(_margin(wvs.vec(wvs.WV(s_m, s_c), eps), slot),
+                         slot_m.min(dim=1).values)
+
+
+@pytest.mark.parametrize("fam", ["voronoi", "halfspace", "padded-voronoi"])
+@pytest.mark.parametrize("n,D,d,k", [(1000, 6, 2, 3), (130, 8, 6, 7),
+                                     (33, 3, 2, 243), (5000, 40, 2, 3)])
+def test_kernels_match_plain(dev, n, D, d, k, fam):
+    args = _inputs(n, D, d, seed=n + D, dev=dev)
+    slot = _slot(fam, d, k, seed=k, dev=dev)
+    eps = 1e-9
+    got = k_state.launch(*args, *ops.prep_slot(slot, eps=eps), eps)
+    want = ref.lss_state_ref(*args, slot, eps)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    differs = (got[3] != want[3]) | (got[2] != want[2]).any(dim=1)
+    margin = _row_margin(args, want[0], want[1], slot, eps)
+    assert bool((margin[differs] <= TIE).all()), "differs off a near tie"
+    s_m, s_c, viol, _ = want
+    cargs = (s_m, s_c, args[2] + args[4], args[3] + args[5], args[4],
+             args[5], viol)
+    for beta in (1e-3, 0.1):
+        for g, w in zip(k_corr.launch(*cargs, beta, eps),
+                        ref.correction_ref(*cargs, beta, eps)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_tensors_launch_kernels_only(dev):
+    args = _inputs(300, 5, 2, seed=1, dev=dev)
+    slot = _slot("voronoi", 2, 3, seed=1, dev=dev)
+    kernels.reset_counts()
+    s_m, s_c, viol, _ = ops.lss_state(*args, slot)
+    ops.correction(s_m, s_c, args[2] + args[4], args[3] + args[5], args[4],
+                   args[5], viol)
+    assert kernels.counts() == {"lss_state": 1, "correction": 1,
+                                "lss_state_ref": 0, "correction_ref": 0}
+
+
+def test_launchers_check_their_inputs(dev):
+    args = _inputs(64, 3, 2, seed=2, dev=dev)
+    table = ops.prep_slot(_slot("voronoi", 2, 3, seed=2, dev=dev))
+    with pytest.raises(TypeError):
+        k_state.launch(args[0].double(), *args[1:], *table, 1e-9)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_state.launch(args[0].T.contiguous().T, *args[1:], *table, 1e-9)
+    with pytest.raises(ValueError, match="on"):
+        k_state.launch(args[0].cpu(), *args[1:], *table, 1e-9)
+    big = _inputs(8, 2, k_state.MAX_D + 1, seed=3, dev=dev)
+    with pytest.raises(ValueError, match="d <="):
+        k_corr.launch(big[0], big[1], big[2], big[3], big[4], big[5],
+                      big[6], 1e-3, 1e-9)
+
+
+@pytest.mark.parametrize("make", [lambda: topology.grid(256),
+                                  lambda: topology.barabasi_albert(256, 2, 1)],
+                         ids=["grid", "ba"])
+def test_run_static_on_card_matches_cpu(dev, make):
+    spec = sim.ProblemSpec(n=256)
+    on_card = sim.run_static(make(), spec, max_cycles=300, device=dev)
+    on_cpu = sim.run_static(make(), spec, max_cycles=300, device="cpu")
+    for key in ("cycles_95", "cycles_100", "quiesced_at", "final_accuracy",
+                "quiescent", "msgs_per_link"):
+        assert on_card[key] == on_cpu[key], key
