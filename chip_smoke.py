@@ -14,13 +14,17 @@ Phases, in order; any failure exits nonzero:
    d = 6; Voronoi, halfspace and padded-Voronoi families), and time both;
 4. run ``sim.run_static`` on the three topologies at 80,000 peers through
    the kernels (the main path), with the launch counters zeroed before
-   each run and read after it; then run it once more under
-   ``torch.profiler`` and print the device time by kernel and the device's
-   idle share of the first run's wall time;
+   each run and read after it; then time the same loop after its set-up,
+   synchronized, over several repeats (median and spread of µs per
+   cycle), and run it once more under ``torch.profiler`` to print the
+   device time by kernel and the device's idle share of that profiled
+   loop's own wall time;
 5. at 4,096 peers, run ``run_static`` with the kernels and with the
    reference formulas on the card and require the same outcome.
 
-It prints a JSON line with one entry per kernel, then, as its last line,
+It prints a JSON line with one entry per kernel (``correction``'s also
+carries ``bound_v_ms``, the bound of the violating-set part the main path
+keeps, beside the bound of the whole function), then, as its last line,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits nonzero and prints no result.
 
@@ -49,7 +53,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Outside a checkout of the repository this import fails: no result.
 from repro_torch import kernels  # noqa: E402
-from repro_torch.core import regions, sim, topology, wvs  # noqa: E402
+from repro_torch.core import lss, regions, sim, topology, wvs  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import correction as kcorr  # noqa: E402
 from repro_torch.kernels import lss_state as kst  # noqa: E402
@@ -57,6 +61,7 @@ from repro_torch.kernels import lss_state as kst  # noqa: E402
 N_MAIN = 80_000
 N_SMALL = 4096
 MAX_CYCLES = 600  # as benchmarks/common.py::timed_static
+TIMED_REPEATS = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL = ATOL = 1e-5
@@ -171,7 +176,12 @@ def _lss_state_cost(args, k):
 
 
 def _correction_cost(args, v):
-    """(bytes, operations) of the Eq.-10 correction on these inputs."""
+    """(bytes, operations) of the Eq.-10 correction on these inputs.
+
+    The function returns a corrected message for every slot, so every
+    slot's ``in`` and ``a_c`` is read and every slot of ``out'`` written,
+    under the rule ``_lss_state_cost`` follows too: each input read where
+    an output depends on it, each output written once."""
     s_m, _, a_m, _, _, _, _ = args
     n, D, d = a_m.shape
     nv = int(v.sum())
@@ -185,6 +195,21 @@ def _correction_cost(args, v):
     return nbytes, ops
 
 
+def _correction_cost_v(args, v):
+    """(bytes, operations) of the part of the correction the main path
+    keeps: ``lss.py`` blends ``out'`` in on the violating set V only, so
+    this reads S, ``v_set``, and ``a`` and ``in`` on V, and writes V."""
+    s_m, _, a_m, _, _, _, _ = args
+    n, D, d = a_m.shape
+    nv = int(v.sum())
+    nbytes = (4 * n * (d + 1)  # s_m, s_c
+              + n * D  # v_set
+              + 4 * nv * 2 * (d + 1)  # a and in on V
+              + 4 * nv * (d + 1))  # out_m', out_c' on V
+    ops = nv * (d + 1) + n * (d + 5) + nv * (2 + 2 * (d + 1))
+    return nbytes, ops
+
+
 def _bound_ms(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -192,8 +217,10 @@ def _bound_ms(nbytes, ops):
 
 
 def _check_case(label, args, slot, beta, eps, timed):
-    """One kernel-vs-plain comparison of both kernels; returns stats."""
-    got = kst.launch(*args, *ops.prep_slot(slot, eps=eps), eps)
+    """One kernel-vs-plain comparison of both kernels, through the public
+    wrappers the main path calls; returns stats.  The bare launchers are
+    used for timing only."""
+    got = ops.lss_state(*args, slot, eps=eps)
     want = ref.lss_state_ref(*args, slot, eps)
     torch.cuda.synchronize()
     err_state = 0.0
@@ -216,7 +243,7 @@ def _check_case(label, args, slot, beta, eps, timed):
     a_m, a_c = out_m + in_m, out_c + in_c
     v = (viol & mask).contiguous()
     cargs = (s_m, s_c, a_m, a_c, in_m, in_c, v)
-    cgot = kcorr.launch(*cargs, beta, eps)
+    cgot = ops.correction(*cargs, beta=beta, eps=eps)
     cwant = ref.correction_ref(*cargs, beta, eps)
     torch.cuda.synchronize()
     err_corr = 0.0
@@ -242,6 +269,8 @@ def _check_case(label, args, slot, beta, eps, timed):
         stats["correction_plain_ms"] = _time_ms(
             lambda: ref.correction_ref(*cargs, beta, eps), 5)
         stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
+        stats["correction_bound_v"] = _bound_ms(
+            *_correction_cost_v(cargs, v))
     return stats
 
 
@@ -281,7 +310,8 @@ def phase_kernels(topos, dev):
               f"{st['correction_ms']:.4f} ms (plain "
               f"{st['correction_plain_ms']:.4f}, bound "
               f"{st['correction_bound'][0]:.4f} by "
-              f"{st['correction_bound'][1]}); near-tie rows "
+              f"{st['correction_bound'][1]}; on V only "
+              f"{st['correction_bound_v'][0]:.4f}); near-tie rows "
               f"{st['tie_rows']} (dec differs on {st['dec_tie_mismatch']}, "
               f"viol on {st['viol_tie_mismatch']}); max|err| "
               f"{st['err_lss_state']:.3g} / {st['err_correction']:.3g}",
@@ -312,25 +342,19 @@ def phase_kernels(topos, dev):
 
 def phase_main_path(topos, dev):
     totals = {"lss_state": 0, "correction": 0}
-    walls = {}
+    cycles = {}
     for name, topo in topos.items():
         spec = sim.ProblemSpec(n=topo.n)
         kernels.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         res = sim.run_static(topo, spec, max_cycles=MAX_CYCLES, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         counts = kernels.counts()
-        walls[name] = wall
-        cycles = res["quiesced_at"] or MAX_CYCLES
+        cycles[name] = res["quiesced_at"] or MAX_CYCLES
         print(f"[main] {name} n={topo.n} D={topo.max_deg}: cycles_95="
               f"{res['cycles_95']} cycles_100={res['cycles_100']} "
               f"quiesced_at={res['quiesced_at']} msgs_per_link="
               f"{res['msgs_per_link']!r} final_accuracy="
-              f"{res['final_accuracy']!r} us_per_cycle="
-              f"{wall / cycles * 1e6:.1f} wall_s={wall:.3f} counts={counts}",
-              flush=True)
+              f"{res['final_accuracy']!r} counts={counts}", flush=True)
         if counts["lss_state"] <= 0 or counts["correction"] <= 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
         if counts["lss_state_ref"] or counts["correction_ref"]:
@@ -340,7 +364,48 @@ def phase_main_path(topos, dev):
             raise AssertionError(f"{name}: implausible result {res}")
         for key in totals:
             totals[key] += counts[key]
-    return totals, walls
+    return totals, cycles
+
+
+def _set_up(topo, dev):
+    """``run_static``'s set-up (tables, state and inputs on the card)."""
+    drv, _, _ = sim._driver(topo, sim.ProblemSpec(n=topo.n), lss.LSSConfig(),
+                            None, dev, None)
+    torch.cuda.synchronize()
+    return drv
+
+
+def _timed_loop(drv, topo):
+    """Wall seconds of ``run_static``'s loop on a driver set up already."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim._run_to_quiescence(drv, topo, MAX_CYCLES, 1)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+def phase_timing(topos, dev, cycles):
+    """µs per cycle of the main path's loop, set-up excluded: median and
+    spread over TIMED_REPEATS runs, each from a fresh set-up."""
+    medians = {}
+    for name, topo in topos.items():
+        setups, us = [], []
+        for _ in range(TIMED_REPEATS):
+            t0 = time.perf_counter()
+            drv = _set_up(topo, dev)
+            setups.append(time.perf_counter() - t0)
+            wall, res = _timed_loop(drv, topo)
+            if (res["quiesced_at"] or MAX_CYCLES) != cycles[name]:
+                raise AssertionError(f"{name}: a timed run took another "
+                                     "number of cycles")
+            us.append(wall / cycles[name] * 1e6)
+        medians[name] = float(np.median(us))
+        print(f"[timing] {name}: us_per_cycle median {medians[name]:.1f} "
+              f"min {min(us):.1f} max {max(us):.1f} over {len(us)} runs of "
+              f"{cycles[name]} cycles, set-up excluded (set-up median "
+              f"{np.median(setups) * 1e3:.1f} ms); all "
+              f"{[round(u, 1) for u in us]}", flush=True)
+    return medians
 
 
 def _device_intervals(prof):
@@ -362,18 +427,17 @@ def _busy_us(intervals):
     return busy
 
 
-def phase_profile(topos, dev, walls):
-    """Where the time goes: the main path once more under torch.profiler;
-    device time by kernel, and the device's idle share of the unprofiled
-    run's wall time."""
+def phase_profile(topos, dev, medians, cycles):
+    """Where the time goes: the main path's loop once more, set up outside
+    the trace, under torch.profiler; device time by kernel, and the
+    device's idle share of that profiled loop's own wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     for name, topo in topos.items():
+        drv = _set_up(topo, dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            sim.run_static(topo, sim.ProblemSpec(n=topo.n),
-                           max_cycles=MAX_CYCLES, device=dev)
-            torch.cuda.synchronize()
+            wall, _ = _timed_loop(drv, topo)
         ivals = _device_intervals(prof)
         if not ivals:
             print(f"[profile] {name}: device time not measured (the "
@@ -383,11 +447,12 @@ def phase_profile(topos, dev, walls):
         for kname, s, e in ivals:
             by_name[kname] = by_name.get(kname, 0.0) + (e - s)
         busy_ms = _busy_us(ivals) / 1e3
-        wall_ms = walls[name] * 1e3
+        wall_ms = wall * 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[profile] {name}: device busy {busy_ms:.3f} ms of "
-              f"{wall_ms:.3f} ms wall (idle share "
-              f"{1.0 - busy_ms / wall_ms:.3f}); device events "
+        print(f"[profile] {name}: device busy {busy_ms:.3f} ms of the "
+              f"profiled loop's {wall_ms:.3f} ms wall (idle share "
+              f"{1.0 - busy_ms / wall_ms:.3f}); unprofiled loop median "
+              f"{medians[name] * cycles[name] / 1e3:.3f} ms; device events "
               f"{len(ivals)}", flush=True)
         for kname, us in top:
             print(f"[profile] {name}:   {us / 1e3:9.3f} ms "
@@ -443,8 +508,9 @@ def main() -> int:
           flush=True)
 
     main_stats = phase_kernels(topos, dev)
-    totals, walls = phase_main_path(topos, dev)
-    phase_profile(topos, dev, walls)
+    totals, cycles = phase_main_path(topos, dev)
+    medians = phase_timing(topos, dev, cycles)
+    phase_profile(topos, dev, medians, cycles)
     phase_parity(dev)
 
     ba = main_stats["ba"]
@@ -455,13 +521,15 @@ def main() -> int:
             ("correction", "src/repro_torch/kernels/csrc/correction.cu",
              "src/repro/kernels/correction.py:27")):
         bound, by = ba[f"{name}_bound"]
+        extra = ({"bound_v_ms": ba["correction_bound_v"][0]}
+                 if name == "correction" else {})
         line["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": totals[name],
             "max_abs_err": ba[f"err_{name}"],
             "ms": ba[f"{name}_ms"], "plain_ms": ba[f"{name}_plain_ms"],
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "shape": ba["label"], "gpu": gpu})
+            **extra, "shape": ba["label"], "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

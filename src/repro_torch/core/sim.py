@@ -11,8 +11,8 @@ resampled; churn kills peers at a ppmc rate.
 Data, noise and churn draw from numpy's RNG in the JAX twin's order, so
 both packages see identical inputs and event streams.  The driver runs on
 ``device`` (default: CUDA, see :func:`repro_torch.default_device`) and steps
-Alg. 1 through the kernel suite ``use_kernels`` selects — by default the
-CUDA kernels on the card and the reference formulas on the CPU.
+Alg. 1 through the CUDA kernels on the card and the reference formulas on
+the CPU (``run_static``'s ``use_kernels`` overrides that choice).
 """
 
 from __future__ import annotations
@@ -178,6 +178,11 @@ def run_static(
     resolve_suite` — None picks the CUDA kernels on a CUDA device.
     """
     drv, _, _ = _driver(topo, spec, cfg, engine, device, use_kernels)
+    return _run_to_quiescence(drv, topo, max_cycles, check_every)
+
+
+def _run_to_quiescence(drv, topo, max_cycles, check_every):
+    """The loop of :func:`run_static` on a driver already set up."""
     edges = max(topo.num_edges, 1)
     c95 = c100 = quiesced_at = None
     total_msgs = 0  # host-side exact accumulator (drained every check)
@@ -220,16 +225,16 @@ def run_dynamic(
     warmup: int = 100,
     engine=None,
     device=None,
-    use_kernels=None,
 ):
     """Dynamic data / churn run; returns average accuracy + msgs/link/cycle.
 
     Passing a :class:`~repro_torch.core.topology.DynTopology` routes churn
     through the real membership ops (dead peers *leave*); the live link set
-    and so the reported dynamics are identical either way.  ``engine``,
-    ``device`` and ``use_kernels`` as in :func:`run_static`.
+    and so the reported dynamics are identical either way.  ``engine`` and
+    ``device`` as in :func:`run_static`; the kernel suite is the default
+    one for ``device``.
     """
-    drv, sample, rng = _driver(topo, spec, cfg, engine, device, use_kernels)
+    drv, sample, rng = _driver(topo, spec, cfg, engine, device, None)
     edges = max(topo.num_edges, 1)
     n = topo.n
     accs, loads = [], []
