@@ -6,35 +6,53 @@
 Phases, in order; any failure exits nonzero:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and print
-   the build time and the compiler's register report;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, in parallel) and print the build time and the
+   compiler's register report;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (grid, Chord and Barabási–Albert at 80,000 peers,
-   k = 3, d = 2) and at edge shapes (n not a block multiple, k = 243,
-   d = 6; Voronoi, halfspace and padded-Voronoi families), and time both;
+   ``run_static`` path's shapes (grid, Chord and Barabási–Albert at 80,000
+   peers, k = 3, d = 2) and at edge shapes (n not a block multiple,
+   k = 243, d = 6; Voronoi, halfspace and padded-Voronoi families), and
+   time both; then the query-batched ``lss_state`` / ``correction`` at the
+   service's shapes (Q = 64 slots of mixed Voronoi, halfspace, padded and
+   padding families with per-slot beta / eps, on grid and Chord) and
+   ``region_decide`` at n = 80,000 (k = 3 and 243) and at the observe
+   pass's (Q = 64, one vector each), each timed beside its bound;
 4. run ``sim.run_static`` on the three topologies at 80,000 peers through
-   the kernels (the main path), with the launch counters zeroed before
-   each run and read after it; then time the same loop after its set-up,
-   synchronized, over several repeats (median and spread of µs per
-   cycle), and run it once more under ``torch.profiler`` to print the
-   device time by kernel and the device's idle share of that profiled
-   loop's own wall time;
+   the kernels, with the launch counters zeroed before each run and read
+   after it; then time the same loop after its set-up, synchronized, over
+   several repeats (median and spread of µs per cycle), and run it once
+   more under ``torch.profiler`` to print the device time by kernel and
+   the device's idle share of that profiled loop's own wall time;
 5. at 4,096 peers, run ``run_static`` with the kernels and with the
-   reference formulas on the card and require the same outcome.
+   reference formulas on the card and require the same outcome;
+6. serve ``benchmarks/service_throughput.py``'s workload with the port's
+   ``Service`` (this slice's main path): 64 heterogeneous tenants, K = 16
+   cycles per dispatch, 4 dispatches with an update of n/100 peers at
+   each boundary, on grid (80,089 peers) and Chord (80,000), counters
+   zeroed before and read after; print the dispatch wall, tenant-cycles
+   per second, launches and host syncs per dispatch, peak memory, and one
+   more dispatch under ``torch.profiler``;
+7. service parity: tenants 0 (Voronoi) and 1 (halfspace) of each run
+   replayed alone through the single-query ``cycle_impl`` must give the
+   served per-dispatch msgs and accuracy, and at grid 4,096 with Q = 8 the
+   fused-suite and reference-suite services must give identical records.
 
-It prints a JSON line with one entry per kernel (``correction``'s also
-carries ``bound_v_ms``, the bound of the violating-set part the main path
-keeps, beside the bound of the whole function), then, as its last line,
-``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
-the repository, it exits nonzero and prints no result.
+It prints a JSON line with one entry per kernel (its numbers at the
+service's shape, ``by_shape`` for the others, ``launches`` summed over the
+``run_static`` and service runs; ``correction``'s also carries
+``bound_v_ms``, the bound of the violating-set part the main path keeps),
+then, as its last line, ``{"ok": true, "device": {...}}``.  Without CUDA,
+or outside a checkout of the repository, it exits nonzero and prints no
+result.
 
 Tolerances: float outputs ``allclose(rtol=1e-5, atol=1e-5)``.  The
 kernel-check inputs are multiples of 1/64 of moderate size, so every sum
 is exact in float32 in any order; ``viol`` and ``dec`` must then match
 exactly, except at rows where a decision is a near tie (best and
 second-best Voronoi score, or v.w and b, within 1e-5 relative, absolute
-below 1), where the plain version's matrix product may round differently
-from the kernel's; those rows are counted and printed.
+below 1); those rows are counted and printed.  ``region_decide`` must
+match exactly: the plain decision does the kernel's arithmetic.
 """
 
 from __future__ import annotations
@@ -52,14 +70,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Outside a checkout of the repository this import fails: no result.
-from repro_torch import kernels  # noqa: E402
+from repro_torch import kernels, service  # noqa: E402
 from repro_torch.core import lss, regions, sim, topology, wvs  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import correction as kcorr  # noqa: E402
 from repro_torch.kernels import lss_state as kst  # noqa: E402
+from repro_torch.kernels import region_decide as kdec  # noqa: E402
 
 N_MAIN = 80_000
 N_SMALL = 4096
+Q_SERVICE = 64  # benchmarks/service_throughput.py: 64 tenants, K = 16
+K_SERVICE = 16
+SERVICE_DISPATCHES = 4
+SERVICE_TOPOS = ("grid", "chord")  # BA at Q = 64 would need ~96 GB
 MAX_CYCLES = 600  # as benchmarks/common.py::timed_static
 TIMED_REPEATS = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -92,9 +115,10 @@ def _dyadic(t):
 
 
 def _kernel_inputs(mask, d, gen, zero_frac=0.25):
-    """Random moment-form inputs on ``mask``'s shape (tests/test_kernels.py
-    ``_mk`` on the card, rounded to multiples of 1/64)."""
-    n, D = mask.shape
+    """Random moment-form inputs on ``mask``'s shape, (n, D) or with a
+    leading slot axis (Q, n, D) (tests/test_kernels.py ``_mk`` on the card,
+    rounded to multiples of 1/64)."""
+    shape = tuple(mask.shape)
     dev = mask.device
 
     def randn(*s):
@@ -103,14 +127,13 @@ def _kernel_inputs(mask, d, gen, zero_frac=0.25):
     def pos(*s):
         return 0.05 + 1.95 * torch.rand(s, generator=gen, device=dev)
 
-    zero = torch.rand((n, D), generator=gen, device=dev) < zero_frac
-    keep = (~zero).float()
-    x_m = _dyadic(randn(n, d))
-    x_c = torch.ones((n,), device=dev)
-    out_m = _dyadic(randn(n, D, d) * 0.3) * keep[..., None]
-    out_c = _dyadic(pos(n, D)) * keep
-    in_m = _dyadic(randn(n, D, d) * 0.3) * keep[..., None]
-    in_c = _dyadic(pos(n, D)) * keep
+    keep = (torch.rand(shape, generator=gen, device=dev) >= zero_frac).float()
+    x_m = _dyadic(randn(*shape[:-1], d))
+    x_c = torch.ones(shape[:-1], device=dev)
+    out_m = _dyadic(randn(*shape, d) * 0.3) * keep[..., None]
+    out_c = _dyadic(pos(*shape)) * keep
+    in_m = _dyadic(randn(*shape, d) * 0.3) * keep[..., None]
+    in_c = _dyadic(pos(*shape)) * keep
     return x_m, x_c, out_m, out_c, in_m, in_c, mask.contiguous()
 
 
@@ -161,9 +184,11 @@ def _time_ms(fn, reps):
 
 
 def _lss_state_cost(args, k):
-    """(bytes, operations) the fused status/violation function needs."""
-    x_m, _, out_m, _, _, _, mask = args
-    n, D, d = out_m.shape
+    """(bytes, operations) the fused status/violation function needs (n
+    counts the peers of every slot of a batched call)."""
+    x_m, x_c, out_m, _, _, _, mask = args
+    D, d = out_m.shape[-2:]
+    n = x_c.numel()
     live = int(mask.sum())
     nbytes = (4 * n * (d + 1)  # x_m, x_c
               + n * D  # mask
@@ -182,8 +207,9 @@ def _correction_cost(args, v):
     slot's ``in`` and ``a_c`` is read and every slot of ``out'`` written,
     under the rule ``_lss_state_cost`` follows too: each input read where
     an output depends on it, each output written once."""
-    s_m, _, a_m, _, _, _, _ = args
-    n, D, d = a_m.shape
+    _, s_c, a_m, _, _, _, _ = args
+    D, d = a_m.shape[-2:]
+    n = s_c.numel()
     nv = int(v.sum())
     nbytes = (4 * n * (d + 1)  # s_m, s_c
               + 4 * n * D  # a_c
@@ -199,8 +225,9 @@ def _correction_cost_v(args, v):
     """(bytes, operations) of the part of the correction the main path
     keeps: ``lss.py`` blends ``out'`` in on the violating set V only, so
     this reads S, ``v_set``, and ``a`` and ``in`` on V, and writes V."""
-    s_m, _, a_m, _, _, _, _ = args
-    n, D, d = a_m.shape
+    _, s_c, a_m, _, _, _, _ = args
+    D, d = a_m.shape[-2:]
+    n = s_c.numel()
     nv = int(v.sum())
     nbytes = (4 * n * (d + 1)  # s_m, s_c
               + n * D  # v_set
@@ -258,14 +285,18 @@ def _check_case(label, args, slot, beta, eps, timed):
              "err_lss_state": err_state, "err_correction": err_corr}
     if timed:
         k = slot.centers.shape[0]
-        table = ops.prep_slot(slot, eps=eps)
+        table = [t[None] for t in ops.prep_slot(slot, eps=eps)]
+        q_args = [a[None] for a in args]
+        q_cargs = [a[None] for a in cargs]
+        knobs = (torch.full((1,), beta, device=v.device),
+                 torch.full((1,), eps, device=v.device))
         stats["lss_state_ms"] = _time_ms(
-            lambda: kst.launch(*args, *table, eps), 20)
+            lambda: kst.launch(*q_args, *table), 20)
         stats["lss_state_plain_ms"] = _time_ms(
             lambda: ref.lss_state_ref(*args, slot, eps), 5)
         stats["lss_state_bound"] = _bound_ms(*_lss_state_cost(args, k))
         stats["correction_ms"] = _time_ms(
-            lambda: kcorr.launch(*cargs, beta, eps), 20)
+            lambda: kcorr.launch(*q_cargs, *knobs), 20)
         stats["correction_plain_ms"] = _time_ms(
             lambda: ref.correction_ref(*cargs, beta, eps), 5)
         stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
@@ -337,11 +368,370 @@ def phase_kernels(topos, dev):
     return main
 
 
+# --- phase 3b: the query-batched kernels at the service's shapes ---------
+
+
+def _service_regions(q, k_max, d, gen, dev):
+    """Q slots cycling Voronoi (k_max centers), halfspace, padded Voronoi
+    (k_max - 1 centers) and padding (every center masked)."""
+    packed = regions.PackedRegions.empty(q, k_max, d, device=dev)
+    for i in range(q):
+        kind = i % 4
+        if kind == 3:
+            continue
+        if kind == 1:
+            fam = regions.HalfspaceRegions(
+                torch.randn((d,), generator=gen, device=dev),
+                torch.randn((), generator=gen, device=dev))
+        else:
+            fam = regions.VoronoiRegions(torch.randn(
+                (k_max - (kind == 2), d), generator=gen, device=dev))
+        packed = packed.set(i, fam)
+    return packed
+
+
+def _slot_ties(args, want, packed, eps, rows):
+    """Near-tie peers of the slots in ``rows`` (bool (Q, n))."""
+    ties = torch.zeros_like(rows)
+    for q in torch.nonzero(rows.any(dim=1)).flatten().tolist():
+        one = [a[q] for a in args]
+        ties[q] = _tie_rows(one, want[0][q], want[1][q], packed.slot(q),
+                            float(eps[q]))
+    return ties
+
+
+def _check_batched(label, args, packed, eps, beta, timed):
+    """The Q-batched lss_state and correction through the wrappers against
+    their plain versions (decisions exact off near ties), then timed."""
+    tables = ops.prep_slots(packed, eps, beta)
+    got = ops.lss_state(*args, tables, eps=eps)
+    want = ref.lss_state_ref(*args, packed, eps)
+    torch.cuda.synchronize()
+    err_state = 0.0
+    for name, g, w in zip(("s_m", "s_c"), got[:2], want[:2]):
+        if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{label}: batched lss_state {name} differs")
+        err_state = max(err_state, float((g - w).abs().max()))
+    bad = (got[3] != want[3]) | (got[2] != want[2]).any(dim=-1)
+    ties = _slot_ties(args, want, packed, eps, bad) if bool(bad.any()) \
+        else bad
+    if bool((bad & ~ties).any()):
+        raise AssertionError(f"{label}: batched dec/viol differ outside "
+                             f"near ties ({int((bad & ~ties).sum())} rows)")
+    padding = (packed.kind == regions.KIND_VORONOI) & ~packed.cmask.any(-1)
+    if bool(got[3][padding].any()):
+        raise AssertionError(f"{label}: a padding slot decided != 0")
+    _, _, out_m, out_c, in_m, in_c, mask = args
+    s_m, s_c, viol, _ = want
+    v = (viol & mask).contiguous()
+    cargs = (s_m, s_c, out_m + in_m, out_c + in_c, in_m, in_c, v)
+    cgot = ops.correction(*cargs, beta=beta, eps=eps)
+    cwant = ref.correction_ref(*cargs, beta, eps)
+    torch.cuda.synchronize()
+    err_corr = 0.0
+    for name, g, w in zip(("out_m", "out_c"), cgot, cwant):
+        if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{label}: batched correction {name} "
+                                 "differs")
+        err_corr = max(err_corr, float((g - w).abs().max()))
+    stats = {"label": label, "mismatch_rows": int(bad.sum()),
+             "err_lss_state": err_state, "err_correction": err_corr}
+    if timed:
+        k = packed.k_max
+        table = (tables.cthw, tables.cn, tables.meta)
+        stats["lss_state_ms"] = _time_ms(lambda: kst.launch(*args, *table),
+                                         10)
+        stats["lss_state_plain_ms"] = _time_ms(
+            lambda: ref.lss_state_ref(*args, packed, eps), 3)
+        stats["lss_state_bound"] = _bound_ms(*_lss_state_cost(args, k))
+        knobs = (beta.contiguous(), eps.contiguous())
+        stats["correction_ms"] = _time_ms(
+            lambda: kcorr.launch(*cargs, *knobs), 10)
+        stats["correction_plain_ms"] = _time_ms(
+            lambda: ref.correction_ref(*cargs, beta, eps), 3)
+        stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
+        stats["correction_bound_v"] = _bound_ms(
+            *_correction_cost_v(cargs, v))
+    return stats
+
+
+def _region_decide_cost(v, packed):
+    """(bytes, operations) of the packed decision of ``v`` (Q, m, d): each
+    vector read, each id written, each slot's table read once; per vector
+    d products, d - 1 sums, a scale, an add and a compare for each center
+    of a Voronoi slot, d products, d - 1 sums and a compare for a
+    halfspace."""
+    q, m, d = v.shape
+    k = packed.k_max
+    nbytes = 4 * q * m * d + 4 * q * m + 4 * q * (d * (k + 1) + k + 4)
+    centers = packed.cmask.sum(-1)
+    per_vec = torch.where(packed.kind == regions.KIND_VORONOI,
+                          centers * (2 * d + 2), 2 * d)
+    return nbytes, int(per_vec.sum()) * m
+
+
+def _check_region_decide(label, v, region, timed, library=None):
+    """region_decide through its wrapper against its plain version; ids
+    must agree exactly (the plain decision does the kernel's arithmetic)."""
+    packed = region if isinstance(region, regions.PackedRegions) else \
+        regions.PackedRegions(*(f[None] for f in region))
+    got = ops.region_decide(v, region)
+    want = ref.region_decide_ref(v, region)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: region_decide differs on "
+                             f"{int((got != want).sum())} vectors")
+    stats = {"label": label,
+             "max_abs_err": float((got - want).abs().max()) if got.numel()
+             else 0.0}
+    if timed:
+        vq = v if v.ndim == 3 else v[None]
+        tables = ops.prep_slots(packed)
+        table = (tables.cthw, tables.cn, tables.meta)
+        stats["ms"] = _time_ms(lambda: kdec.launch(vq, *table), 20)
+        stats["plain_ms"] = _time_ms(
+            lambda: ref.region_decide_ref(v, region), 5)
+        stats["bound"] = _bound_ms(*_region_decide_cost(vq, packed))
+        stats["library_ms"] = None
+    return stats
+
+
+def phase_kernels_batched(topos, dev):
+    """Q = 64 lss_state / correction at the service's shapes (grid and
+    Chord at 80,000 peers, d = 2, k_max = 3, mixed slots with per-slot
+    beta / eps), and region_decide at n = 80,000 (k = 3 and 243; Voronoi,
+    padded Voronoi, halfspace) and at the observe pass's (64, 1, 2)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    out = {}
+    eps = torch.tensor([1e-9, 1e-3] * (Q_SERVICE // 2), device=dev)
+    beta = torch.tensor([1e-3, 0.1, 0.05, 1e-3] * (Q_SERVICE // 4),
+                        device=dev)
+    for name in SERVICE_TOPOS:
+        topo = topos[name]
+        mask = torch.tensor(topo.mask, device=dev).expand(
+            Q_SERVICE, -1, -1)
+        args = _kernel_inputs(mask, 2, gen)
+        packed = _service_regions(Q_SERVICE, 3, 2, gen, dev)
+        st = _check_batched(f"{name} Q={Q_SERVICE} n={topo.n} "
+                            f"D={topo.max_deg}", args, packed, eps, beta,
+                            timed=True)
+        out[name] = st
+        print(f"[kernels-q] {st['label']}: lss_state "
+              f"{st['lss_state_ms']:.4f} ms (plain "
+              f"{st['lss_state_plain_ms']:.4f}, bound "
+              f"{st['lss_state_bound'][0]:.4f} by "
+              f"{st['lss_state_bound'][1]}); correction "
+              f"{st['correction_ms']:.4f} ms (plain "
+              f"{st['correction_plain_ms']:.4f}, bound "
+              f"{st['correction_bound'][0]:.4f}; on V only "
+              f"{st['correction_bound_v'][0]:.4f}); rows differing at "
+              f"near ties {st['mismatch_rows']}; max|err| "
+              f"{st['err_lss_state']:.3g} / {st['err_correction']:.3g}",
+              flush=True)
+        del args, mask
+    decide = {}
+    for k in (3, 243):
+        v = torch.randn((N_MAIN, 2), generator=gen, device=dev)
+        cent = torch.randn((k, 2), generator=gen, device=dev)
+        fams = {"voronoi": regions.PackedSlot.voronoi(cent),
+                "padded-voronoi": regions.PackedRegions.pack(
+                    [regions.VoronoiRegions(cent)], k_max=k + 3).slot(0),
+                "halfspace": regions.PackedSlot.halfspace(
+                    torch.randn((2,), generator=gen, device=dev), 0.1)}
+        for fam, slot in fams.items():
+            if fam == "halfspace" and k != 3:
+                continue
+            st = _check_region_decide(f"n={N_MAIN} k={k} {fam}", v, slot,
+                                      timed=True)
+            decide[st["label"]] = st
+    packed = _service_regions(Q_SERVICE, 3, 2, gen, dev)
+    v = torch.randn((Q_SERVICE, 1, 2), generator=gen, device=dev)
+    st = _check_region_decide(f"observe Q={Q_SERVICE} m=1", v, packed,
+                              timed=True)
+    decide["observe"] = st
+    for st in decide.values():
+        print(f"[kernels-q] region_decide {st['label']}: {st['ms']:.4f} ms "
+              f"(plain {st['plain_ms']:.4f}, bound {st['bound'][0]:.5f} by "
+              f"{st['bound'][1]}); ids equal", flush=True)
+    out["region_decide"] = decide
+    return out
+
+
+# --- phase 6: the monitor service (this slice's main path) ---------------
+
+
+def _make_stream(n, cycles, k, seed=7):
+    """benchmarks/service_throughput.py::make_stream: (cycle, who, values)
+    updates of n/100 peers at every K boundary."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for c in range(k, cycles, k):
+        who = rng.choice(n, size=max(1, n // 100), replace=False)
+        out[c] = (who.astype(np.int32),
+                  rng.normal(size=(who.size, 2)).astype(np.float32))
+    return out
+
+
+def _serve(topo, specs, dev, use_kernels=None, dispatches=SERVICE_DISPATCHES,
+           timed=False):
+    """benchmarks/service_throughput.py::run_service on the port: admit the
+    tenants, then ``dispatches`` ticks with the update stream pushed at
+    each boundary.  Returns (service, records per tick, wall s per tick)."""
+    svc = service.Service(topo, service.ServiceConfig(
+        capacity=len(specs), k_max=3, d=2, cycles_per_dispatch=K_SERVICE,
+        use_kernels=use_kernels), device=dev)
+    for spec in specs:
+        svc.admit(spec)
+    updates = _make_stream(topo.n, dispatches * K_SERVICE, K_SERVICE)
+    records, walls = [], []
+    for i in range(dispatches):
+        if i * K_SERVICE in updates:
+            who, vals = updates[i * K_SERVICE]
+            svc.push_updates(who, vals, mode="set")
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records.append(svc.tick())
+        if timed:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return svc, records, walls, updates
+
+
+def phase_service(topos, dev):
+    """The service at the paper's peer count: 64 heterogeneous tenants,
+    K = 16, 4 dispatches with the update stream, on grid and Chord; the
+    launch counters and the do-while's host-read counter are zeroed just
+    before and read just after; one more dispatch under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    totals = {"region_decide": 0, "lss_state": 0, "correction": 0}
+    runs = {}
+    for name in SERVICE_TOPOS:
+        topo = topos[name]
+        specs = service.heterogeneous_tenants(topo.n, Q_SERVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        lss.host_syncs = 0
+        svc, records, walls, updates = _serve(topo, specs, dev, timed=True)
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        syncs = lss.host_syncs
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if any(counts[f"{k}_ref"] for k in totals):
+            raise AssertionError(f"{name}: the service ran a plain version")
+        for key in totals:
+            if counts[key] <= 0:
+                raise AssertionError(f"{name}: the service launched no "
+                                     f"{key}")
+            totals[key] += counts[key]
+        for recs in records:
+            if len(recs) != Q_SERVICE:
+                raise AssertionError(f"{name}: {len(recs)} records")
+            for r in recs:
+                if (not 0.0 <= r["accuracy"] <= 1.0 or r["msgs"] < 0
+                        or r["region"] not in (0, 1, 2)):
+                    raise AssertionError(f"{name}: implausible record {r}")
+        steady = walls[1:]
+        med = float(np.median(steady))
+        vor = [r["accuracy"] for r in records[-1] if r["slot"] % 2 == 0]
+        half = [r["accuracy"] for r in records[-1] if r["slot"] % 2 == 1]
+        print(f"[service] {name} n={topo.n} D={topo.max_deg} Q={Q_SERVICE} "
+              f"K={K_SERVICE}: dispatch wall ms "
+              f"{[round(w * 1e3, 3) for w in walls]}; dispatches 2-"
+              f"{len(walls)}: median {med * 1e3:.3f} min "
+              f"{min(steady) * 1e3:.3f} max {max(steady) * 1e3:.3f}; "
+              f"tenant-cycles/s {Q_SERVICE * K_SERVICE / med:.1f}; "
+              f"launches per dispatch "
+              f"{ {k: counts[k] / len(walls) for k in totals} }; host "
+              f"syncs (do-while reads) per dispatch {syncs / len(walls)} "
+              f"+ 1 observe transfer; peak memory {peak:.3f} GiB; last "
+              f"dispatch accuracy Voronoi min {min(vor):.4f} mean "
+              f"{np.mean(vor):.4f}, halfspace min {min(half):.4f} mean "
+              f"{np.mean(half):.4f}; msgs {sum(r['msgs'] for r in records[-1])}",
+              flush=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.tick()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _print_profile(f"service {name}", prof, wall * 1e3, med * 1e3)
+        runs[name] = (specs, records, updates)
+        del svc
+        torch.cuda.empty_cache()
+    return totals, runs
+
+
+def _replay(topo, spec, updates, dev, dispatches):
+    """One tenant through the single-query ``cycle_impl`` on the fused
+    suite, with the service's updates at the same boundaries; returns
+    (msgs, accuracy, quiescent, region) per dispatch."""
+    ta = lss.TopoArrays.from_topology(topo, dev)
+    st = lss.init_state(ta, spec.input_wv(dev), seed=spec.seed)
+    slot = regions.as_packed_slot(
+        type(spec.region)(*(t.to(dev) for t in spec.region)))
+    cfg = lss.LSSConfig(beta=spec.beta, ell=spec.ell)
+    suite = kernels.get_suite("fused")
+    out = []
+    for i in range(dispatches):
+        if i * K_SERVICE in updates:
+            who, vals = updates[i * K_SERVICE]
+            idx = torch.as_tensor(who, dtype=torch.long, device=dev)
+            x_m, x_c = st.x_m.clone(), st.x_c.clone()
+            x_m[idx] = torch.as_tensor(vals, device=dev)
+            x_c[idx] = 1.0
+            st = st._replace(x_m=x_m, x_c=x_c)
+        for _ in range(K_SERVICE):
+            st, _ = lss.cycle_impl(st, ta, cfg, None, suite=suite,
+                                   regions=slot)
+        acc, quiescent, _, want = lss.metrics_impl(st, ta, None, cfg.eps,
+                                                   suite=suite, regions=slot)
+        out.append((int(st.msgs), float(acc), bool(quiescent), int(want)))
+        st = st._replace(msgs=torch.zeros_like(st.msgs))
+    return out
+
+
+def phase_service_parity(topos, dev, runs):
+    """Tenants 0 (Voronoi) and 1 (halfspace) of each service run replayed
+    alone must give its per-dispatch msgs and accuracy; at grid 4,096 with
+    Q = 8 the fused-suite and reference-suite services must give identical
+    records."""
+    for name, (specs, records, updates) in runs.items():
+        for q in (0, 1):
+            alone = _replay(topos[name], specs[q], updates, dev,
+                            len(records))
+            served = [(r[q]["msgs"], r[q]["accuracy"], r[q]["quiescent"],
+                       r[q]["region"]) for r in records]
+            if alone != served:
+                raise AssertionError(f"{name} tenant {q}: served {served} "
+                                     f"!= alone {alone}")
+            print(f"[service-parity] {name} tenant {q}: the service's "
+                  f"(msgs, accuracy, quiescent, region) per dispatch equal "
+                  f"the single-query run: {served}", flush=True)
+    side = int(round(N_SMALL ** 0.5))
+    topo = topology.grid(side * side)
+    specs = service.heterogeneous_tenants(topo.n, 8)
+    fused = _serve(topo, specs, dev, use_kernels=True)[1]
+    plain = _serve(topo, specs, dev, use_kernels=False)[1]
+    if fused != plain:
+        diff = [(i, a, b) for i, (ra, rb) in enumerate(zip(fused, plain))
+                for a, b in zip(ra, rb) if a != b]
+        raise AssertionError(f"fused != reference service: {diff[:4]}")
+    print(f"[service-parity] grid n={topo.n} Q=8: fused-suite and "
+          f"reference-suite services gave identical records over "
+          f"{len(fused)} dispatches ({sum(len(r) for r in fused)} records)",
+          flush=True)
+
+
 # --- phases 4 and 5: the main path --------------------------------------
 
 
 def phase_main_path(topos, dev):
-    totals = {"lss_state": 0, "correction": 0}
+    totals = {"region_decide": 0, "lss_state": 0, "correction": 0}
     cycles = {}
     for name, topo in topos.items():
         spec = sim.ProblemSpec(n=topo.n)
@@ -355,9 +745,9 @@ def phase_main_path(topos, dev):
               f"quiesced_at={res['quiesced_at']} msgs_per_link="
               f"{res['msgs_per_link']!r} final_accuracy="
               f"{res['final_accuracy']!r} counts={counts}", flush=True)
-        if counts["lss_state"] <= 0 or counts["correction"] <= 0:
+        if min(counts[key] for key in totals) <= 0:
             raise AssertionError(f"{name}: the main path launched no kernel")
-        if counts["lss_state_ref"] or counts["correction_ref"]:
+        if any(counts[f"{key}_ref"] for key in totals):
             raise AssertionError(f"{name}: the main path ran a plain version")
         acc = res["final_accuracy"]
         if not 0.0 <= acc <= 1.0 or res["msgs_per_link"] <= 0:
@@ -427,6 +817,29 @@ def _busy_us(intervals):
     return busy
 
 
+def _print_profile(label, prof, wall_ms, unprofiled_ms):
+    """Device busy time, idle share of the profiled wall and the device
+    time by kernel of one torch.profiler trace."""
+    ivals = _device_intervals(prof)
+    if not ivals:
+        print(f"[profile] {label}: device time not measured (the profiler "
+              "saw no device events)", flush=True)
+        return
+    by_name = {}
+    for kname, s, e in ivals:
+        by_name[kname] = by_name.get(kname, 0.0) + (e - s)
+    busy_ms = _busy_us(ivals) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[profile] {label}: device busy {busy_ms:.3f} ms of the profiled "
+          f"run's {wall_ms:.3f} ms wall (idle share "
+          f"{1.0 - busy_ms / wall_ms:.3f}); unprofiled median "
+          f"{unprofiled_ms:.3f} ms; device events {len(ivals)}", flush=True)
+    for kname, us in top:
+        print(f"[profile] {label}:   {us / 1e3:9.3f} ms "
+              f"{100.0 * us / 1e3 / busy_ms:5.1f}%  {kname[:90]}",
+              flush=True)
+
+
 def phase_profile(topos, dev, medians, cycles):
     """Where the time goes: the main path's loop once more, set up outside
     the trace, under torch.profiler; device time by kernel, and the
@@ -438,26 +851,8 @@ def phase_profile(topos, dev, medians, cycles):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall, _ = _timed_loop(drv, topo)
-        ivals = _device_intervals(prof)
-        if not ivals:
-            print(f"[profile] {name}: device time not measured (the "
-                  "profiler saw no device events)", flush=True)
-            continue
-        by_name = {}
-        for kname, s, e in ivals:
-            by_name[kname] = by_name.get(kname, 0.0) + (e - s)
-        busy_ms = _busy_us(ivals) / 1e3
-        wall_ms = wall * 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[profile] {name}: device busy {busy_ms:.3f} ms of the "
-              f"profiled loop's {wall_ms:.3f} ms wall (idle share "
-              f"{1.0 - busy_ms / wall_ms:.3f}); unprofiled loop median "
-              f"{medians[name] * cycles[name] / 1e3:.3f} ms; device events "
-              f"{len(ivals)}", flush=True)
-        for kname, us in top:
-            print(f"[profile] {name}:   {us / 1e3:9.3f} ms "
-                  f"{100.0 * us / 1e3 / busy_ms:5.1f}%  {kname[:90]}",
-                  flush=True)
+        _print_profile(name, prof, wall * 1e3,
+                       medians[name] * cycles[name] / 1e3)
 
 
 def phase_parity(dev):
@@ -508,28 +903,60 @@ def main() -> int:
           flush=True)
 
     main_stats = phase_kernels(topos, dev)
+    batched = phase_kernels_batched(topos, dev)
     totals, cycles = phase_main_path(topos, dev)
     medians = phase_timing(topos, dev, cycles)
     phase_profile(topos, dev, medians, cycles)
     phase_parity(dev)
+    svc_totals, runs = phase_service(topos, dev)
+    phase_service_parity(topos, dev, runs)
 
-    ba = main_stats["ba"]
     line = {"kernels": []}
+    decide = batched["region_decide"]
     for name, src, rep in (
+            ("region_decide", "src/repro_torch/kernels/csrc/region_decide.cu",
+             "src/repro/kernels/region_decide.py:51"),
             ("lss_state", "src/repro_torch/kernels/csrc/lss_state.cu",
              "src/repro/kernels/lss_state.py:42"),
             ("correction", "src/repro_torch/kernels/csrc/correction.cu",
              "src/repro/kernels/correction.py:27")):
-        bound, by = ba[f"{name}_bound"]
-        extra = ({"bound_v_ms": ba["correction_bound_v"][0]}
-                 if name == "correction" else {})
+        if name == "region_decide":
+            # The service's observe pass gives it (Q, 1, d).
+            head = decide["observe"]
+            shapes = [{"shape": st["label"], "ms": st["ms"],
+                       "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
+                       "bound_by": st["bound"][1]} for st in decide.values()]
+            entry = {"max_abs_err": max(st["max_abs_err"]
+                                        for st in decide.values()),
+                     "ms": head["ms"], "plain_ms": head["plain_ms"],
+                     "bound_ms": head["bound"][0],
+                     "bound_by": head["bound"][1], "shape": head["label"]}
+        else:
+            # This slice's main path: the service at Q = 64 on Chord; the
+            # other shapes (run_static on BA, the service on grid) beside.
+            stats = [batched["chord"], batched["grid"], main_stats["ba"]]
+            head = stats[0]
+            shapes = [{"shape": st["label"], "ms": st[f"{name}_ms"],
+                       "plain_ms": st[f"{name}_plain_ms"],
+                       "bound_ms": st[f"{name}_bound"][0],
+                       "bound_by": st[f"{name}_bound"][1],
+                       **({"bound_v_ms": st["correction_bound_v"][0]}
+                          if name == "correction" else {})}
+                      for st in stats]
+            entry = {"max_abs_err": max(st[f"err_{name}"] for st in stats),
+                     "ms": head[f"{name}_ms"],
+                     "plain_ms": head[f"{name}_plain_ms"],
+                     "bound_ms": head[f"{name}_bound"][0],
+                     "bound_by": head[f"{name}_bound"][1],
+                     **({"bound_v_ms": head["correction_bound_v"][0]}
+                        if name == "correction" else {}),
+                     "shape": head["label"]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": totals[name],
-            "max_abs_err": ba[f"err_{name}"],
-            "ms": ba[f"{name}_ms"], "plain_ms": ba[f"{name}_plain_ms"],
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            **extra, "shape": ba["label"], "gpu": gpu})
+            "launches": totals[name] + svc_totals[name],
+            "launches_by_path": {"run_static": totals[name],
+                                 "service": svc_totals[name]},
+            "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The port never imports JAX; a caller that holds a JAX ``LSSState``,
-``TopoArrays`` or ``PackedSlot`` hands its fields over as numpy arrays
-(``{f: np.asarray(getattr(s, f)) for f in s._fields}``) and gets the
-port's twin back on ``device``.  This is how the parity tests start both
-packages from the same state.
+``TopoArrays``, ``PackedSlot`` or service ``QuerySpec`` hands its fields
+over as numpy arrays (``{f: np.asarray(getattr(s, f)) for f in
+s._fields}``) and gets the port's twin back on ``device``.  This is how
+the parity tests start both packages from the same state and the same
+tenants.
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ import numpy as np
 import torch
 
 from .core import lss, regions
+from .service.controlplane import SLOSpec
+from .service.query import QuerySpec
 
-__all__ = ["state_from_jax_numpy", "state_to_numpy", "topo_from_numpy",
-           "slot_from_numpy"]
+__all__ = ["state_from_jax_numpy", "states_from_jax_numpy", "state_to_numpy",
+           "topo_from_numpy", "slot_from_numpy", "query_spec_from_numpy"]
 
 _STATE_DTYPES = {
     "out_m": torch.float32, "out_c": torch.float32,
@@ -37,6 +40,21 @@ def state_from_jax_numpy(fields, device, seed: int = 0) -> lss.LSSState:
                               device=device)
            for name, dt in _STATE_DTYPES.items()}
     out["rng"] = lss._generator(torch.device(device), seed)
+    return lss.LSSState(**out)
+
+
+def states_from_jax_numpy(fields, device, seeds) -> lss.LSSState:
+    """Q slots' states stacked, from numpy arrays with a leading slot axis
+    named like the JAX ``LSSState`` fields (a JAX service's ``states``).
+
+    The JAX ``rng`` keys are dropped; slot q gets a generator seeded with
+    ``seeds[q]``.
+    """
+    out = {name: torch.tensor(np.asarray(fields[name]), dtype=dt,
+                              device=device)
+           for name, dt in _STATE_DTYPES.items()}
+    dev = torch.device(device)
+    out["rng"] = tuple(lss._generator(dev, s) for s in seeds)
     return lss.LSSState(**out)
 
 
@@ -64,3 +82,32 @@ def slot_from_numpy(kind, centers, cmask, w, b, device) -> regions.PackedSlot:
                            device=device),
         w=torch.tensor(np.asarray(w), dtype=torch.float32, device=device),
         b=torch.tensor(np.asarray(b), dtype=torch.float32, device=device))
+
+
+def query_spec_from_numpy(region, inputs, weights=None, beta=None, ell=None,
+                          eps=None, seed=0, priority=0, slo=None) -> QuerySpec:
+    """The port's :class:`~repro_torch.service.query.QuerySpec` from a JAX
+    spec's fields.
+
+    ``region`` is the JAX family's fields as numpy arrays
+    (``{f: np.asarray(v) for f, v in spec.region._asdict().items()}``):
+    ``centers`` for a Voronoi family, ``w`` and ``b`` for a halfspace.
+    ``slo`` is None or the JAX ``SLOSpec``'s fields (a mapping or a tuple
+    in field order).  The region's tensors stay on the CPU; the service
+    copies them to its device at admission.
+    """
+    f32 = torch.float32
+    if "centers" in region:
+        fam = regions.VoronoiRegions(
+            torch.tensor(np.asarray(region["centers"]), dtype=f32))
+    else:
+        fam = regions.HalfspaceRegions(
+            w=torch.tensor(np.asarray(region["w"]), dtype=f32),
+            b=torch.tensor(np.asarray(region["b"]), dtype=f32))
+    if slo is not None:
+        slo = SLOSpec(**slo) if isinstance(slo, dict) else SLOSpec(*slo)
+    return QuerySpec(region=fam, inputs=np.asarray(inputs, np.float32),
+                     weights=(None if weights is None
+                              else np.asarray(weights, np.float32)),
+                     beta=beta, ell=ell, eps=eps, seed=seed,
+                     priority=priority, slo=slo)

@@ -10,20 +10,21 @@ agreements equal its new status (Eq. 1):
 
 and the message realizing a chosen agreement is ``X'_ij = A'_ij (-) X_ji``.
 These formulas are the plain version of the ``correction`` kernel
-(:mod:`repro_torch.kernels.ref`).
+(:mod:`repro_torch.kernels.ref`).  They take a leading query-slot axis too,
+with ``beta`` and ``eps`` one value or one per slot.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import wvs
+from . import stopping, wvs
 
 __all__ = ["selective_target", "new_agreement_weights", "corrected_messages"]
 
 
 def _safe(c, eps):
-    return torch.where(torch.abs(c) > eps, c, 1.0)
+    return torch.where(torch.abs(c) > wvs.lead(eps, c), c, 1.0)
 
 
 def selective_target(s: wvs.WV, a: wvs.WV, v_set, eps: float = 1e-9) -> wvs.WV:
@@ -32,16 +33,17 @@ def selective_target(s: wvs.WV, a: wvs.WV, v_set, eps: float = 1e-9) -> wvs.WV:
     ``s``: (n, d)-moment WV;  ``a``: (n, D, d)-moment WV;  ``v_set``: bool
     (n, D).
     """
-    t_m = s.m + torch.sum(torch.where(v_set[..., None], a.m, 0.0), dim=1)
-    t_c = s.c + torch.sum(torch.where(v_set, a.c, 0.0), dim=1)
+    t_m = s.m + stopping.slot_sum(torch.where(v_set[..., None], a.m, 0.0),
+                                  dim=-2)
+    t_c = s.c + stopping.slot_sum(torch.where(v_set, a.c, 0.0), dim=-1)
     return wvs.WV(t_m, t_c)
 
 
 def new_agreement_weights(s_c, a_c, v_set, beta: float):
     """|A'_ij| = |A_ij| + (|S_i| - beta) / (2 |V_i|) on the violating set."""
-    nv = torch.clamp(torch.sum(v_set, dim=1), min=1)  # |V_i|, guard empty
-    inc = (s_c - beta) / (2.0 * nv.to(s_c.dtype))
-    return a_c + inc[:, None]
+    nv = torch.clamp(torch.sum(v_set, dim=-1), min=1)  # |V_i|, guard empty
+    inc = (s_c - wvs.lead(beta, s_c)) / (2.0 * nv.to(s_c.dtype))
+    return a_c + inc[..., None]
 
 
 def corrected_messages(s: wvs.WV, a: wvs.WV, in_m, in_c, v_set, beta: float,
@@ -55,7 +57,7 @@ def corrected_messages(s: wvs.WV, a: wvs.WV, in_m, in_c, v_set, beta: float,
     """
     t = selective_target(s, a, v_set, eps)
     w_new = new_agreement_weights(s.c, a.c, v_set, beta)  # (n, D)
-    scale = w_new / _safe(t.c, eps)[:, None]
-    new_a_m = scale[..., None] * t.m[:, None, :]
-    new_a_c = scale * t.c[:, None]
+    scale = w_new / _safe(t.c, eps)[..., None]
+    new_a_m = scale[..., None] * t.m[..., None, :]
+    new_a_c = scale * t.c[..., None]
     return new_a_m - in_m, new_a_c - in_c

@@ -20,9 +20,18 @@ One :func:`cycle` =
      correction do-while (Sec. IV-C2, Eq. 10) — or the uniform policy
      (Eq. 5) — and post new messages on the violating slots.
 
+**Query axis.**  Every function also takes Q slots' states stacked on a
+leading axis (``out_m`` (Q,n,D,d), ``alive`` (Q,n), ``t``/``msgs`` (Q,),
+``rng`` a tuple of Q generators; see :func:`init_state`), with
+``beta``/``ell``/``eps`` one value or a (Q,) tensor and ``decide`` (or the
+suite's packed families) batched over the slots.  This is what the JAX
+service gets from ``vmap`` over these functions: all Q slots advance
+through one batched pass, and the kernels launch once for all of them.
+
 Differences from the JAX twin: the do-while is a Python loop that reads
-``running.any()`` once per iteration (the JAX ``lax.while_loop`` has the
-same bound and reports the same ``iters``); ``rng`` is a
+``running.any()`` once per iteration over all slots (the JAX
+``lax.while_loop`` has the same bound and reports the same ``iters``, per
+slot under ``vmap``); ``host_syncs`` counts those reads.  ``rng`` is a
 ``torch.Generator`` on the state's device, so message-loss draws differ
 from JAX's threefry stream and parity holds at ``drop_rate == 0`` only;
 ``msgs`` is int64.  Functions are pure: they return new states and never
@@ -44,12 +53,16 @@ __all__ = [
     "LSSConfig", "TopoArrays", "LSSState", "init_state", "cycle",
     "cycle_impl", "clear_slots", "pad_bucket", "metrics", "metrics_impl",
     "audit_impl", "counter_dtype", "suite_hooks", "correction_loop",
-    "COLD_TIMER",
+    "COLD_TIMER", "host_syncs",
 ]
 
 # Send-timer value of a peer that has never sent: far enough in the past
 # that the ell-cycle resend timer fires on the first eligible cycle.
 COLD_TIMER = -(10 ** 6)
+
+# Host reads of the do-while's ``running.any()`` (each one waits for the
+# device), counted for the measurements of the loop; reset it at will.
+host_syncs = 0
 
 
 def pad_bucket(*arrays):
@@ -105,7 +118,8 @@ class LSSState(NamedTuple):
     alive: torch.Tensor
     t: torch.Tensor  # current cycle (int32 scalar)
     msgs: torch.Tensor  # cumulative messages sent (int64 scalar)
-    rng: torch.Generator  # message-loss stream, on the state's device
+    rng: object  # message-loss stream(s): a torch.Generator on the
+    # state's device, or a tuple of Q of them for Q stacked slots
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -114,33 +128,43 @@ def _generator(device, seed: int) -> torch.Generator:
     return g
 
 
-def init_state(topo: TopoArrays, inputs: wvs.WV, seed: int = 0,
+def init_state(topo: TopoArrays, inputs: wvs.WV, seed=0,
                alive=None) -> LSSState:
     """Fresh all-quiescent state (S_i = X_ii, empty message slots).
 
     ``alive`` (optional bool (n,)) seeds the churn mask; default: every
-    peer alive.
+    peer alive.  With ``inputs`` of Q slots (``m`` (Q, n, d)) the state is
+    Q slots' states stacked: ``seed`` is one int or one per slot, ``rng``
+    one generator per slot, and ``alive`` (n,) or (Q, n).
     """
     n, D = topo.nbr.shape
     d = inputs.m.shape[-1]
     dt = inputs.m.dtype
     dev = topo.nbr.device
-    alive = (torch.ones((n,), dtype=torch.bool, device=dev) if alive is None
+    lead = tuple(inputs.m.shape[:-2])
+    alive = (torch.ones(lead + (n,), dtype=torch.bool, device=dev)
+             if alive is None
              else torch.tensor(np.asarray(alive), dtype=torch.bool,
-                               device=dev))
+                               device=dev).expand(lead + (n,)).contiguous())
+    if lead:
+        seeds = [seed] * lead[0] if np.ndim(seed) == 0 else list(seed)
+        rng = tuple(_generator(dev, s) for s in seeds)
+    else:
+        rng = _generator(dev, seed)
     return LSSState(
-        out_m=torch.zeros((n, D, d), dtype=dt, device=dev),
-        out_c=torch.zeros((n, D), dtype=dt, device=dev),
-        in_m=torch.zeros((n, D, d), dtype=dt, device=dev),
-        in_c=torch.zeros((n, D), dtype=dt, device=dev),
+        out_m=torch.zeros(lead + (n, D, d), dtype=dt, device=dev),
+        out_c=torch.zeros(lead + (n, D), dtype=dt, device=dev),
+        in_m=torch.zeros(lead + (n, D, d), dtype=dt, device=dev),
+        in_c=torch.zeros(lead + (n, D), dtype=dt, device=dev),
         x_m=inputs.m,
         x_c=inputs.c,
-        pending=torch.zeros((n, D), dtype=torch.bool, device=dev),
-        last_send=torch.full((n,), COLD_TIMER, dtype=torch.int32, device=dev),
+        pending=torch.zeros(lead + (n, D), dtype=torch.bool, device=dev),
+        last_send=torch.full(lead + (n,), COLD_TIMER, dtype=torch.int32,
+                             device=dev),
         alive=alive,
-        t=torch.zeros((), dtype=torch.int32, device=dev),
-        msgs=torch.zeros((), dtype=counter_dtype(), device=dev),
-        rng=_generator(dev, seed),
+        t=torch.zeros(lead, dtype=torch.int32, device=dev),
+        msgs=torch.zeros(lead, dtype=counter_dtype(), device=dev),
+        rng=rng,
     )
 
 
@@ -174,7 +198,15 @@ def clear_slots(state: LSSState, rows, slots) -> LSSState:
 
 def _live_mask(topo: TopoArrays, alive: torch.Tensor) -> torch.Tensor:
     """Valid slots between two live peers (churn = failure of all links)."""
-    return topo.mask & alive[:, None] & alive[topo.nbr]
+    return topo.mask & alive[..., :, None] & alive[..., topo.nbr]
+
+
+def _uniform(rng, shape, device) -> torch.Tensor:
+    """Uniform draws from one generator, or one (shape[1:]) per slot."""
+    if isinstance(rng, torch.Generator):
+        return torch.rand(shape, generator=rng, device=device)
+    return torch.stack([torch.rand(shape[1:], generator=g, device=device)
+                        for g in rng])
 
 
 def _deliver(state: LSSState, topo: TopoArrays, drop_rate: float):
@@ -182,25 +214,28 @@ def _deliver(state: LSSState, topo: TopoArrays, drop_rate: float):
 
     Message (i,k) lands at (nbr[i,k], rev[i,k]).  ``rev`` makes the slot
     map an involution, so in-slot (j,r) *receives from* its unique source
-    slot (nbr[j,r], rev[j,r]): delivery is one gather.
+    slot (nbr[j,r], rev[j,r]): delivery is one gather (on (Q, n*D) for Q
+    stacked slots).
     """
     live = _live_mask(topo, state.alive)
     send = state.pending & live
     if drop_rate > 0.0:
-        keep = torch.rand(send.shape, generator=state.rng,
-                          device=send.device) >= drop_rate
-        delivered = send & keep
+        delivered = send & (_uniform(state.rng, send.shape, send.device)
+                            >= drop_rate)
     else:
         delivered = send
     n, D = topo.nbr.shape
+    lead = send.shape[:-2]
     src = topo.nbr.to(torch.int64) * D + topo.rev  # flat source slot
     # Did my source post a message that survived?  (Padding slots alias
     # arbitrary sources — mask them out on the receiver side.)
-    got = delivered.reshape(n * D)[src] & topo.mask
+    got = delivered.reshape(*lead, n * D)[..., src] & topo.mask
     in_m = torch.where(got[..., None],
-                       state.out_m.reshape(n * D, -1)[src], state.in_m)
-    in_c = torch.where(got, state.out_c.reshape(n * D)[src], state.in_c)
-    sent = torch.sum(send)
+                       state.out_m.reshape(*lead, n * D, -1)[..., src, :],
+                       state.in_m)
+    in_c = torch.where(got, state.out_c.reshape(*lead, n * D)[..., src],
+                       state.in_c)
+    sent = torch.sum(send, dim=(-2, -1))
     return state._replace(
         in_m=in_m,
         in_c=in_c,
@@ -225,10 +260,13 @@ def _correction_loop(decide, state, topo, live, active, cfg: LSSConfig,
     ``entry=(old_s, a0, viol0)`` hands in the loop-entry values.
 
     The loop runs on the host: it reads ``running.any()`` once per
-    iteration and stops at ``cfg.max_corr_iters or D`` iterations.
+    iteration, over all slots of a batched state, and stops at
+    ``cfg.max_corr_iters or D`` iterations.
 
     Returns ``(out_m, out_c, v, did_send, iters)`` with ``iters`` the
-    do-while's iteration count (a Python int).
+    do-while's iteration count: a Python int, or for Q stacked slots an
+    int32 (Q,) tensor of each slot's own count (the iterations in which
+    that slot was still running, as under the JAX ``vmap``).
     """
     n, D = topo.nbr.shape
     if status_viol is None:
@@ -248,13 +286,16 @@ def _correction_loop(decide, state, topo, live, active, cfg: LSSConfig,
         old_s, viol0 = status_viol(state.out_m, state.out_c)
         a0 = stopping.agreements(state.out_m, state.out_c,
                                  state.in_m, state.in_c)
-    v = viol0 & active[:, None]
+    v = viol0 & active[..., None]
     if cfg.policy == "uniform":
         # Eq. 5: a violating peer corrects *every* neighbor, not just V_i.
-        any_viol = torch.any(v, dim=1)
-        v = live & (active & any_viol)[:, None]
-    running = active & torch.any(v, dim=1)
+        any_viol = torch.any(v, dim=-1)
+        v = live & (active & any_viol)[..., None]
+    running = active & torch.any(v, dim=-1)
     max_iters = cfg.max_corr_iters or D
+    lead = active.shape[:-1]
+    slot_iters = (torch.zeros(lead, dtype=torch.int32, device=active.device)
+                  if lead else None)
 
     def apply_v(v):
         """Corrected out-messages from the entry state, for slots in v."""
@@ -263,17 +304,25 @@ def _correction_loop(decide, state, topo, live, active, cfg: LSSConfig,
         out_c = torch.where(v, new_c, state.out_c)
         return out_m, out_c
 
+    def still_running():
+        global host_syncs
+        host_syncs += 1
+        return bool(torch.any(running))
+
     iters = 0
-    while iters < max_iters and bool(torch.any(running)):
+    while iters < max_iters and still_running():
+        if slot_iters is not None:
+            slot_iters += torch.any(running, dim=-1)
         out_m, out_c = apply_v(v)
         _, viol2 = status_viol(out_m, out_c)
-        w = viol2 & running[:, None] & ~v
-        running = running & torch.any(w, dim=1)
+        w = viol2 & running[..., None] & ~v
+        running = running & torch.any(w, dim=-1)
         v = v | w
         iters += 1
     out_m, out_c = apply_v(v)
-    did_send = active & torch.any(v, dim=1)
-    return out_m, out_c, v, did_send, iters
+    did_send = active & torch.any(v, dim=-1)
+    return out_m, out_c, v, did_send, (iters if slot_iters is None
+                                       else slot_iters)
 
 
 # Public alias, as in the JAX package.
@@ -305,13 +354,17 @@ def cycle_impl(state: LSSState, topo: TopoArrays, cfg: LSSConfig, decide,
                gate=None, suite=None, regions=None, with_stats=False):
     """One synchronous cycle with the decision function given explicitly.
 
-    ``gate`` (optional bool, broadcastable to (n,)): where False the peer
-    may not *initiate* sends this cycle.  ``suite`` + ``regions`` (a
+    ``gate`` (optional bool, broadcastable to (n,), or one per slot of a
+    batched state): where False the peer may not *initiate* sends this
+    cycle.  ``suite`` + ``regions`` (a
     :class:`~repro_torch.kernels.suite.KernelSuite` and a packed
-    :class:`~repro_torch.core.regions.PackedSlot`) route status/violations
+    :class:`~repro_torch.core.regions.PackedSlot`, or for Q stacked slots
+    their :class:`~repro_torch.core.regions.PackedRegions` or
+    :class:`~repro_torch.kernels.ops.SlotTables`) route status/violations
     and the Eq.-10 correction through that suite; ``decide`` may then be
     None.  ``with_stats=True`` also returns the do-while's iteration count:
-    ``(state', sent_now, corr_iters)``.
+    ``(state', sent_now, corr_iters)``; ``sent_now`` and ``corr_iters`` are
+    per slot for a batched state.
     """
     state, _ = _deliver(state, topo, cfg.drop_rate)
 
@@ -330,22 +383,25 @@ def cycle_impl(state: LSSState, topo: TopoArrays, cfg: LSSConfig, decide,
                                 state.in_c)
         viol = stopping.violations_alg1(decide, s, a, live, cfg.eps)
         entry = (s, a, viol)
-    timer_ok = (state.t - state.last_send) >= cfg.ell
-    active = state.alive & timer_ok & torch.any(viol, dim=1)
+    timer_ok = ((state.t[..., None] - state.last_send)
+                >= wvs.lead(cfg.ell, state.last_send))
+    active = state.alive & timer_ok & torch.any(viol, dim=-1)
     if gate is not None:
+        if isinstance(gate, torch.Tensor) and gate.shape == state.t.shape:
+            gate = gate[..., None]  # one gate per slot
         active = active & gate
 
     out_m, out_c, v, did_send, corr_iters = _correction_loop(
         decide, state, topo, live, active, cfg, status_viol=status_viol,
         corrected=corrected, entry=entry)
-    sending = v & did_send[:, None]
+    sending = v & did_send[..., None]
     state = state._replace(
         out_m=out_m, out_c=out_c,
         pending=state.pending | sending,
-        last_send=torch.where(did_send, state.t, state.last_send),
+        last_send=torch.where(did_send, state.t[..., None], state.last_send),
         t=state.t + 1,
     )
-    sent_now = torch.sum(sending)
+    sent_now = torch.sum(sending, dim=(-2, -1))
     if with_stats:
         return state, sent_now, corr_iters
     return state, sent_now
@@ -376,13 +432,25 @@ def cycle(state: LSSState, topo: TopoArrays, centers: torch.Tensor,
     return cycle_impl(state, topo, cfg, decide)
 
 
-def metrics_impl(state: LSSState, topo: TopoArrays, decide, eps=1e-9):
-    """Accuracy and quiescence with the reference formulas.
+def metrics_impl(state: LSSState, topo: TopoArrays, decide, eps=1e-9,
+                 suite=None, regions=None):
+    """Accuracy and quiescence.
 
     Returns ``(accuracy, quiescent, correct_mask, want)`` — ``want`` is the
-    ground-truth region id ``f(vec((+)X))`` over live peers.
+    ground-truth region id ``f(vec((+)X))`` over live peers; per slot for a
+    batched state.  By default the reference formulas with ``decide``; with
+    a fused ``suite`` and its packed ``regions``, S, the violations and
+    f(vec(S)) come from one ``lss_state`` launch and ``want`` from one
+    ``region_decide`` launch over the global averages (``decide`` may then
+    be None).
     """
     live = _live_mask(topo, state.alive)
+    if suite is not None and suite.fused:
+        _, _, viol, got = kernel_ops.lss_state(
+            state.x_m, state.x_c, state.out_m, state.out_c, state.in_m,
+            state.in_c, live, regions, eps=eps)
+        decide = lambda u: suite.decide(u, regions, eps)  # noqa: E731
+        return _accuracy(state, live, decide, eps, got, viol)
     s = stopping.status(state.x_m, state.x_c, state.out_m, state.out_c,
                         state.in_m, state.in_c, live)
     got = decide(wvs.vec(s, eps))
@@ -392,14 +460,23 @@ def metrics_impl(state: LSSState, topo: TopoArrays, decide, eps=1e-9):
 
 
 def _accuracy(state, live, decide, eps, got, viol):
+    # The global sum is taken in float64 and rounded to float32 once, so it
+    # does not depend on the reduction's order: a batched and an unbatched
+    # state (or another device) give the same ``want`` even where it is a
+    # near tie (a halfspace threshold at the data mean).
+    f64 = torch.float64
     gx = wvs.WV(
-        torch.sum(torch.where(state.alive[:, None], state.x_m, 0.0), dim=0),
-        torch.sum(torch.where(state.alive, state.x_c, 0.0), dim=0),
+        torch.sum(torch.where(state.alive[..., None], state.x_m, 0.0),
+                  dim=-2, dtype=f64).to(state.x_m.dtype),
+        torch.sum(torch.where(state.alive, state.x_c, 0.0), dim=-1,
+                  dtype=f64).to(state.x_c.dtype),
     )
-    want = decide(wvs.vec(gx, eps)[None])[0]
-    correct = (got == want) & state.alive
-    acc = torch.sum(correct) / torch.clamp(torch.sum(state.alive), min=1)
-    quiescent = ~torch.any(state.pending & live) & ~torch.any(viol)
+    want = decide(wvs.vec(gx, eps)[..., None, :])[..., 0]
+    correct = (got == want[..., None]) & state.alive
+    acc = (torch.sum(correct, dim=-1)
+           / torch.clamp(torch.sum(state.alive, dim=-1), min=1))
+    quiescent = (~torch.any((state.pending & live).flatten(-2), dim=-1)
+                 & ~torch.any(viol.flatten(-2), dim=-1))
     return acc, quiescent, correct, want
 
 
@@ -409,7 +486,8 @@ def metrics(state: LSSState, topo: TopoArrays, centers: torch.Tensor,
     f(vec(S_i)) equals f(vec((+)X over live peers)), and quiescence.
 
     With a fused ``suite``, S_i, the violations and f(vec(S_i)) come from
-    one ``lss_state`` call (``regions`` defaults to ``centers`` packed as a
+    one ``lss_state`` call and the global decision from one
+    ``region_decide`` call (``regions`` defaults to ``centers`` packed as a
     Voronoi slot); otherwise from the reference formulas.
     """
     if suite is None or not suite.fused:
@@ -418,12 +496,8 @@ def metrics(state: LSSState, topo: TopoArrays, centers: torch.Tensor,
         return acc, quiescent, correct
     slot = regions if regions is not None else \
         regions_lib.PackedSlot.voronoi(centers)
-    live = _live_mask(topo, state.alive)
-    _, _, viol, got = kernel_ops.lss_state(state.x_m, state.x_c, state.out_m,
-                                           state.out_c, state.in_m,
-                                           state.in_c, live, slot, eps=eps)
-    acc, quiescent, correct, _ = _accuracy(state, live, slot.decide, eps,
-                                           got, viol)
+    acc, quiescent, correct, _ = metrics_impl(state, topo, None, eps,
+                                              suite=suite, regions=slot)
     return acc, quiescent, correct
 
 

@@ -11,6 +11,12 @@ Decision functions are vectorized: input (..., d) -> int32 (...).
 ``decide_voronoi`` uses ``||v - c||^2 = ||v||^2 - 2 v.c + ||c||^2`` and
 drops the constant ``||v||^2``.  ``torch.argmin`` returns the first of
 equal minima, as ``jnp.argmin`` does, so ties resolve identically.
+
+The dot products are taken as the CUDA kernels take them (:func:`dot`):
+in coordinate order, each product rounded on its own, no fused
+multiply-add.  So the plain versions decide bitwise like the kernels; the
+JAX package contracts with a matrix product instead, which can differ from
+this in the last bit and so only at a near tie.
 """
 
 from __future__ import annotations
@@ -21,17 +27,30 @@ import torch
 
 __all__ = ["VoronoiRegions", "HalfspaceRegions", "PackedRegions",
            "PackedSlot", "decide_voronoi", "decide_packed", "as_packed_slot",
-           "KIND_VORONOI", "KIND_HALFSPACE"]
+           "dot", "KIND_VORONOI", "KIND_HALFSPACE"]
 
 KIND_VORONOI = 0
 KIND_HALFSPACE = 1
 
 
+def dot(u: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``sum_j u[..., j] * c[..., j]`` (broadcast), in the order j = 0, 1,
+    ..., each product and sum rounded on its own — the arithmetic of the
+    kernels (built with ``--fmad=false``)."""
+    out = u[..., 0] * c[..., 0]
+    for j in range(1, u.shape[-1]):
+        out = out + u[..., j] * c[..., j]
+    return out
+
+
+def _scores(v, centers):
+    """-2 v.c + ||c||^2 for every center: (..., d) x (K, d) -> (..., K)."""
+    return -2.0 * dot(v[..., None, :], centers) + dot(centers, centers)
+
+
 def decide_voronoi(v: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """argmin_k ||v - centers[k]||^2 for batched v: (..., d) -> int32 (...)."""
-    scores = -2.0 * torch.einsum("...d,kd->...k", v, centers) + torch.sum(
-        centers * centers, dim=-1)
-    return torch.argmin(scores, dim=-1).to(torch.int32)
+    return torch.argmin(_scores(v, centers), dim=-1).to(torch.int32)
 
 
 class VoronoiRegions(NamedTuple):
@@ -66,8 +85,7 @@ class HalfspaceRegions(NamedTuple):
         return self.w.shape[0]
 
     def decide(self, v: torch.Tensor) -> torch.Tensor:
-        return (torch.einsum("...d,d->...", v, self.w) >= self.b).to(
-            torch.int32)
+        return (dot(v, self.w) >= self.b).to(torch.int32)
 
 
 RegionFamily = Callable[[torch.Tensor], torch.Tensor]
@@ -80,13 +98,30 @@ def decide_packed(v: torch.Tensor, kind, centers, cmask, w, b) -> torch.Tensor:
     (Kmax,), ``w`` (d,) / ``b`` () for the halfspace.  Padding center slots
     score ``+inf``, so a k-center Voronoi family padded to Kmax decides
     exactly like :func:`decide_voronoi` on the unpadded centers.
+
+    With a leading query-slot axis on the family (``kind`` (Q,),
+    ``centers`` (Q, Kmax, d), ...: a :class:`PackedRegions`) ``v`` is
+    (Q, ..., d) and slot q's vectors meet slot q's family.
     """
-    scores = -2.0 * torch.einsum("...d,kd->...k", v, centers) + torch.sum(
-        centers * centers, dim=-1)
-    scores = torch.where(cmask, scores, torch.inf)
+    if kind.ndim == 1:
+        return _decide_packed_slots(v, kind, centers, cmask, w, b)
+    scores = torch.where(cmask, _scores(v, centers), torch.inf)
     vor = torch.argmin(scores, dim=-1).to(torch.int32)
-    half = (torch.einsum("...d,d->...", v, w) >= b).to(torch.int32)
+    half = (dot(v, w) >= b).to(torch.int32)
     return torch.where(kind == KIND_VORONOI, vor, half)
+
+
+def _decide_packed_slots(v, kind, centers, cmask, w, b):
+    """:func:`decide_packed` of Q families on ``v`` (Q, ..., d)."""
+    q, d = v.shape[0], v.shape[-1]
+    flat = v.reshape(q, -1, d)
+    scores = (-2.0 * dot(flat[:, :, None, :], centers[:, None])
+              + dot(centers, centers)[:, None, :])
+    scores = torch.where(cmask[:, None, :], scores, torch.inf)
+    vor = torch.argmin(scores, dim=-1).to(torch.int32)
+    half = (dot(flat, w[:, None, :]) >= b[:, None]).to(torch.int32)
+    out = torch.where(kind[:, None] == KIND_VORONOI, vor, half)
+    return out.reshape(v.shape[:-1])
 
 
 class PackedSlot(NamedTuple):
@@ -270,3 +305,7 @@ class PackedRegions(NamedTuple):
     def decide_slot(self, slot: int) -> RegionFamily:
         """The decision function of one slot."""
         return self.slot(slot).decide
+
+    def decide(self, v: torch.Tensor) -> torch.Tensor:
+        """Every slot's decisions at once: ``v`` (Q, ..., d) -> (Q, ...)."""
+        return decide_packed(v, *self)

@@ -10,7 +10,9 @@ operations become plain linear algebra:
 and the "vector part" is ``m / c`` (defined only when ``c != 0``).
 
 A ``WV`` holds arbitrarily-batched weighted vectors: ``m`` has shape
-``(*batch, d)`` and ``c`` has shape ``(*batch,)``.
+``(*batch, d)`` and ``c`` has shape ``(*batch,)``.  A guard such as ``eps``
+may be one value or one per query slot (a tensor over the leading axes,
+see :func:`lead`).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["WV", "add", "sub", "smul", "vec", "wsum", "from_vector",
-           "allclose"]
+           "allclose", "lead"]
 
 
 class WV(NamedTuple):
@@ -41,6 +43,18 @@ class WV(NamedTuple):
 
     def __rmul__(self, s) -> "WV":  # s (.) X
         return smul(s, self)
+
+
+def lead(x, like: torch.Tensor):
+    """Broadcast a per-slot value against ``like``.
+
+    A Python number or a 0-d tensor is returned as is; a tensor over the
+    leading (query-slot) axes of ``like`` gets trailing unit axes, so a
+    (Q,) knob meets a (Q, n) or (Q, n, D) array slot by slot.
+    """
+    if not isinstance(x, torch.Tensor) or x.ndim == 0:
+        return x
+    return x.reshape(x.shape + (1,) * (like.ndim - x.ndim))
 
 
 def from_vector(v, c) -> WV:
@@ -68,7 +82,7 @@ def smul(s, x: WV) -> WV:
 
 def vec(x: WV, eps: float = 0.0) -> torch.Tensor:
     """Vector part ``m / c``.  Where ``|c| <= eps`` returns 0 (guarded)."""
-    ok = torch.abs(x.c) > eps
+    ok = torch.abs(x.c) > lead(eps, x.c)
     safe = torch.where(ok, x.c, 1.0)
     v = x.m / safe[..., None]
     return torch.where(ok[..., None], v, 0.0)

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
 
-Port of ``repro.kernels``: ``lss_state`` and ``correction`` are CUDA C++
-kernels under ``csrc/`` (built by :mod:`._build`, bound with ctypes), with
-the public wrappers in :mod:`.ops` and the suite registry in :mod:`.suite`.
-``region_decide`` is not ported yet (ROADMAP B.3).
+Port of ``repro.kernels``: ``region_decide``, ``lss_state`` and
+``correction`` are CUDA C++ kernels under ``csrc/`` (built by
+:mod:`._build`, bound with ctypes), each batched over a leading query-slot
+axis, with the public wrappers in :mod:`.ops` and the suite registry in
+:mod:`.suite`.
 
 :func:`counts` reads the launch counters of the kernels and the call
 counters of their plain versions; :func:`reset_counts` zeroes them.
@@ -11,7 +12,7 @@ counters of their plain versions; :func:`reset_counts` zeroes them.
 
 from __future__ import annotations
 
-from . import correction, lss_state, ref
+from . import correction, lss_state, ref, region_decide
 from .suite import (FusedSuite, KernelSuite, ReferenceSuite, get_suite,
                     register_suite, resolve_suite, suite_names)
 
@@ -22,12 +23,14 @@ __all__ = ["KernelSuite", "ReferenceSuite", "FusedSuite", "register_suite",
 
 def counts() -> dict:
     """Kernel launches and plain-version calls since the last reset."""
-    return {"lss_state": lss_state.launches,
+    return {"region_decide": region_decide.launches,
+            "lss_state": lss_state.launches,
             "correction": correction.launches,
             **ref.calls}
 
 
 def reset_counts() -> None:
+    region_decide.launches = 0
     lss_state.launches = 0
     correction.launches = 0
     ref.reset_calls()

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 under ``build/repro_torch_kernels/`` at the root of the checkout, at first
 use.  All missing libraries build at once, one ``nvcc`` process per source.
-A library's file name carries a hash of its source and the flags, so an
-edited source rebuilds and an unchanged one loads from the cache.  Only the
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads from the cache.  Only the
 sources in this package are compiled; nothing is fetched.
 
 :func:`check_arg` is the launchers' check of each tensor before its
@@ -30,7 +31,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "library",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lss_state", "correction")
+SOURCES = ("lss_state", "correction", "region_decide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,6 +51,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

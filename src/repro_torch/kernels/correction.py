@@ -1,18 +1,21 @@
 """Launcher of the ``correction`` CUDA kernel (``csrc/correction.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/correction.py::
-correction_kernel`` (launched by ``correction_call``): the Eq.-10
-corrected out-messages on the violating set.
+correction_kernel`` (launched by ``correction_call``) and its
+query-batched form: the Eq.-10 corrected out-messages on the violating
+set, for Q query slots in one launch.
 
 What bounds it on the H100: bytes.  It reads the in-messages and agreement
 weights of every slot and writes a message for every slot, with a handful
-of flops each.  Its design: one thread per peer, one pass for T_i and
-|V_i| that reads the agreement moments only on V_i, one pass writing
-``out'``; d is a template parameter so T_i stays in registers, and beta and
-eps are runtime arguments.  As in ``lss_state``, a hub row of a
-Barabási–Albert graph is one thread's serial loop.
+of flops each.  Its design: one thread per peer on a 2-D grid
+(``blockIdx.y`` = query slot), one pass for T_i and |V_i| that reads the
+agreement moments only on V_i, one pass writing ``out'``; d is a template
+parameter so T_i stays in registers, and beta and eps are (Q,) device
+tensors.  As in ``lss_state``, a hub row of a Barabási–Albert graph is one
+thread's serial loop.
 
-``launches`` counts the kernel launches made by :func:`launch`.
+``launches`` counts the kernel launches made by :func:`launch` (one per
+call, whatever Q).
 """
 
 from __future__ import annotations
@@ -30,25 +33,26 @@ MAX_D = 16  # largest d the kernel is instantiated for (kMaxD in csrc)
 
 launches = 0
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _fn():
     fn = _build.library("correction").repro_correction
-    fn.argtypes = [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P] * 3
+    fn.argtypes = [_P] * 9 + [_I] * 4 + [_P] * 3
     fn.restype = _I
     return fn
 
 
-def launch(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta: float, eps: float):
+def launch(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta, eps):
     """Run the kernel on CUDA tensors; returns ``(out_m', out_c')``.
 
-    Inputs are float32 (``v_set`` bool), contiguous, on one CUDA device, in
-    the layouts of ``csrc/correction.cu``.
+    Inputs carry a leading slot axis Q: float32 (``v_set`` bool),
+    contiguous, on one CUDA device, in the layouts of
+    ``csrc/correction.cu``; ``beta`` and ``eps`` are float32 (Q,).
     """
     global launches
-    n, D, d = a_m.shape
+    Q, n, D, d = a_m.shape
     dev = a_m.device
     if dev.type != "cuda":
         raise ValueError(f"correction kernel needs CUDA tensors, got {dev}")
@@ -57,20 +61,22 @@ def launch(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta: float, eps: float):
                          f"got d={d}")
     f32 = torch.float32
     for name, t, shape, dtype in (
-            ("s_m", s_m, (n, d), f32), ("s_c", s_c, (n,), f32),
-            ("a_m", a_m, (n, D, d), f32), ("a_c", a_c, (n, D), f32),
-            ("in_m", in_m, (n, D, d), f32), ("in_c", in_c, (n, D), f32),
-            ("v_set", v_set, (n, D), torch.bool)):
+            ("s_m", s_m, (Q, n, d), f32), ("s_c", s_c, (Q, n), f32),
+            ("a_m", a_m, (Q, n, D, d), f32), ("a_c", a_c, (Q, n, D), f32),
+            ("in_m", in_m, (Q, n, D, d), f32),
+            ("in_c", in_c, (Q, n, D), f32),
+            ("v_set", v_set, (Q, n, D), torch.bool),
+            ("beta", beta, (Q,), f32), ("eps", eps, (Q,), f32)):
         _build.check_arg("correction", name, t, shape, dtype, dev)
-    o_m = torch.empty((n, D, d), dtype=f32, device=dev)
-    o_c = torch.empty((n, D), dtype=f32, device=dev)
+    o_m = torch.empty((Q, n, D, d), dtype=f32, device=dev)
+    o_c = torch.empty((Q, n, D), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn()(s_m.data_ptr(), s_c.data_ptr(), a_m.data_ptr(),
                 a_c.data_ptr(), in_m.data_ptr(), in_c.data_ptr(),
-                v_set.data_ptr(), n, D, d, float(beta), float(eps),
-                o_m.data_ptr(), o_c.data_ptr(), stream)
+                v_set.data_ptr(), beta.data_ptr(), eps.data_ptr(), Q, n, D,
+                d, o_m.data_ptr(), o_c.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"correction kernel launch failed: cudaError {err}")
-    if n > 0:
+    if Q > 0 and n > 0:
         launches += 1
     return o_m, o_c

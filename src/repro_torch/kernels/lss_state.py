@@ -1,19 +1,22 @@
 """Launcher of the ``lss_state`` CUDA kernel (``csrc/lss_state.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/lss_state.py::
-lss_state_kernel`` (launched by ``lss_state_call``): the fused status S_i,
-agreements, three packed region decisions and Alg.-1 violation set.
+lss_state_kernel`` (launched by ``lss_state_call``) and its query-batched
+form: the fused status S_i, agreements, three packed region decisions and
+Alg.-1 violation set, for Q query slots in one launch.
 
 What bounds it on the H100: bytes.  Per live message slot it reads the
 out/in moments and weights and does a few flops per decision, far below the
 card's ~20 flops per byte of float32 balance.  Its design answers that with
-one thread per peer, no padding of d (the TPU's 128-lane layout is gone),
-the packed table in shared memory, and no reads at all for slots that are
-not live — on Barabási–Albert graphs D is the hub degree and most slots of
-most rows are padding.  A hub row is one thread's serial loop, so the
-hubs are a load-imbalance limit of this first design.
+one thread per peer on a 2-D grid (``blockIdx.y`` = query slot), no padding
+of d (the TPU's 128-lane layout is gone), the slot's packed table in shared
+memory with ``eps`` read from it on the device, and no reads at all for
+slots that are not live — on Barabási–Albert graphs D is the hub degree
+and most slots of most rows are padding.  A hub row is one thread's serial
+loop, so the hubs are a load-imbalance limit of this first design.
 
-``launches`` counts the kernel launches made by :func:`launch`.
+``launches`` counts the kernel launches made by :func:`launch` (one per
+call, whatever Q).
 """
 
 from __future__ import annotations
@@ -32,28 +35,28 @@ SHARED_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block may use
 
 launches = 0
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _fn():
     fn = _build.library("lss_state").repro_lss_state
-    fn.argtypes = [_P] * 10 + [_I] * 4 + [_F] + [_P] * 5
+    fn.argtypes = [_P] * 10 + [_I] * 5 + [_P] * 5
     fn.restype = _I
     return fn
 
 
-def launch(x_m, x_c, out_m, out_c, in_m, in_c, mask, cthw, cn, meta,
-           eps: float):
+def launch(x_m, x_c, out_m, out_c, in_m, in_c, mask, cthw, cn, meta):
     """Run the kernel on CUDA tensors; returns ``(s_m, s_c, viol, dec)``.
 
-    Inputs are float32 (``mask`` bool), contiguous, on one CUDA device, in
-    the layouts of ``csrc/lss_state.cu``; the table ``(cthw, cn, meta)``
-    comes from :func:`repro_torch.kernels.ops.prep_slot`.
+    Inputs carry a leading slot axis Q: float32 (``mask`` bool),
+    contiguous, on one CUDA device, in the layouts of
+    ``csrc/lss_state.cu``; the tables ``(cthw, cn, meta)`` come from
+    :func:`repro_torch.kernels.ops.prep_slots` and ``eps`` is ``meta[:, 2]``.
     """
     global launches
-    n, D, d = out_m.shape
-    k = cn.shape[0]
+    Q, n, D, d = out_m.shape
+    k = cn.shape[-1]
     dev = out_m.device
     if dev.type != "cuda":
         raise ValueError(f"lss_state kernel needs CUDA tensors, got {dev}")
@@ -65,25 +68,27 @@ def launch(x_m, x_c, out_m, out_c, in_m, in_c, mask, cthw, cn, meta,
                          "exceeds the block's shared memory")
     f32 = torch.float32
     for name, t, shape, dtype in (
-            ("x_m", x_m, (n, d), f32), ("x_c", x_c, (n,), f32),
-            ("out_m", out_m, (n, D, d), f32), ("out_c", out_c, (n, D), f32),
-            ("in_m", in_m, (n, D, d), f32), ("in_c", in_c, (n, D), f32),
-            ("mask", mask, (n, D), torch.bool),
-            ("cthw", cthw, (d, k + 1), f32), ("cn", cn, (k,), f32),
-            ("meta", meta, (4,), f32)):
+            ("x_m", x_m, (Q, n, d), f32), ("x_c", x_c, (Q, n), f32),
+            ("out_m", out_m, (Q, n, D, d), f32),
+            ("out_c", out_c, (Q, n, D), f32),
+            ("in_m", in_m, (Q, n, D, d), f32),
+            ("in_c", in_c, (Q, n, D), f32),
+            ("mask", mask, (Q, n, D), torch.bool),
+            ("cthw", cthw, (Q, d, k + 1), f32), ("cn", cn, (Q, k), f32),
+            ("meta", meta, (Q, 4), f32)):
         _build.check_arg("lss_state", name, t, shape, dtype, dev)
-    s_m = torch.empty((n, d), dtype=f32, device=dev)
-    s_c = torch.empty((n,), dtype=f32, device=dev)
-    viol = torch.empty((n, D), dtype=torch.bool, device=dev)
-    dec = torch.empty((n,), dtype=torch.int32, device=dev)
+    s_m = torch.empty((Q, n, d), dtype=f32, device=dev)
+    s_c = torch.empty((Q, n), dtype=f32, device=dev)
+    viol = torch.empty((Q, n, D), dtype=torch.bool, device=dev)
+    dec = torch.empty((Q, n), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fn()(x_m.data_ptr(), x_c.data_ptr(), out_m.data_ptr(),
                 out_c.data_ptr(), in_m.data_ptr(), in_c.data_ptr(),
                 mask.data_ptr(), cthw.data_ptr(), cn.data_ptr(),
-                meta.data_ptr(), n, D, d, k, float(eps), s_m.data_ptr(),
+                meta.data_ptr(), Q, n, D, d, k, s_m.data_ptr(),
                 s_c.data_ptr(), viol.data_ptr(), dec.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"lss_state kernel launch failed: cudaError {err}")
-    if n > 0:
+    if Q > 0 and n > 0:
         launches += 1
     return s_m, s_c, viol, dec

@@ -1,20 +1,29 @@
 """Public wrappers of the kernels (port of ``repro/kernels/ops.py``).
 
-``lss_state`` and ``correction`` keep the JAX wrappers' signatures and
-returns.  Where the tensors lie decides what runs: a CPU tensor takes the
-plain PyTorch version (:mod:`.ref`), a CUDA tensor launches the CUDA kernel
-(:mod:`.lss_state`, :mod:`.correction`) or the call raises.  Nothing falls
-back from the kernel to the plain version.
+``region_decide``, ``lss_state`` and ``correction`` keep the JAX wrappers'
+signatures and returns.  Where the tensors lie decides what runs: a CPU
+tensor takes the plain PyTorch version (:mod:`.ref`), a CUDA tensor
+launches the CUDA kernel (:mod:`.region_decide`, :mod:`.lss_state`,
+:mod:`.correction`) or the call raises.  Nothing falls back from the kernel
+to the plain version.
+
+Every wrapper also takes a leading query-slot axis Q, which the JAX
+package got from ``vmap`` over its wrappers: moment arrays ``(Q, n, ...)``,
+the Q families as a :class:`~repro_torch.core.regions.PackedRegions` (or
+the :class:`SlotTables` that :func:`prep_slots` built from one), and
+``beta``/``eps`` one number or a (Q,) tensor.  All Q slots go through one
+kernel launch; the unbatched call launches the same kernel with Q = 1.
 
 Inputs are normalized as the JAX wrappers normalize them (float32 moments,
 bool masks, contiguous), but not padded: the TPU's block and lane padding
-has no use on the card.  Region families arrive as a
+has no use on the card.  A single family arrives as a
 :class:`~repro_torch.core.regions.PackedSlot` (or anything
-:func:`~repro_torch.core.regions.as_packed_slot` coerces) and are prepared
-into the kernel table by :func:`prep_slot`.
+:func:`~repro_torch.core.regions.as_packed_slot` coerces).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -22,29 +31,86 @@ from ..core import regions as _regions
 from . import correction as _corr
 from . import lss_state as _state
 from . import ref
+from . import region_decide as _dec
 
-__all__ = ["lss_state", "correction", "prep_slot"]
+__all__ = ["region_decide", "lss_state", "correction", "prep_slot",
+           "prep_slots", "SlotTables", "packed", "is_batched"]
+
+
+class SlotTables(NamedTuple):
+    """Q packed families with their kernel tables, prepared once.
+
+    ``cthw`` (Q, d, k+1) float32 is ``[centers^T | w]`` per slot; ``cn``
+    (Q, k) the center norms with ``+inf`` on masked padding centers (so a
+    padded family decides like the unpadded one and an all-masked padding
+    slot decides 0); ``meta`` (Q, 4) is ``[kind, b, eps, beta]``.  The
+    kernels read ``eps`` from ``meta``; a caller passing tables and an
+    ``eps`` passes the same values.
+    """
+
+    regions: _regions.PackedRegions
+    cthw: torch.Tensor
+    cn: torch.Tensor
+    meta: torch.Tensor
+
+
+def _per_slot(x, q: int, device) -> torch.Tensor:
+    """A knob as a contiguous float32 (q,) tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).expand(q).contiguous()
+    return torch.full((q,), float(x), dtype=torch.float32, device=device)
+
+
+def prep_slots(region: _regions.PackedRegions, eps=1e-9,
+               beta=0.0) -> SlotTables:
+    """Kernel tables of Q packed families (see :class:`SlotTables`).
+
+    ``eps``/``beta`` are numbers or (Q,) tensors; everything lands on the
+    families' device.
+    """
+    f32 = torch.float32
+    centers = region.centers.to(f32)
+    cthw = torch.cat([centers.transpose(1, 2), region.w.to(f32)[:, :, None]],
+                     dim=2).contiguous()
+    cn = torch.where(region.cmask, _regions.dot(centers, centers), torch.inf)
+    dev, q = centers.device, region.q
+    meta = torch.stack([region.kind.to(f32), region.b.to(f32),
+                        _per_slot(eps, q, dev), _per_slot(beta, q, dev)],
+                       dim=-1)
+    return SlotTables(region, cthw, cn, meta)
 
 
 def prep_slot(region, eps=1e-9, beta=0.0):
     """Kernel table layout of one packed family: ``(cthw, cn, meta)``.
 
-    ``cthw`` (d, k+1) float32 is ``[centers^T | w]``; ``cn`` (k,) holds the
-    center norms with ``+inf`` on masked padding slots (so a padded family
-    decides like the unpadded one); ``meta`` (4,) is ``[kind, b, eps,
-    beta]``.  All on the slot's device.
+    ``cthw`` (d, k+1), ``cn`` (k,), ``meta`` (4,): :func:`prep_slots` of a
+    single slot, without its slot axis.
     """
+    tables = prep_slots(_one_slot(region), eps, beta)
+    return tables.cthw[0], tables.cn[0], tables.meta[0]
+
+
+def _one_slot(region) -> _regions.PackedRegions:
     slot = _regions.as_packed_slot(region)
-    f32 = torch.float32
-    centers = slot.centers.to(f32)
-    cthw = torch.cat([centers.T, slot.w.to(f32)[:, None]], dim=1).contiguous()
-    cn = torch.where(slot.cmask, torch.sum(centers * centers, dim=-1),
-                     torch.inf)
-    meta = torch.stack([
-        slot.kind.to(f32), slot.b.to(f32),
-        torch.full((), eps, dtype=f32, device=centers.device),
-        torch.full((), beta, dtype=f32, device=centers.device)])
-    return cthw, cn, meta
+    return _regions.PackedRegions(*(f[None] for f in slot))
+
+
+def is_batched(region) -> bool:
+    """True for Q families (``PackedRegions`` or ``SlotTables``)."""
+    return isinstance(region, (SlotTables, _regions.PackedRegions))
+
+
+def packed(region):
+    """The packed families behind ``region`` (``SlotTables`` unwrapped)."""
+    return region.regions if isinstance(region, SlotTables) else region
+
+
+def _tables(region, eps=1e-9) -> SlotTables:
+    if isinstance(region, SlotTables):
+        return region
+    if isinstance(region, _regions.PackedRegions):
+        return prep_slots(region, eps)
+    return prep_slots(_one_slot(region), eps)
 
 
 def _f32(t):
@@ -55,22 +121,50 @@ def _mask(t):
     return t.to(torch.bool).contiguous()
 
 
+def region_decide(v, region):
+    """Packed-family region ids, kernel-accelerated.
+
+    ``v`` (n, d) with one family -> (n,) int32, or ``v`` (Q, n, d) with Q
+    families -> (Q, n) int32.
+    """
+    v = _f32(v)
+    if v.device.type == "cpu":
+        return ref.region_decide_ref(v, packed(region))
+    tables = _tables(region)
+    if is_batched(region):
+        return _dec.launch(v, tables.cthw, tables.cn, tables.meta)
+    return _dec.launch(v[None], tables.cthw, tables.cn, tables.meta)[0]
+
+
 def lss_state(x_m, x_c, out_m, out_c, in_m, in_c, mask, region, eps=1e-9):
     """Fused S/A/violations/decision.  Unpadded moment-form inputs.
 
-    Returns (s_m (n,d), s_c (n,), viol bool (n,D), decision (n,) int32).
+    Returns (s_m (n,d), s_c (n,), viol bool (n,D), decision (n,) int32),
+    each with a leading Q axis when the inputs have one.
     """
     args = (_f32(x_m), _f32(x_c), _f32(out_m), _f32(out_c), _f32(in_m),
             _f32(in_c), _mask(mask))
     if out_m.device.type == "cpu":
-        return ref.lss_state_ref(*args, region, eps)
-    return _state.launch(*args, *prep_slot(region, eps=eps), eps)
+        return ref.lss_state_ref(*args, packed(region), eps)
+    tables = _tables(region, eps)
+    if out_m.ndim == 4:
+        return _state.launch(*args, tables.cthw, tables.cn, tables.meta)
+    out = _state.launch(*(a[None] for a in args), tables.cthw, tables.cn,
+                        tables.meta)
+    return tuple(o[0] for o in out)
 
 
 def correction(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta=1e-3, eps=1e-9):
-    """Eq.-10 corrected messages: returns (out_m' (n,D,d), out_c' (n,D))."""
+    """Eq.-10 corrected messages: returns (out_m' (n,D,d), out_c' (n,D)),
+    each with a leading Q axis when the inputs have one."""
     args = (_f32(s_m), _f32(s_c), _f32(a_m), _f32(a_c), _f32(in_m),
             _f32(in_c), _mask(v_set))
     if a_m.device.type == "cpu":
         return ref.correction_ref(*args, beta, eps)
-    return _corr.launch(*args, beta, eps)
+    batched = a_m.ndim == 4
+    q = a_m.shape[0] if batched else 1
+    knobs = (_per_slot(beta, q, a_m.device), _per_slot(eps, q, a_m.device))
+    if batched:
+        return _corr.launch(*args, *knobs)
+    o_m, o_c = _corr.launch(*(a[None] for a in args), *knobs)
+    return o_m[0], o_c[0]

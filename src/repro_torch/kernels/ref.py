@@ -2,9 +2,11 @@
 
 They restate the kernels' math on the core formulas (:mod:`..core.stopping`,
 :mod:`..core.correction`, :func:`..core.regions.decide_packed`), take
-unpadded moment-form tensors and return what the kernels return.  A CPU
-tensor in :mod:`.ops` runs these; ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.
+unpadded moment-form tensors and return what the kernels return, with or
+without a leading query-slot axis (then the families are a
+:class:`~repro_torch.core.regions.PackedRegions` and ``beta``/``eps`` one
+number or one per slot).  A CPU tensor in :mod:`.ops` runs these;
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 ``calls`` counts the calls of each plain version, so a run can show that
 the main path on the card never took them.
@@ -15,9 +17,10 @@ from __future__ import annotations
 from ..core import correction as corr_lib
 from ..core import regions, stopping, wvs
 
-__all__ = ["lss_state_ref", "correction_ref", "calls", "reset_calls"]
+__all__ = ["region_decide_ref", "lss_state_ref", "correction_ref", "calls",
+           "reset_calls"]
 
-calls = {"lss_state_ref": 0, "correction_ref": 0}
+calls = {"region_decide_ref": 0, "lss_state_ref": 0, "correction_ref": 0}
 
 
 def reset_calls() -> None:
@@ -26,13 +29,22 @@ def reset_calls() -> None:
 
 
 def _decide(region):
-    """Decision fn of a packed slot / family / bare Voronoi centers."""
+    """Decision fn of Q packed families, or of one packed slot / family /
+    bare Voronoi centers."""
+    if isinstance(region, regions.PackedRegions):
+        return region.decide
     slot = regions.as_packed_slot(region)
     return lambda u: regions.decide_packed(u, *slot)
 
 
+def region_decide_ref(v, region):
+    """v: (n, d) with one family, or (Q, n, d) with Q families -> int32."""
+    calls["region_decide_ref"] += 1
+    return _decide(region)(v)
+
+
 def lss_state_ref(x_m, x_c, out_m, out_c, in_m, in_c, mask, region,
-                  eps: float = 1e-9):
+                  eps=1e-9):
     """Fused S / A / Alg.-1 violations / decision.
 
     Returns (s_m (n,d), s_c (n,), viol (n,D) bool, decision (n,) int32).
@@ -46,8 +58,7 @@ def lss_state_ref(x_m, x_c, out_m, out_c, in_m, in_c, mask, region,
     return s.m, s.c, viol, decision
 
 
-def correction_ref(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta,
-                   eps: float = 1e-9):
+def correction_ref(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta, eps=1e-9):
     """Eq.-10 corrected out-messages on the violating set.
 
     Returns (out_m' (n,D,d), out_c' (n,D)) — meaningful on v_set slots.

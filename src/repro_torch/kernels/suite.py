@@ -4,13 +4,17 @@
 A :class:`KernelSuite` bundles the operations Alg. 1's per-cycle hot path
 needs — ``decide``, ``status_viol`` and ``corrected`` — with region
 families in the packed :class:`~repro_torch.core.regions.PackedSlot` form
-and ``beta``/``eps`` as runtime values:
+and ``beta``/``eps`` as runtime values.  Every hook also takes a leading
+query-slot axis: Q families (a
+:class:`~repro_torch.core.regions.PackedRegions`, or the
+:class:`~repro_torch.kernels.ops.SlotTables` prepared from one) with
+``(Q, n, ...)`` arrays and one ``beta``/``eps`` per slot.
 
 * ``reference`` — the plain PyTorch formulas (:mod:`..core.stopping`,
   :mod:`..core.correction`, :func:`..core.regions.decide_packed`).  This IS
   the algorithm.
-* ``fused`` — :mod:`.ops`: the CUDA kernels on a CUDA tensor, their plain
-  versions on a CPU tensor.
+* ``fused`` — :mod:`.ops`: the CUDA kernels on a CUDA tensor (one launch
+  for all Q slots), their plain versions on a CPU tensor.
 
 ``resolve_suite(None, device)`` picks ``fused`` on ``cuda`` and
 ``reference`` on the CPU, as the JAX package picks the Pallas suite on the
@@ -62,13 +66,14 @@ class ReferenceSuite(KernelSuite):
     fused = False
 
     def decide(self, v, slot, eps=1e-9):
-        return regions.decide_packed(v, *slot)
+        return regions.decide_packed(v, *ops.packed(slot))
 
     def status_viol(self, x_m, x_c, out_m, out_c, in_m, in_c, live, slot,
                     eps):
         s = stopping.status(x_m, x_c, out_m, out_c, in_m, in_c, live)
         a = stopping.agreements(out_m, out_c, in_m, in_c)
-        decide = lambda u: regions.decide_packed(u, *slot)  # noqa: E731
+        fam = ops.packed(slot)
+        decide = lambda u: regions.decide_packed(u, *fam)  # noqa: E731
         viol = stopping.violations_alg1(decide, s, a, live, eps)
         return s, viol
 
@@ -84,9 +89,9 @@ class FusedSuite(KernelSuite):
     fused = True
 
     def decide(self, v, slot, eps=1e-9):
-        raise NotImplementedError(
-            "FusedSuite.decide needs the region_decide kernel, which is not "
-            "ported yet (ROADMAP B.3)")
+        lead = (v.shape[0],) if ops.is_batched(slot) else ()
+        flat = v.reshape(*lead, -1, v.shape[-1])
+        return ops.region_decide(flat, slot).reshape(v.shape[:-1])
 
     def status_viol(self, x_m, x_c, out_m, out_c, in_m, in_c, live, slot,
                     eps):

@@ -5,12 +5,15 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Each kernel is held against its plain PyTorch version on the same inputs.
-The inputs are multiples of 1/64, so every sum is exact in float32 in any
-order: float outputs must agree to rtol 1e-5 / atol 1e-5, and ``viol`` /
-``dec`` exactly, except where the plain version's decision is a near tie
-(best and second-best score, or v.w and b, within 1e-5 relative), where
-its matrix product may round differently from the kernel's.
+Each kernel is held against its plain PyTorch version on the same inputs,
+unbatched (Q = 1) and with a leading query-slot axis of mixed families and
+per-slot knobs.  The inputs are multiples of 1/64, so every sum is exact in
+float32 in any order: float outputs must agree to rtol 1e-5 / atol 1e-5,
+and ``viol`` / ``dec`` exactly, except where the plain version's decision
+is a near tie (best and second-best score, or v.w and b, within 1e-5
+relative), where a sum taken in another order may round differently.
+``region_decide`` must agree exactly: the plain decision does the kernel's
+arithmetic (``regions.dot``).
 """
 
 import numpy as np
@@ -20,8 +23,11 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import regions, sim, topology, wvs
 from repro_torch.kernels import correction as k_corr
+from repro_torch.kernels import get_suite
 from repro_torch.kernels import lss_state as k_state
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import region_decide as k_dec
+from repro_torch.service import QuerySpec, Service, ServiceConfig
 
 pytestmark = pytest.mark.cuda
 TIE = 1e-5
@@ -99,7 +105,8 @@ def test_kernels_match_plain(dev, n, D, d, k, fam):
     args = _inputs(n, D, d, seed=n + D, dev=dev)
     slot = _slot(fam, d, k, seed=k, dev=dev)
     eps = 1e-9
-    got = k_state.launch(*args, *ops.prep_slot(slot, eps=eps), eps)
+    kernels.reset_counts()
+    got = ops.lss_state(*args, slot, eps=eps)
     want = ref.lss_state_ref(*args, slot, eps)
     for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
@@ -110,9 +117,76 @@ def test_kernels_match_plain(dev, n, D, d, k, fam):
     cargs = (s_m, s_c, args[2] + args[4], args[3] + args[5], args[4],
              args[5], viol)
     for beta in (1e-3, 0.1):
-        for g, w in zip(k_corr.launch(*cargs, beta, eps),
+        for g, w in zip(ops.correction(*cargs, beta=beta, eps=eps),
                         ref.correction_ref(*cargs, beta, eps)):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    v = args[0] / 3.0
+    torch.testing.assert_close(ops.region_decide(v, slot),
+                               ref.region_decide_ref(v, slot), rtol=0, atol=0)
+    assert kernels.counts()["lss_state"] == 1
+    assert kernels.counts()["correction"] == 2
+    assert kernels.counts()["region_decide"] == 1
+
+
+def _slots(d, k, dev):
+    """Q = 8 slots: Voronoi, halfspace, padded Voronoi and padding (every
+    center masked), twice, as one PackedRegions on the card."""
+    fams = []
+    for i in range(8):
+        kind = ("voronoi", "halfspace", "padded-voronoi", "padding")[i % 4]
+        if kind == "padding":
+            fams.append(None)
+            continue
+        slot = _slot(kind, d, k, seed=k + i, dev=dev)
+        fams.append(regions.VoronoiRegions(slot.centers[slot.cmask])
+                    if kind != "halfspace"
+                    else regions.HalfspaceRegions(slot.w, slot.b))
+    packed = regions.PackedRegions.empty(8, k + 3, d, device=dev)
+    for i, fam in enumerate(fams):
+        if fam is not None:
+            packed = packed.set(i, fam)
+    return packed
+
+
+@pytest.mark.parametrize("n,D,d,k", [(1000, 6, 2, 3), (130, 8, 6, 7),
+                                     (33, 3, 2, 243)])
+def test_batched_kernels_match_plain(dev, n, D, d, k):
+    """One launch for Q slots with per-slot families and knobs equals the
+    batched plain versions; padding slots decide 0."""
+    per_slot = [_inputs(n, D, d, seed=n + q, dev=dev) for q in range(8)]
+    args = [torch.stack(a) for a in zip(*per_slot)]
+    packed = _slots(d, k, dev)
+    eps = torch.tensor([1e-9, 1e-3] * 4, device=dev)
+    beta = torch.tensor([1e-3, 1e-3, 0.1, 0.05] * 2, device=dev)
+    tables = ops.prep_slots(packed, eps, beta)
+    kernels.reset_counts()
+    got = ops.lss_state(*args, tables, eps=eps)
+    want = ref.lss_state_ref(*args, packed, eps)
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    differs = (got[3] != want[3]) | (got[2] != want[2]).any(dim=-1)
+    for q in range(8):
+        slot = packed.slot(q)
+        if int(slot.kind) == regions.KIND_VORONOI and not slot.cmask.any():
+            assert not bool(got[3][q].any()), "padding slot decided != 0"
+            continue
+        one = [a[q] for a in args]
+        margin = _row_margin(one, want[0][q], want[1][q], slot,
+                             float(eps[q]))
+        assert bool((margin[differs[q]] <= TIE).all()), q
+    s_m, s_c, viol, _ = want
+    cargs = (s_m, s_c, args[2] + args[4], args[3] + args[5], args[4],
+             args[5], viol)
+    for g, w in zip(ops.correction(*cargs, beta=beta, eps=eps),
+                    ref.correction_ref(*cargs, beta, eps)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    v = args[0] / 3.0
+    torch.testing.assert_close(ops.region_decide(v, tables),
+                               ref.region_decide_ref(v, packed), rtol=0,
+                               atol=0)
+    assert {k: kernels.counts()[k] for k in
+            ("region_decide", "lss_state", "correction")} == {
+        "region_decide": 1, "lss_state": 1, "correction": 1}
 
 
 def test_cuda_tensors_launch_kernels_only(dev):
@@ -122,23 +196,31 @@ def test_cuda_tensors_launch_kernels_only(dev):
     s_m, s_c, viol, _ = ops.lss_state(*args, slot)
     ops.correction(s_m, s_c, args[2] + args[4], args[3] + args[5], args[4],
                    args[5], viol)
-    assert kernels.counts() == {"lss_state": 1, "correction": 1,
+    get_suite("fused").decide(s_m, slot)
+    assert kernels.counts() == {"region_decide": 1, "lss_state": 1,
+                                "correction": 1, "region_decide_ref": 0,
                                 "lss_state_ref": 0, "correction_ref": 0}
 
 
 def test_launchers_check_their_inputs(dev):
-    args = _inputs(64, 3, 2, seed=2, dev=dev)
-    table = ops.prep_slot(_slot("voronoi", 2, 3, seed=2, dev=dev))
+    args = [a[None] for a in _inputs(64, 3, 2, seed=2, dev=dev)]
+    table = [t[None] for t in ops.prep_slot(_slot("voronoi", 2, 3, seed=2,
+                                                  dev=dev))]
     with pytest.raises(TypeError):
-        k_state.launch(args[0].double(), *args[1:], *table, 1e-9)
+        k_state.launch(args[0].double(), *args[1:], *table)
     with pytest.raises(ValueError, match="contiguous"):
-        k_state.launch(args[0].T.contiguous().T, *args[1:], *table, 1e-9)
+        k_state.launch(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                       *args[1:], *table)
     with pytest.raises(ValueError, match="on"):
-        k_state.launch(args[0].cpu(), *args[1:], *table, 1e-9)
-    big = _inputs(8, 2, k_state.MAX_D + 1, seed=3, dev=dev)
+        k_state.launch(args[0].cpu(), *args[1:], *table)
+    with pytest.raises(ValueError, match="shape"):
+        k_dec.launch(args[0], table[0], table[1], table[2][:, :3])
+    big = [a[None] for a in _inputs(8, 2, k_state.MAX_D + 1, seed=3,
+                                    dev=dev)]
+    knob = torch.full((1,), 1e-3, device=dev)
     with pytest.raises(ValueError, match="d <="):
         k_corr.launch(big[0], big[1], big[2], big[3], big[4], big[5],
-                      big[6], 1e-3, 1e-9)
+                      big[6], knob, knob)
 
 
 @pytest.mark.parametrize("make", [lambda: topology.grid(256),
@@ -151,3 +233,35 @@ def test_run_static_on_card_matches_cpu(dev, make):
     for key in ("cycles_95", "cycles_100", "quiesced_at", "final_accuracy",
                 "quiescent", "msgs_per_link"):
         assert on_card[key] == on_cpu[key], key
+
+
+def test_service_on_card_matches_cpu(dev):
+    """The port's service through the kernels on the card gives the records
+    of the same service on the CPU (plain versions of the same kernels)."""
+    topo = topology.grid(64)
+    rng = np.random.default_rng(4)
+    specs = []
+    for i in range(4):
+        centers, sample, _, _ = sim.make_problem(sim.ProblemSpec(n=64,
+                                                                 seed=i))
+        x = sample(rng, 64)
+        region = (regions.VoronoiRegions(centers) if i % 2 == 0 else
+                  regions.HalfspaceRegions(torch.tensor([1.0, -0.5]),
+                                           torch.tensor(0.1)))
+        specs.append(QuerySpec(region=region, inputs=x, seed=i,
+                               beta=1e-3 * (1 + i), ell=1 + i % 2))
+    runs = []
+    for device in (dev, "cpu"):
+        svc = Service(topo, ServiceConfig(capacity=6, k_max=3, d=2,
+                                          cycles_per_dispatch=5,
+                                          use_kernels=True), device=device)
+        for spec in specs:
+            svc.admit(spec)
+        kernels.reset_counts()
+        runs.append([svc.tick() for _ in range(4)])
+        if device == dev:
+            counts = kernels.counts()
+            assert counts["lss_state"] > 0 and counts["correction"] > 0
+            assert counts["region_decide"] == 4  # one per observe
+            assert counts["lss_state_ref"] == counts["correction_ref"] == 0
+    assert runs[0] == runs[1]

@@ -250,3 +250,64 @@ def test_cycle_argument_errors():
     with pytest.raises(ValueError, match="regions"):
         t_lss.cycle_impl(st, ta, t_lss.LSSConfig(), None,
                          suite=get_suite("reference"))
+
+
+@pytest.mark.parametrize("path", ["decide", "reference", "fused"])
+def test_batched_cycle_matches_per_slot_runs(path):
+    """Q stacked slots (mixed families, per-slot beta/ell/eps tensors, a
+    per-slot gate, message loss from one generator per slot) advance
+    exactly as Q unbatched runs of the same cycle, state, sends and
+    do-while iterations alike, and metrics_impl agrees slot by slot."""
+    topo = t_top.chord(48)
+    ta = t_lss.TopoArrays.from_topology(topo, "cpu")
+    rng = np.random.default_rng(7)
+    kinds = FAMILIES + ["voronoi"]
+    slots = [_family(kind, 2, 3, seed=i)[1] for i, kind in enumerate(kinds)]
+    q = len(slots)
+    k_max = max(s.centers.shape[0] for s in slots)
+    packed = t_regions.PackedRegions.empty(q, k_max, 2)
+    for i, s in enumerate(slots):
+        fam = (t_regions.HalfspaceRegions(s.w, s.b)
+               if int(s.kind) == t_regions.KIND_HALFSPACE
+               else t_regions.VoronoiRegions(s.centers[s.cmask]))
+        packed = packed.set(i, fam)
+    x = torch.tensor(rng.standard_normal((q, 48, 2)).astype(np.float32))
+    beta = torch.tensor([1e-3, 0.05, 2e-3, 1e-3])
+    ell = torch.tensor([1, 2, 1, 3], dtype=torch.int32)
+    eps = torch.tensor([1e-9, 1e-6, 1e-9, 1e-3])
+    gate = torch.tensor([True, True, False, True])
+    base = t_lss.LSSConfig(drop_rate=0.2)
+    cfg = base._replace(beta=beta, ell=ell, eps=eps)
+    seeds = [3, 4, 5, 6]
+    batched = t_lss.init_state(ta, t_lss.wvs.from_vector(x, torch.ones(q,
+                                                                     48)),
+                               seed=seeds)
+    singles = [t_lss.init_state(ta, t_lss.wvs.from_vector(x[i],
+                                                          torch.ones(48)),
+                                seed=seeds[i]) for i in range(q)]
+    suite = None if path == "decide" else get_suite(path)
+    for c in range(8):
+        batched, sent, iters = t_lss.cycle_impl(
+            batched, ta, cfg, packed.decide, gate=gate, suite=suite,
+            regions=packed, with_stats=True)
+        for i in range(q):
+            one = base._replace(beta=float(beta[i]), ell=int(ell[i]),
+                                eps=float(eps[i]))
+            singles[i], s_sent, s_iters = t_lss.cycle_impl(
+                singles[i], ta, one, slots[i].decide, gate=gate[i],
+                suite=suite, regions=slots[i], with_stats=True)
+            msg = f"{path} cycle {c} slot {i}"
+            got = convert.state_to_numpy(batched)
+            for name, want in convert.state_to_numpy(singles[i]).items():
+                assert_exact(got[name][i], want, f"{msg}: {name}")
+            assert int(sent[i]) == int(s_sent) and int(iters[i]) == s_iters
+    acc, quiescent, correct, want = t_lss.metrics_impl(
+        batched, ta, packed.decide, eps, suite=suite, regions=packed)
+    for i in range(q):
+        a, qu, co, wa = t_lss.metrics_impl(singles[i], ta, slots[i].decide,
+                                           float(eps[i]), suite=suite,
+                                           regions=slots[i])
+        assert (float(acc[i]), bool(quiescent[i]), int(want[i])) == (
+            float(a), bool(qu), int(wa))
+        assert_exact(correct[i], co)
+    assert not bool(batched.pending[2].any())  # the gated slot never sent
