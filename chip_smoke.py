@@ -17,7 +17,11 @@ Phases, in order; any failure exits nonzero:
    service's shapes (Q = 64 slots of mixed Voronoi, halfspace, padded and
    padding families with per-slot beta / eps, on grid and Chord) and
    ``region_decide`` at n = 80,000 (k = 3 and 243) and at the observe
-   pass's (Q = 64, one vector each), each timed beside its bound;
+   pass's (Q = 64, one vector each), each timed beside its bound and its
+   share of the bound; ``correction`` is also held bitwise (equal values,
+   rtol = atol = 0) to its plain version on inputs that are not dyadic, at
+   the ``run_static`` shapes and at the service's (Q = 64, per-slot
+   beta / eps, padding slots);
 4. run ``sim.run_static`` on the three topologies at 80,000 peers through
    the kernels, with the launch counters zeroed before each run and read
    after it; then time the same loop after its set-up, synchronized, over
@@ -40,8 +44,9 @@ Phases, in order; any failure exits nonzero:
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
-``run_static`` and service runs; ``correction``'s also carries
-``bound_v_ms``, the bound of the violating-set part the main path keeps),
+``run_static`` and service runs; ``share_of_bound`` = bound / time beside
+each time; ``correction``'s also carries ``bound_v_ms``, the bound of the
+violating-set part the main path keeps),
 then, as its last line, ``{"ok": true, "device": {...}}``.  Without CUDA,
 or outside a checkout of the repository, it exits nonzero and prints no
 result.
@@ -53,6 +58,9 @@ exactly, except at rows where a decision is a near tie (best and
 second-best Voronoi score, or v.w and b, within 1e-5 relative, absolute
 below 1); those rows are counted and printed.  ``region_decide`` must
 match exactly: the plain decision does the kernel's arithmetic.
+``correction`` must match bitwise on non-dyadic inputs too: it sums each
+row's violating slots in the plain version's order (``slot_sum``), and a
+sum rounded otherwise would show there.
 """
 
 from __future__ import annotations
@@ -243,6 +251,39 @@ def _bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _share(bound, ms):
+    """Share of the bound: the least time over the measured time."""
+    return bound[0] / ms
+
+
+def _check_correction_bitwise(label, v, beta, eps, gen):
+    """``ops.correction`` against ``ref.correction_ref`` with rtol = atol = 0
+    on non-dyadic inputs on V's shape ((n, D) or (Q, n, D)); S_c is 0 on
+    every 7th peer, so the |T_c| <= eps guard is taken where V is empty
+    there.  Returns the number of values compared."""
+    shape, dev = tuple(v.shape), v.device
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    def pos(*s):
+        return 0.05 + 1.95 * torch.rand(s, generator=gen, device=dev)
+
+    s_c = 3.0 * randn(*shape[:-1])
+    s_c[..., ::7] = 0.0
+    cargs = (randn(*shape[:-1], 2), s_c, 0.3 * randn(*shape, 2),
+             pos(*shape), 0.3 * randn(*shape, 2), pos(*shape), v)
+    got = ops.correction(*cargs, beta=beta, eps=eps)
+    want = ref.correction_ref(*cargs, beta, eps)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out_m", "out_c"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{label}: correction {name} differs from the plain version "
+                f"on non-dyadic inputs at {int((g != w).sum())} values")
+    return sum(g.numel() for g in got)
+
+
 def _check_case(label, args, slot, beta, eps, timed):
     """One kernel-vs-plain comparison of both kernels, through the public
     wrappers the main path calls; returns stats.  The bare launchers are
@@ -302,6 +343,10 @@ def _check_case(label, args, slot, beta, eps, timed):
         stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
         stats["correction_bound_v"] = _bound_ms(
             *_correction_cost_v(cargs, v))
+        gen = torch.Generator(device=v.device)
+        gen.manual_seed(2)
+        stats["correction_bitwise"] = _check_correction_bitwise(
+            label, v, beta, eps, gen)
     return stats
 
 
@@ -337,12 +382,15 @@ def phase_kernels(topos, dev):
         print(f"[kernels] {st['label']}: lss_state {st['lss_state_ms']:.4f} "
               f"ms (plain {st['lss_state_plain_ms']:.4f}, bound "
               f"{st['lss_state_bound'][0]:.4f} by "
-              f"{st['lss_state_bound'][1]}); correction "
-              f"{st['correction_ms']:.4f} ms (plain "
+              f"{st['lss_state_bound'][1]}, share "
+              f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}); "
+              f"correction {st['correction_ms']:.4f} ms (plain "
               f"{st['correction_plain_ms']:.4f}, bound "
               f"{st['correction_bound'][0]:.4f} by "
-              f"{st['correction_bound'][1]}; on V only "
-              f"{st['correction_bound_v'][0]:.4f}); near-tie rows "
+              f"{st['correction_bound'][1]}, share "
+              f"{_share(st['correction_bound'], st['correction_ms']):.4f}; "
+              f"on V only {st['correction_bound_v'][0]:.4f}; bitwise on "
+              f"{st['correction_bitwise']} non-dyadic values); near-tie rows "
               f"{st['tie_rows']} (dec differs on {st['dec_tie_mismatch']}, "
               f"viol on {st['viol_tie_mismatch']}); max|err| "
               f"{st['err_lss_state']:.3g} / {st['err_correction']:.3g}",
@@ -452,6 +500,10 @@ def _check_batched(label, args, packed, eps, beta, timed):
         stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
         stats["correction_bound_v"] = _bound_ms(
             *_correction_cost_v(cargs, v))
+        gen = torch.Generator(device=v.device)
+        gen.manual_seed(3)
+        stats["correction_bitwise"] = _check_correction_bitwise(
+            label, v, beta, eps, gen)
     return stats
 
 
@@ -521,11 +573,15 @@ def phase_kernels_batched(topos, dev):
               f"{st['lss_state_ms']:.4f} ms (plain "
               f"{st['lss_state_plain_ms']:.4f}, bound "
               f"{st['lss_state_bound'][0]:.4f} by "
-              f"{st['lss_state_bound'][1]}); correction "
-              f"{st['correction_ms']:.4f} ms (plain "
+              f"{st['lss_state_bound'][1]}, share "
+              f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}); "
+              f"correction {st['correction_ms']:.4f} ms (plain "
               f"{st['correction_plain_ms']:.4f}, bound "
-              f"{st['correction_bound'][0]:.4f}; on V only "
-              f"{st['correction_bound_v'][0]:.4f}); rows differing at "
+              f"{st['correction_bound'][0]:.4f}, share "
+              f"{_share(st['correction_bound'], st['correction_ms']):.4f}; "
+              f"on V only {st['correction_bound_v'][0]:.4f}; bitwise on "
+              f"{st['correction_bitwise']} non-dyadic values); rows "
+              f"differing at "
               f"near ties {st['mismatch_rows']}; max|err| "
               f"{st['err_lss_state']:.3g} / {st['err_correction']:.3g}",
               flush=True)
@@ -553,7 +609,8 @@ def phase_kernels_batched(topos, dev):
     for st in decide.values():
         print(f"[kernels-q] region_decide {st['label']}: {st['ms']:.4f} ms "
               f"(plain {st['plain_ms']:.4f}, bound {st['bound'][0]:.5f} by "
-              f"{st['bound'][1]}); ids equal", flush=True)
+              f"{st['bound'][1]}, share {_share(st['bound'], st['ms']):.5f}); "
+              f"ids equal", flush=True)
     out["region_decide"] = decide
     return out
 
@@ -925,7 +982,9 @@ def main() -> int:
             head = decide["observe"]
             shapes = [{"shape": st["label"], "ms": st["ms"],
                        "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
-                       "bound_by": st["bound"][1]} for st in decide.values()]
+                       "bound_by": st["bound"][1],
+                       "share_of_bound": _share(st["bound"], st["ms"])}
+                      for st in decide.values()]
             entry = {"max_abs_err": max(st["max_abs_err"]
                                         for st in decide.values()),
                      "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -940,7 +999,10 @@ def main() -> int:
                        "plain_ms": st[f"{name}_plain_ms"],
                        "bound_ms": st[f"{name}_bound"][0],
                        "bound_by": st[f"{name}_bound"][1],
-                       **({"bound_v_ms": st["correction_bound_v"][0]}
+                       "share_of_bound": _share(st[f"{name}_bound"],
+                                                st[f"{name}_ms"]),
+                       **({"bound_v_ms": st["correction_bound_v"][0],
+                           "bitwise_values": st["correction_bitwise"]}
                           if name == "correction" else {})}
                       for st in stats]
             entry = {"max_abs_err": max(st[f"err_{name}"] for st in stats),

@@ -7,15 +7,20 @@ set, for Q query slots in one launch.
 
 What bounds it on the H100: bytes.  It reads the in-messages and agreement
 weights of every slot and writes a message for every slot, with a handful
-of flops each.  Its design: one thread per peer on a 2-D grid
-(``blockIdx.y`` = query slot), one pass for T_i and |V_i| that reads the
-agreement moments only on V_i, one pass writing ``out'``; d is a template
-parameter so T_i stays in registers, and beta and eps are (Q,) device
-tensors.  As in ``lss_state``, a hub row of a Barabási–Albert graph is one
-thread's serial loop.
+of flops each.  Its design: the (Q, n, D) arrays are Q*n contiguous rows,
+so a block of 128 threads takes a tile of whole consecutive rows (at
+most 512 elements) and each thread owns elements a block-width apart, which makes every
+warp-wide access contiguous whatever D is (d-vectors as 8- or 16-byte
+accesses where the pointers allow).  The block keeps its a_c, in_c and
+in_m in registers, stages a_m and a_c of the violating set V in shared
+memory with V as a ballot bitmask, and one thread per (row, component)
+sums its row's set bits in slot order from +0, then adds S: the order of
+the plain version, so T_i rounds bitwise like it.  The write pass is then
+elementwise.  A row longer than a tile gets a block of its own that walks
+it in chunks.  beta and eps are (Q,) device tensors.
 
 ``launches`` counts the kernel launches made by :func:`launch` (one per
-call, whatever Q).
+call, whatever Q; none for an empty input).
 """
 
 from __future__ import annotations
@@ -77,6 +82,6 @@ def launch(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta, eps):
                 d, o_m.data_ptr(), o_c.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"correction kernel launch failed: cudaError {err}")
-    if Q > 0 and n > 0:
+    if Q > 0 and n > 0 and D > 0:
         launches += 1
     return o_m, o_c

@@ -13,7 +13,9 @@ and ``viol`` / ``dec`` exactly, except where the plain version's decision
 is a near tie (best and second-best score, or v.w and b, within 1e-5
 relative), where a sum taken in another order may round differently.
 ``region_decide`` must agree exactly: the plain decision does the kernel's
-arithmetic (``regions.dot``).
+arithmetic (``regions.dot``).  ``correction`` must also agree bitwise on
+inputs that are not dyadic (``test_correction_bitwise``): it sums each row's
+violating slots in the plain version's order, so no sum may round otherwise.
 """
 
 import numpy as np
@@ -187,6 +189,76 @@ def test_batched_kernels_match_plain(dev, n, D, d, k):
     assert {k: kernels.counts()[k] for k in
             ("region_decide", "lss_state", "correction")} == {
         "region_decide": 1, "lss_state": 1, "correction": 1}
+
+
+def _correction_inputs(q, n, D, d, seed, dev, offset=0):
+    """Non-dyadic (q, n, D, d) inputs of the correction on a Barabási–Albert
+    like row mix: full hub rows among degree-2 rows padded to D; rows with
+    empty V (S_c = 0 there, so |T_c| <= eps), with V on every live slot and
+    with V on every slot; with q > 1 the last slot is a padding slot (all
+    zero, V empty).  ``offset`` > 0 puts the d-vector arrays that many
+    floats into their buffers, off 8- and 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    hub = np.zeros(n, bool)
+    hub[[0, n // 2, n - 1]] = True
+    deg = np.where(hub, D, min(2, D))
+    live = np.arange(D)[None, :] < deg[:, None]
+    kind = np.arange(n) % 7
+    v = np.where(kind[:, None] == 1, False,
+                 np.where(kind[:, None] == 2, live,
+                          np.where(kind[:, None] == 3, True,
+                                   live & (rng.random((q, n, D)) < 0.6))))
+    v = np.broadcast_to(v, (q, n, D)).copy()
+    keep = live[..., None].astype(np.float32)
+    s_m = rng.standard_normal((q, n, d)).astype(np.float32)
+    s_c = (3.0 * rng.standard_normal((q, n))).astype(np.float32)
+    s_c[:, kind == 1] = 0.0
+    s_c[:, kind == 5] = 1e-12
+    a_m = (0.3 * rng.standard_normal((q, n, D, d)) * keep).astype(np.float32)
+    a_c = (rng.uniform(0.05, 2.0, (q, n, D)) * live).astype(np.float32)
+    in_m = (0.3 * rng.standard_normal((q, n, D, d)) * keep).astype(np.float32)
+    in_c = (rng.uniform(0.05, 2.0, (q, n, D)) * live).astype(np.float32)
+    if q > 1:
+        for arr in (s_m, s_c, a_m, a_c, in_m, in_c):
+            arr[-1] = 0.0
+        v[-1] = False
+
+    def put(a, off=0):
+        buf = torch.empty(a.size + off, dtype=torch.float32, device=dev)
+        out = buf[off:].view(a.shape)
+        out.copy_(torch.from_numpy(a))
+        return out
+
+    return (put(s_m), put(s_c), put(a_m, offset), put(a_c), put(in_m, offset),
+            put(in_c), torch.tensor(v, device=dev))
+
+
+@pytest.mark.parametrize("q,n,D,d,offset", [
+    (1, 1000, 3, 2, 0), (5, 257, 4, 2, 0), (1, 301, 34, 2, 0),
+    (5, 131, 37, 2, 0), (1, 200, 780, 2, 0), (5, 67, 780, 2, 0),
+    (1, 8, 5000, 2, 0), (5, 8, 5000, 2, 0), (5, 97, 37, 3, 0),
+    (1, 150, 34, 4, 0), (5, 131, 34, 4, 1), (1, 301, 34, 2, 1),
+    (5, 40, 6, 16, 0), (1, 8, 1500, 6, 0)])
+def test_correction_bitwise(dev, q, n, D, d, offset):
+    """The kernel equals its plain version bitwise on non-dyadic inputs, at
+    tile edges (n not a multiple of a tile), on hub rows, on rows longer
+    than a tile (D = 1,500 and 5,000) and with unaligned d-vectors; q = 5
+    takes per-slot beta / eps and a padding slot, q = 1 the unbatched
+    call."""
+    args = _correction_inputs(q, n, D, d, seed=n * 31 + D, dev=dev,
+                              offset=offset)
+    if q == 1:
+        args = tuple(a[0] for a in args)
+        beta, eps = 1e-3, 1e-9
+    else:
+        beta = torch.tensor([1e-3, 0.1, 0.05, 1e-3, 0.2][:q], device=dev)
+        eps = torch.tensor([1e-9, 1e-3, 0.5, 1e-9, 1e-9][:q], device=dev)
+    kernels.reset_counts()
+    got = ops.correction(*args, beta=beta, eps=eps)
+    want = ref.correction_ref(*args, beta, eps)
+    assert kernels.counts()["correction"] == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_cuda_tensors_launch_kernels_only(dev):
