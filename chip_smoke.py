@@ -18,10 +18,11 @@ Phases, in order; any failure exits nonzero:
    padding families with per-slot beta / eps, on grid and Chord) and
    ``region_decide`` at n = 80,000 (k = 3 and 243) and at the observe
    pass's (Q = 64, one vector each), each timed beside its bound and its
-   share of the bound; ``correction`` is also held bitwise (equal values,
-   rtol = atol = 0) to its plain version on inputs that are not dyadic, at
-   the ``run_static`` shapes and at the service's (Q = 64, per-slot
-   beta / eps, padding slots);
+   share of the bound; ``lss_state`` and ``correction`` are also held
+   bitwise (equal values, rtol = atol = 0; ``viol`` and ``dec`` equal
+   everywhere, near ties included) to their plain versions on inputs that
+   are not dyadic, at the ``run_static`` shapes and at the service's
+   (Q = 64, per-slot eps / beta, padding slots);
 4. run ``sim.run_static`` on the three topologies at 80,000 peers through
    the kernels, with the launch counters zeroed before each run and read
    after it; then time the same loop after its set-up, synchronized, over
@@ -45,8 +46,9 @@ Phases, in order; any failure exits nonzero:
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static`` and service runs; ``share_of_bound`` = bound / time beside
-each time; ``correction``'s also carries ``bound_v_ms``, the bound of the
-violating-set part the main path keeps),
+each time, ``bitwise_values`` the values held bitwise; ``correction``'s
+also carries ``bound_v_ms``, the bound of the violating-set part the main
+path keeps),
 then, as its last line, ``{"ok": true, "device": {...}}``.  Without CUDA,
 or outside a checkout of the repository, it exits nonzero and prints no
 result.
@@ -58,9 +60,9 @@ exactly, except at rows where a decision is a near tie (best and
 second-best Voronoi score, or v.w and b, within 1e-5 relative, absolute
 below 1); those rows are counted and printed.  ``region_decide`` must
 match exactly: the plain decision does the kernel's arithmetic.
-``correction`` must match bitwise on non-dyadic inputs too: it sums each
-row's violating slots in the plain version's order (``slot_sum``), and a
-sum rounded otherwise would show there.
+``lss_state`` and ``correction`` must match bitwise on non-dyadic inputs
+too: they sum each row's live or violating slots in the plain version's
+order (``slot_sum``), and a sum rounded otherwise would show there.
 """
 
 from __future__ import annotations
@@ -284,6 +286,40 @@ def _check_correction_bitwise(label, v, beta, eps, gen):
     return sum(g.numel() for g in got)
 
 
+def _nondyadic_inputs(mask, d, gen):
+    """Non-dyadic moment-form inputs on ``mask``'s shape ((n, D) or
+    (Q, n, D)), with one live slot in ten dropped (dead slots anywhere in
+    a row, as churn leaves them); dead slots hold values too."""
+    shape, dev = tuple(mask.shape), mask.device
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    def unif(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(s, generator=gen, device=dev)
+
+    live = mask & (torch.rand(shape, generator=gen, device=dev) >= 0.1)
+    return (randn(*shape[:-1], d), unif(0.5, 2.0, *shape[:-1]),
+            0.3 * randn(*shape, d), unif(-0.5, 2.0, *shape),
+            0.3 * randn(*shape, d), unif(-0.5, 2.0, *shape),
+            live.contiguous())
+
+
+def _check_lss_state_bitwise(label, args, region, plain, eps):
+    """``ops.lss_state`` against ``ref.lss_state_ref`` on ``args``: s_m and
+    s_c with rtol = atol = 0, viol and dec equal everywhere.  Returns the
+    number of values compared."""
+    got = ops.lss_state(*args, region, eps=eps)
+    want = ref.lss_state_ref(*args, plain, eps)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("s_m", "s_c", "viol", "dec"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{label}: lss_state {name} differs from the plain version "
+                f"on non-dyadic inputs at {int((g != w).sum())} values")
+    return sum(w.numel() for w in want)
+
+
 def _check_case(label, args, slot, beta, eps, timed):
     """One kernel-vs-plain comparison of both kernels, through the public
     wrappers the main path calls; returns stats.  The bare launchers are
@@ -347,6 +383,9 @@ def _check_case(label, args, slot, beta, eps, timed):
         gen.manual_seed(2)
         stats["correction_bitwise"] = _check_correction_bitwise(
             label, v, beta, eps, gen)
+        nd = _nondyadic_inputs(mask, x_m.shape[-1], gen)
+        stats["lss_state_bitwise"] = _check_lss_state_bitwise(
+            label, nd, slot, slot, eps)
     return stats
 
 
@@ -383,7 +422,8 @@ def phase_kernels(topos, dev):
               f"ms (plain {st['lss_state_plain_ms']:.4f}, bound "
               f"{st['lss_state_bound'][0]:.4f} by "
               f"{st['lss_state_bound'][1]}, share "
-              f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}); "
+              f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}; "
+              f"bitwise on {st['lss_state_bitwise']} non-dyadic values); "
               f"correction {st['correction_ms']:.4f} ms (plain "
               f"{st['correction_plain_ms']:.4f}, bound "
               f"{st['correction_bound'][0]:.4f} by "
@@ -504,6 +544,9 @@ def _check_batched(label, args, packed, eps, beta, timed):
         gen.manual_seed(3)
         stats["correction_bitwise"] = _check_correction_bitwise(
             label, v, beta, eps, gen)
+        nd = _nondyadic_inputs(mask, out_m.shape[-1], gen)
+        stats["lss_state_bitwise"] = _check_lss_state_bitwise(
+            label, nd, tables, packed, eps)
     return stats
 
 
@@ -574,7 +617,8 @@ def phase_kernels_batched(topos, dev):
               f"{st['lss_state_plain_ms']:.4f}, bound "
               f"{st['lss_state_bound'][0]:.4f} by "
               f"{st['lss_state_bound'][1]}, share "
-              f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}); "
+              f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}; "
+              f"bitwise on {st['lss_state_bitwise']} non-dyadic values); "
               f"correction {st['correction_ms']:.4f} ms (plain "
               f"{st['correction_plain_ms']:.4f}, bound "
               f"{st['correction_bound'][0]:.4f}, share "
@@ -992,8 +1036,9 @@ def main() -> int:
                      "bound_by": head["bound"][1], "shape": head["label"]}
         else:
             # This slice's main path: the service at Q = 64 on Chord; the
-            # other shapes (run_static on BA, the service on grid) beside.
-            stats = [batched["chord"], batched["grid"], main_stats["ba"]]
+            # other shapes (the service on grid, run_static) beside.
+            stats = [batched["chord"], batched["grid"], main_stats["ba"],
+                     main_stats["chord"], main_stats["grid"]]
             head = stats[0]
             shapes = [{"shape": st["label"], "ms": st[f"{name}_ms"],
                        "plain_ms": st[f"{name}_plain_ms"],
@@ -1001,8 +1046,8 @@ def main() -> int:
                        "bound_by": st[f"{name}_bound"][1],
                        "share_of_bound": _share(st[f"{name}_bound"],
                                                 st[f"{name}_ms"]),
-                       **({"bound_v_ms": st["correction_bound_v"][0],
-                           "bitwise_values": st["correction_bitwise"]}
+                       "bitwise_values": st[f"{name}_bitwise"],
+                       **({"bound_v_ms": st["correction_bound_v"][0]}
                           if name == "correction" else {})}
                       for st in stats]
             entry = {"max_abs_err": max(st[f"err_{name}"] for st in stats),

@@ -50,9 +50,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dvec.cuh"
 #include "packed_decide.cuh"
 
 namespace {
+
+using repro::load_d;
 
 constexpr int kThreads = 128;
 
@@ -65,26 +68,6 @@ struct Tile {
   static constexpr int kWords = kCap / 32;           // V bitmask words
   static constexpr int kRows = kCap / 4;             // most rows (D < 4)
 };
-
-// The DD floats at p[e * DD] as accesses of VW floats (VW divides DD and
-// the host checked the pointer's alignment).
-template <int DD, int VW>
-__device__ __forceinline__ void load_d(const float* __restrict__ p,
-                                       int64_t e, float* x) {
-  const float* s = p + e * DD;
-#pragma unroll
-  for (int j = 0; j < DD; j += VW) {
-    if constexpr (VW == 4) {
-      const float4 u = *reinterpret_cast<const float4*>(s + j);
-      x[j] = u.x, x[j + 1] = u.y, x[j + 2] = u.z, x[j + 3] = u.w;
-    } else if constexpr (VW == 2) {
-      const float2 u = *reinterpret_cast<const float2*>(s + j);
-      x[j] = u.x, x[j + 1] = u.y;
-    } else {
-      x[j] = s[j];
-    }
-  }
-}
 
 template <int DD, int VW>
 __device__ __forceinline__ void store_d(float* __restrict__ p, int64_t e,

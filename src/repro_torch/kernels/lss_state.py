@@ -5,15 +5,26 @@ lss_state_kernel`` (launched by ``lss_state_call``) and its query-batched
 form: the fused status S_i, agreements, three packed region decisions and
 Alg.-1 violation set, for Q query slots in one launch.
 
-What bounds it on the H100: bytes.  Per live message slot it reads the
-out/in moments and weights and does a few flops per decision, far below the
-card's ~20 flops per byte of float32 balance.  Its design answers that with
-one thread per peer on a 2-D grid (``blockIdx.y`` = query slot), no padding
-of d (the TPU's 128-lane layout is gone), the slot's packed table in shared
-memory with ``eps`` read from it on the device, and no reads at all for
-slots that are not live — on Barabási–Albert graphs D is the hub degree
-and most slots of most rows are padding.  A hub row is one thread's serial
-loop, so the hubs are a load-imbalance limit of this first design.
+What bounds it on the H100: bytes at the paper's k = 3 (each slot's mask
+and viol byte, out/in moments and weights of the live slots), operations at
+k = 243 (each live slot's two decisions scan every center); at k = 3 the
+issue rate is close too (up to four IEEE divisions and two decisions a live
+slot).  Its design: the (Q, n, D) arrays are Q*n contiguous rows, so a
+block of 128 threads takes a tile of whole consecutive rows of one query
+slot (at most 512 slots; 256 for d > 4), with that slot's packed table and
+``eps`` in shared memory, and each thread owns elements a block-width
+apart, which makes every warp-wide access contiguous whatever D is
+(d-vectors as 8- or 16-byte accesses where the pointers allow).  Out/in
+are read on live slots only.  The block puts in - out of its live slots
+into shared memory with the live set as a ballot bitmask, and one thread
+per (row, component) sums its row's live slots in slot order from +0 (over
+nonzero words, in groups of 8 loaded together), then adds X_ii: the order
+of the plain version, so S rounds bitwise like it.  One thread per row
+decides f(vec S); the violation pass is then elementwise.  Rows of up to 4
+slots take a thread per row for the sum and decision.  Rows longer than a
+tile and of up to 1,024 slots (Barabási–Albert hubs pad every row) get a
+warp each, summing S with shuffles in the same order; longer rows a block
+each that walks them in chunks.
 
 ``launches`` counts the kernel launches made by :func:`launch` (one per
 call, whatever Q).

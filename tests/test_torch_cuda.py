@@ -13,9 +13,11 @@ and ``viol`` / ``dec`` exactly, except where the plain version's decision
 is a near tie (best and second-best score, or v.w and b, within 1e-5
 relative), where a sum taken in another order may round differently.
 ``region_decide`` must agree exactly: the plain decision does the kernel's
-arithmetic (``regions.dot``).  ``correction`` must also agree bitwise on
-inputs that are not dyadic (``test_correction_bitwise``): it sums each row's
-violating slots in the plain version's order, so no sum may round otherwise.
+arithmetic (``regions.dot``).  ``lss_state`` and ``correction`` must also
+agree bitwise on inputs that are not dyadic (``test_lss_state_bitwise``,
+``test_correction_bitwise``): each sums a row's live or violating slots in
+the plain version's order, so no sum may round otherwise, and ``viol`` /
+``dec`` must then be equal everywhere, near ties included.
 """
 
 import numpy as np
@@ -259,6 +261,99 @@ def test_correction_bitwise(dev, q, n, D, d, offset):
     assert kernels.counts()["correction"] == 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _state_inputs(q, n, D, d, seed, dev, offset=0):
+    """Non-dyadic (q, n, D, d) inputs of ``lss_state`` on a Barabási–Albert
+    like row mix: full hub rows among degree-2 rows padded to D, all-dead
+    rows, rows with dead slots scattered anywhere (as churn leaves them),
+    and rows whose one live slot has in == out (a zero difference).  Dead
+    slots hold values too, which the kernel must not read into S.
+    ``offset`` > 0 puts out_m / in_m that many floats into their buffers,
+    off 8- and 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    hub = np.zeros(n, bool)
+    hub[[0, n // 2, n - 1]] = True
+    deg = np.where(hub, D, min(2, D))
+    live = np.arange(D)[None, :] < deg[:, None]
+    kind = np.arange(n) % 7
+    mask = np.broadcast_to(live, (q, n, D)).copy()
+    mask[:, kind == 1] = False
+    mask[:, kind == 3] = rng.random((q, int((kind == 3).sum()), D)) < 0.6
+    mask[:, kind == 5] = np.arange(D) == 0
+    x_m = rng.standard_normal((q, n, d)).astype(np.float32)
+    x_c = rng.uniform(0.5, 2.0, (q, n)).astype(np.float32)
+    out_m = (0.3 * rng.standard_normal((q, n, D, d))).astype(np.float32)
+    out_c = rng.uniform(-0.5, 2.0, (q, n, D)).astype(np.float32)
+    in_m = (0.3 * rng.standard_normal((q, n, D, d))).astype(np.float32)
+    in_c = rng.uniform(-0.5, 2.0, (q, n, D)).astype(np.float32)
+    in_m[:, kind == 5, 0] = out_m[:, kind == 5, 0]
+    in_c[:, kind == 5, 0] = out_c[:, kind == 5, 0]
+
+    def put(a, off=0):
+        buf = torch.empty(a.size + off, dtype=torch.float32, device=dev)
+        out = buf[off:].view(a.shape)
+        out.copy_(torch.from_numpy(a))
+        return out
+
+    return (put(x_m), put(x_c), put(out_m, offset), put(out_c),
+            put(in_m, offset), put(in_c), torch.tensor(mask, device=dev))
+
+
+def _mixed_slots(q, d, k, dev):
+    """q slots cycling Voronoi, halfspace, padded Voronoi (k - 1 centers),
+    Voronoi and padding (every center masked), from numpy draws."""
+    rng = np.random.default_rng(k * 13 + d)
+    packed = regions.PackedRegions.empty(q, k + 3, d, device=dev)
+    for i in range(q):
+        kind = i % 5
+        if kind == 4:
+            continue
+        arr = lambda *s: torch.tensor(  # noqa: E731
+            rng.standard_normal(s).astype(np.float32), device=dev)
+        fam = (regions.HalfspaceRegions(arr(d), arr()) if kind == 1 else
+               regions.VoronoiRegions(arr(k - (kind == 2), d)))
+        packed = packed.set(i, fam)
+    return packed
+
+
+@pytest.mark.parametrize("q,n,D,d,k,fam,offset", [
+    (1, 1000, 3, 2, 3, "voronoi", 0), (5, 257, 4, 2, 3, "mixed", 0),
+    (1, 301, 34, 2, 3, "halfspace", 0), (5, 131, 37, 2, 3, "mixed", 0),
+    (1, 200, 780, 2, 3, "voronoi", 0), (5, 67, 780, 2, 3, "mixed", 0),
+    (1, 8, 5000, 2, 3, "padded-voronoi", 0), (5, 8, 5000, 2, 3, "mixed", 0),
+    (5, 97, 37, 3, 243, "mixed", 0), (1, 150, 34, 4, 243, "voronoi", 0),
+    (5, 131, 34, 4, 3, "mixed", 1), (1, 301, 34, 2, 3, "padded-voronoi", 1),
+    (1, 64, 780, 4, 3, "halfspace", 1), (5, 40, 6, 16, 7, "mixed", 0),
+    (1, 100, 34, 16, 243, "voronoi", 0),
+    (1, 33, 3, 2, 243, "padded-voronoi", 0), (1, 300, 1, 2, 3, "voronoi", 0),
+    (1, 31, 513, 3, 3, "padded-voronoi", 0),
+    (1, 50, 300, 6, 3, "halfspace", 0), (5, 9, 1025, 2, 3, "mixed", 0)])
+def test_lss_state_bitwise(dev, q, n, D, d, k, fam, offset):
+    """The kernel equals its plain version bitwise on non-dyadic inputs:
+    ``s_m`` / ``s_c`` with rtol = atol = 0, ``viol`` / ``dec`` everywhere,
+    near ties included; on each of the kernel's paths and at their edges
+    (rows of 1 to 4 slots, tiles with n not a multiple of a tile, rows of
+    513 to 1,024 slots such as hubs of 780, rows of 1,025 and 5,000), with
+    unaligned d-vectors, k = 243, d = 16; q = 5 takes mixed families,
+    per-slot eps and a padding slot, q = 1 the unbatched call."""
+    args = _state_inputs(q, n, D, d, seed=n * 31 + D + k, dev=dev,
+                         offset=offset)
+    if q == 1:
+        args = tuple(a[0] for a in args)
+        region = plain = _slot(fam, d, k, seed=k, dev=dev)
+        eps = 1e-3
+    else:
+        plain = _mixed_slots(q, d, k, dev)
+        eps = torch.tensor([1e-9, 1e-3, 0.5, 1e-9, 1e-9][:q], device=dev)
+        region = ops.prep_slots(plain, eps)
+    kernels.reset_counts()
+    got = ops.lss_state(*args, region, eps=eps)
+    want = ref.lss_state_ref(*args, plain, eps)
+    assert kernels.counts()["lss_state"] == 1
+    for name, g, w in zip(("s_m", "s_c", "viol", "dec"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), (name, int((g != w).sum()))
 
 
 def test_cuda_tensors_launch_kernels_only(dev):
