@@ -19,10 +19,10 @@
 // What bounds it on the H100: bytes at k = 3 (the paper's workload: every
 // slot's mask byte and viol byte, the out/in moments and weights of the
 // live slots), operations at k = 243 (the two decisions of a live slot
-// scan every center).  At k = 3 the issue rate comes close as well: a live
-// slot costs up to four IEEE divisions and two decisions, about as many
-// instructions as its bytes take time, so the design keeps the per-slot
-// overhead small besides making every access coalesced.
+// scan every center).  At k = 3 the instruction rate comes close as well:
+// a live slot costs up to four IEEE divisions and two decisions, about as
+// many instructions as its bytes take time, so the design keeps the
+// per-slot overhead small besides making every access coalesced.
 //
 // Design.  The (Q, n, D[, d]) arrays are Q*n contiguous rows of D slots, so
 // P consecutive rows of one slot q are one contiguous range of P*D

@@ -8,9 +8,9 @@ Alg.-1 violation set, for Q query slots in one launch.
 What bounds it on the H100: bytes at the paper's k = 3 (each slot's mask
 and viol byte, out/in moments and weights of the live slots), operations at
 k = 243 (each live slot's two decisions scan every center); at k = 3 the
-issue rate is close too (up to four IEEE divisions and two decisions a live
-slot).  Its design: the (Q, n, D) arrays are Q*n contiguous rows, so a
-block of 128 threads takes a tile of whole consecutive rows of one query
+instruction rate is close too (up to four IEEE divisions and two decisions
+a live slot).  Its design: the (Q, n, D) arrays are Q*n contiguous rows, so
+a block of 128 threads takes a tile of whole consecutive rows of one query
 slot (at most 512 slots; 256 for d > 4), with that slot's packed table and
 ``eps`` in shared memory, and each thread owns elements a block-width
 apart, which makes every warp-wide access contiguous whatever D is
@@ -22,9 +22,9 @@ nonzero words, in groups of 8 loaded together), then adds X_ii: the order
 of the plain version, so S rounds bitwise like it.  One thread per row
 decides f(vec S); the violation pass is then elementwise.  Rows of up to 4
 slots take a thread per row for the sum and decision.  Rows longer than a
-tile and of up to 1,024 slots (Barabási–Albert hubs pad every row) get a
-warp each, summing S with shuffles in the same order; longer rows a block
-each that walks them in chunks.
+tile (Barabási–Albert graphs pad every row to the hub degree) get a warp
+each, in segments of 1,024 slots, summing S with shuffles in the same
+order.
 
 ``launches`` counts the kernel launches made by :func:`launch` (one per
 call, whatever Q).
