@@ -17,18 +17,27 @@ Phases, in order; any failure exits nonzero:
    service's shapes (Q = 64 slots of mixed Voronoi, halfspace, padded and
    padding families with per-slot beta / eps, on grid and Chord) and
    ``region_decide`` at n = 80,000 (k = 3 and 243) and at the observe
-   pass's (Q = 64, one vector each), each timed beside its bound and its
-   share of the bound; ``lss_state`` and ``correction`` are also held
+   pass's (Q = 64, one vector each), and ``region_decide``'s second entry,
+   the observe pass's global decision, at the service's shapes (Q = 64 on
+   grid and Chord) and at ``run_static``'s (Q = 1), each timed beside its
+   bound and its share of the bound, by CUDA events over back-to-back
+   calls of its launcher and as device time a launch from
+   ``torch.profiler`` (the two differ where the launcher, not the kernel,
+   sets the pace); ``lss_state`` and ``correction`` are also held
    bitwise (equal values, rtol = atol = 0; ``viol`` and ``dec`` equal
    everywhere, near ties included) to their plain versions on inputs that
    are not dyadic, at the ``run_static`` shapes and at the service's
-   (Q = 64, per-slot eps / beta, padding slots);
+   (Q = 64, per-slot eps / beta, padding slots), and the global decision
+   gives the plain ``want`` and, bitwise, its rounded global sums on
+   non-dyadic inputs with dead peers, an all-dead slot, padding slots,
+   per-slot eps and a halfspace threshold at the float32 mean;
 4. run ``sim.run_static`` on the three topologies at 80,000 peers through
    the kernels, with the launch counters zeroed before each run and read
    after it; then time the same loop after its set-up, synchronized, over
    several repeats (median and spread of µs per cycle), and run it once
-   more under ``torch.profiler`` to print the device time by kernel and
-   the device's idle share of that profiled loop's own wall time;
+   more under ``torch.profiler`` to print the device time by kernel, the
+   device kernels launched per cycle and the device's idle share of that
+   profiled loop's own wall time;
 5. at 4,096 peers, run ``run_static`` with the kernels and with the
    reference formulas on the card and require the same outcome;
 6. serve ``benchmarks/service_throughput.py``'s workload with the port's
@@ -37,7 +46,7 @@ Phases, in order; any failure exits nonzero:
    each boundary, on grid (80,089 peers) and Chord (80,000), counters
    zeroed before and read after; print the dispatch wall, tenant-cycles
    per second, launches and host syncs per dispatch, peak memory, and one
-   more dispatch under ``torch.profiler``;
+   more dispatch under ``torch.profiler`` (device kernels per dispatch);
 7. service parity: tenants 0 (Voronoi) and 1 (halfspace) of each run
    replayed alone through the single-query ``cycle_impl`` must give the
    served per-dispatch msgs and accuracy, and at grid 4,096 with Q = 8 the
@@ -46,9 +55,11 @@ Phases, in order; any failure exits nonzero:
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static`` and service runs; ``share_of_bound`` = bound / time beside
-each time, ``bitwise_values`` the values held bitwise; ``correction``'s
-also carries ``bound_v_ms``, the bound of the violating-set part the main
-path keeps),
+each time, ``device_ms`` the profiler's device time a launch,
+``bitwise_values`` the values held bitwise; ``correction``'s also carries
+``bound_v_ms``, the bound of the violating-set part the main path keeps;
+``region_decide``'s numbers are its second entry's, the one the main
+paths launch, with the first entry's shapes in ``by_shape``),
 then, as its last line, ``{"ok": true, "device": {...}}``.  Without CUDA,
 or outside a checkout of the repository, it exits nonzero and prints no
 result.
@@ -59,7 +70,9 @@ is exact in float32 in any order; ``viol`` and ``dec`` must then match
 exactly, except at rows where a decision is a near tie (best and
 second-best Voronoi score, or v.w and b, within 1e-5 relative, absolute
 below 1); those rows are counted and printed.  ``region_decide`` must
-match exactly: the plain decision does the kernel's arithmetic.
+match exactly: the plain decision does the kernel's arithmetic; its second
+entry must give equal ids and bitwise equal global sums (both sum in
+float64 and round once).
 ``lss_state`` and ``correction`` must match bitwise on non-dyadic inputs
 too: they sum each row's live or violating slots in the plain version's
 order (``slot_sum``), and a sum rounded otherwise would show there.
@@ -97,6 +110,7 @@ MAX_CYCLES = 600  # as benchmarks/common.py::timed_static
 TIMED_REPEATS = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 RTOL = ATOL = 1e-5
 TIE_REL = 1e-5
 
@@ -193,6 +207,26 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps, match):
+    """Device time a launch of the kernels whose name contains ``match``,
+    from ``torch.profiler`` over ``reps`` calls of ``fn`` after a warm one;
+    None where the profiler saw none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ivals = [(s, e) for name, s, e in _device_intervals(prof)
+             if match in name]
+    if not ivals:
+        return None
+    return sum(e - s for s, e in ivals) / len(ivals) / 1e3
+
+
 def _lss_state_cost(args, k):
     """(bytes, operations) the fused status/violation function needs (n
     counts the peers of every slot of a batched call)."""
@@ -247,15 +281,23 @@ def _correction_cost_v(args, v):
     return nbytes, ops
 
 
-def _bound_ms(nbytes, ops):
+def _bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _share(bound, ms):
     """Share of the bound: the least time over the measured time."""
     return bound[0] / ms
+
+
+def _fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _fmt_share(bound, ms):
+    return "not measured" if ms is None else f"{_share(bound, ms):.4f}"
 
 
 def _check_correction_bitwise(label, v, beta, eps, gen):
@@ -369,11 +411,15 @@ def _check_case(label, args, slot, beta, eps, timed):
                  torch.full((1,), eps, device=v.device))
         stats["lss_state_ms"] = _time_ms(
             lambda: kst.launch(*q_args, *table), 20)
+        stats["lss_state_device_ms"] = _device_ms(
+            lambda: kst.launch(*q_args, *table), 20, "lss_state")
         stats["lss_state_plain_ms"] = _time_ms(
             lambda: ref.lss_state_ref(*args, slot, eps), 5)
         stats["lss_state_bound"] = _bound_ms(*_lss_state_cost(args, k))
         stats["correction_ms"] = _time_ms(
             lambda: kcorr.launch(*q_cargs, *knobs), 20)
+        stats["correction_device_ms"] = _device_ms(
+            lambda: kcorr.launch(*q_cargs, *knobs), 20, "correction")
         stats["correction_plain_ms"] = _time_ms(
             lambda: ref.correction_ref(*cargs, beta, eps), 5)
         stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
@@ -419,12 +465,14 @@ def phase_kernels(topos, dev):
                          args, slot, 1e-3, 1e-9, timed=True)
         main[name] = st
         print(f"[kernels] {st['label']}: lss_state {st['lss_state_ms']:.4f} "
-              f"ms (plain {st['lss_state_plain_ms']:.4f}, bound "
+              f"ms (device {_fmt_ms(st['lss_state_device_ms'])} a launch; "
+              f"plain {st['lss_state_plain_ms']:.4f}, bound "
               f"{st['lss_state_bound'][0]:.4f} by "
               f"{st['lss_state_bound'][1]}, share "
               f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}; "
               f"bitwise on {st['lss_state_bitwise']} non-dyadic values); "
-              f"correction {st['correction_ms']:.4f} ms (plain "
+              f"correction {st['correction_ms']:.4f} ms (device "
+              f"{_fmt_ms(st['correction_device_ms'])} a launch; plain "
               f"{st['correction_plain_ms']:.4f}, bound "
               f"{st['correction_bound'][0]:.4f} by "
               f"{st['correction_bound'][1]}, share "
@@ -529,12 +577,16 @@ def _check_batched(label, args, packed, eps, beta, timed):
         table = (tables.cthw, tables.cn, tables.meta)
         stats["lss_state_ms"] = _time_ms(lambda: kst.launch(*args, *table),
                                          10)
+        stats["lss_state_device_ms"] = _device_ms(
+            lambda: kst.launch(*args, *table), 10, "lss_state")
         stats["lss_state_plain_ms"] = _time_ms(
             lambda: ref.lss_state_ref(*args, packed, eps), 3)
         stats["lss_state_bound"] = _bound_ms(*_lss_state_cost(args, k))
         knobs = (beta.contiguous(), eps.contiguous())
         stats["correction_ms"] = _time_ms(
             lambda: kcorr.launch(*cargs, *knobs), 10)
+        stats["correction_device_ms"] = _device_ms(
+            lambda: kcorr.launch(*cargs, *knobs), 10, "correction")
         stats["correction_plain_ms"] = _time_ms(
             lambda: ref.correction_ref(*cargs, beta, eps), 3)
         stats["correction_bound"] = _bound_ms(*_correction_cost(cargs, v))
@@ -584,6 +636,8 @@ def _check_region_decide(label, v, region, timed, library=None):
         tables = ops.prep_slots(packed)
         table = (tables.cthw, tables.cn, tables.meta)
         stats["ms"] = _time_ms(lambda: kdec.launch(vq, *table), 20)
+        stats["device_ms"] = _device_ms(lambda: kdec.launch(vq, *table), 20,
+                                        "region_decide_kernel")
         stats["plain_ms"] = _time_ms(
             lambda: ref.region_decide_ref(v, region), 5)
         stats["bound"] = _bound_ms(*_region_decide_cost(vq, packed))
@@ -613,13 +667,15 @@ def phase_kernels_batched(topos, dev):
                             timed=True)
         out[name] = st
         print(f"[kernels-q] {st['label']}: lss_state "
-              f"{st['lss_state_ms']:.4f} ms (plain "
+              f"{st['lss_state_ms']:.4f} ms (device "
+              f"{_fmt_ms(st['lss_state_device_ms'])} a launch; plain "
               f"{st['lss_state_plain_ms']:.4f}, bound "
               f"{st['lss_state_bound'][0]:.4f} by "
               f"{st['lss_state_bound'][1]}, share "
               f"{_share(st['lss_state_bound'], st['lss_state_ms']):.4f}; "
               f"bitwise on {st['lss_state_bitwise']} non-dyadic values); "
-              f"correction {st['correction_ms']:.4f} ms (plain "
+              f"correction {st['correction_ms']:.4f} ms (device "
+              f"{_fmt_ms(st['correction_device_ms'])} a launch; plain "
               f"{st['correction_plain_ms']:.4f}, bound "
               f"{st['correction_bound'][0]:.4f}, share "
               f"{_share(st['correction_bound'], st['correction_ms']):.4f}; "
@@ -652,10 +708,104 @@ def phase_kernels_batched(topos, dev):
     decide["observe"] = st
     for st in decide.values():
         print(f"[kernels-q] region_decide {st['label']}: {st['ms']:.4f} ms "
-              f"(plain {st['plain_ms']:.4f}, bound {st['bound'][0]:.5f} by "
+              f"(device {_fmt_ms(st['device_ms'])} a launch; plain "
+              f"{st['plain_ms']:.4f}, bound {st['bound'][0]:.5f} by "
               f"{st['bound'][1]}, share {_share(st['bound'], st['ms']):.5f}); "
               f"ids equal", flush=True)
     out["region_decide"] = decide
+    out["global"] = phase_global(topos, dev, eps, gen)
+    return out
+
+
+def _global_inputs(q, n, gen, dev, dead=0.1):
+    """Non-dyadic (q, n, 2) inputs of the global decision with the
+    service's regions: weights in [0.5, 2), one peer in ten dead, every
+    peer of slot 2 dead when q > 2, and slot 1 (a halfspace slot) with unit
+    weights, every peer alive and its threshold at the float32 mean of its
+    inputs, the rounding tie ``service.heterogeneous_tenants`` builds.
+    Returns (x_m, x_c, alive, PackedRegions)."""
+    x_m = torch.randn((q, n, 2), generator=gen, device=dev)
+    x_c = 0.5 + 1.5 * torch.rand((q, n), generator=gen, device=dev)
+    alive = torch.rand((q, n), generator=gen, device=dev) >= dead
+    packed = _service_regions(q, 3, 2, gen, dev)
+    if q > 2:
+        alive[2] = False
+        x_c[1] = 1.0
+        alive[1] = True
+        w = torch.randn((2,), generator=gen, device=dev)
+        b = regions.dot(x_m[1].mean(0), w)
+        packed = packed.set(1, regions.HalfspaceRegions(w, b))
+    return x_m, x_c, alive, packed
+
+
+def _global_cost(q, n, d, k):
+    """(bytes, float64 adds) of the global decision: x_m, x_c and alive
+    read once, each slot's table and eps read, want and gx written; d + 1
+    adds a peer."""
+    nbytes = (q * n * (4 * d + 5) + 4 * q * (d * (k + 1) + k + 4 + 1)
+              + 4 * q * (d + 2))
+    return nbytes, q * n * (d + 1)
+
+
+def _check_global(label, x_m, x_c, alive, tables, plain, eps):
+    """The global decision through its wrapper, with the tables prepared
+    once as the main paths prepare them, against its plain version (want
+    equal, gx_m / gx_c bitwise), then timed by CUDA events over
+    back-to-back launcher calls and as device time a launch."""
+    got = ops.global_decision(x_m, x_c, alive, tables, eps)
+    want = ref.global_decision_ref(x_m, x_c, alive, plain, eps)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("want", "gx_m", "gx_c"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"{label}: global decision {name} differs from the plain "
+                f"version at {int((g != w).sum())} values")
+    batched = x_m.ndim == 3
+    q_args = (x_m, x_c, alive) if batched else (x_m[None], x_c[None],
+                                                 alive[None])
+    knob = eps.contiguous() if isinstance(eps, torch.Tensor) else eps
+    launch = lambda: kdec.launch_global(  # noqa: E731
+        *q_args, tables.cthw, tables.cn, tables.meta, knob)
+    q, n, d = q_args[0].shape
+    return {"label": label, "max_abs_err": 0.0,
+            "bitwise_values": sum(w.numel() for w in want),
+            "ms": _time_ms(launch, 20),
+            "device_ms": _device_ms(launch, 20, "global_decide"),
+            "plain_ms": _time_ms(
+                lambda: ref.global_decision_ref(x_m, x_c, alive, plain,
+                                                eps), 5),
+            "bound": _bound_ms(*_global_cost(q, n, d, tables.cn.shape[-1]),
+                               ops_per_s=F64_OPS_PER_S)}
+
+
+def phase_global(topos, dev, eps, gen):
+    """``region_decide``'s second entry, the observe pass's global
+    decision: at the service's shapes (Q = 64 on grid and Chord, per-slot
+    eps) and at ``run_static``'s (Q = 1, one eps, a Voronoi slot of the
+    driver's k = 3)."""
+    out = {}
+    for name in SERVICE_TOPOS:
+        n = topos[name].n
+        x_m, x_c, alive, packed = _global_inputs(Q_SERVICE, n, gen, dev)
+        out[f"service {name}"] = _check_global(
+            f"global {name} Q={Q_SERVICE} n={n}", x_m, x_c, alive,
+            ops.prep_slots(packed, eps), packed, eps)
+    cent = torch.randn((3, 2), generator=gen, device=dev)
+    slot = regions.PackedSlot.voronoi(cent)
+    for name in ("chord", "grid"):
+        n = topos[name].n
+        x_m, x_c, alive, _ = _global_inputs(1, n, gen, dev)
+        out[f"run_static {name}"] = _check_global(
+            f"global run_static {name} Q=1 n={n}", x_m[0], x_c[0], alive[0],
+            ops.prep_slots(slot, 1e-9), slot, 1e-9)
+    for st in out.values():
+        print(f"[kernels-q] region_decide {st['label']}: {st['ms']:.4f} ms "
+              f"by events, device {_fmt_ms(st['device_ms'])} a launch "
+              f"(plain {st['plain_ms']:.4f}, bound {st['bound'][0]:.5f} by "
+              f"{st['bound'][1]}, share of bound by events "
+              f"{_share(st['bound'], st['ms']):.4f}, by device time "
+              f"{_fmt_share(st['bound'], st['device_ms'])}); want and "
+              f"{st['bitwise_values']} values equal bitwise", flush=True)
     return out
 
 
@@ -760,7 +910,8 @@ def phase_service(topos, dev):
             svc.tick()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _print_profile(f"service {name}", prof, wall * 1e3, med * 1e3)
+        _print_profile(f"service {name}", prof, wall * 1e3, med * 1e3, 1,
+                       "dispatch")
         runs[name] = (specs, records, updates)
         del svc
         torch.cuda.empty_cache()
@@ -918,14 +1069,24 @@ def _busy_us(intervals):
     return busy
 
 
-def _print_profile(label, prof, wall_ms, unprofiled_ms):
-    """Device busy time, idle share of the profiled wall and the device
-    time by kernel of one torch.profiler trace."""
+def _print_profile(label, prof, wall_ms, unprofiled_ms, steps=None,
+                   step="cycle"):
+    """Device busy time, idle share of the profiled wall, the device time
+    by kernel and the device kernels launched (per ``step`` over ``steps``
+    of them) of one torch.profiler trace."""
     ivals = _device_intervals(prof)
     if not ivals:
         print(f"[profile] {label}: device time not measured (the profiler "
               "saw no device events)", flush=True)
         return
+    copies = sum(name.startswith(("Memcpy", "Memset")) for name, _, _ in
+                 ivals)
+    if steps:
+        print(f"[profile] {label}: device events {len(ivals)} = "
+              f"{len(ivals) - copies} kernels + {copies} memcpy/memset over "
+              f"{steps} {step}(s): {len(ivals) / steps:.2f} events, "
+              f"{(len(ivals) - copies) / steps:.2f} kernels per {step}",
+              flush=True)
     by_name = {}
     for kname, s, e in ivals:
         by_name[kname] = by_name.get(kname, 0.0) + (e - s)
@@ -953,7 +1114,7 @@ def phase_profile(topos, dev, medians, cycles):
                                  ProfilerActivity.CUDA]) as prof:
             wall, _ = _timed_loop(drv, topo)
         _print_profile(name, prof, wall * 1e3,
-                       medians[name] * cycles[name] / 1e3)
+                       medians[name] * cycles[name] / 1e3, cycles[name])
 
 
 def phase_parity(dev):
@@ -1014,6 +1175,7 @@ def main() -> int:
 
     line = {"kernels": []}
     decide = batched["region_decide"]
+    glob = batched["global"]
     for name, src, rep in (
             ("region_decide", "src/repro_torch/kernels/csrc/region_decide.cu",
              "src/repro/kernels/region_decide.py:51"),
@@ -1022,16 +1184,22 @@ def main() -> int:
             ("correction", "src/repro_torch/kernels/csrc/correction.cu",
              "src/repro/kernels/correction.py:27")):
         if name == "region_decide":
-            # The service's observe pass gives it (Q, 1, d).
-            head = decide["observe"]
+            # The main paths launch its second entry, the global decision,
+            # once an observe: the service's on Chord at Q = 64 leads; its
+            # other shapes, then the first entry's, beside.
+            head = glob["service chord"]
             shapes = [{"shape": st["label"], "ms": st["ms"],
+                       "device_ms": st["device_ms"],
                        "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
                        "bound_by": st["bound"][1],
-                       "share_of_bound": _share(st["bound"], st["ms"])}
-                      for st in decide.values()]
-            entry = {"max_abs_err": max(st["max_abs_err"]
-                                        for st in decide.values()),
-                     "ms": head["ms"], "plain_ms": head["plain_ms"],
+                       "share_of_bound": _share(st["bound"], st["ms"]),
+                       **({"bitwise_values": st["bitwise_values"]}
+                          if "bitwise_values" in st else {})}
+                      for st in [*glob.values(), *decide.values()]]
+            entry = {"max_abs_err": max(st["max_abs_err"] for st in
+                                        [*glob.values(), *decide.values()]),
+                     "ms": head["ms"], "device_ms": head["device_ms"],
+                     "plain_ms": head["plain_ms"],
                      "bound_ms": head["bound"][0],
                      "bound_by": head["bound"][1], "shape": head["label"]}
         else:
@@ -1041,6 +1209,7 @@ def main() -> int:
                      main_stats["chord"], main_stats["grid"]]
             head = stats[0]
             shapes = [{"shape": st["label"], "ms": st[f"{name}_ms"],
+                       "device_ms": st[f"{name}_device_ms"],
                        "plain_ms": st[f"{name}_plain_ms"],
                        "bound_ms": st[f"{name}_bound"][0],
                        "bound_by": st[f"{name}_bound"][1],
@@ -1052,6 +1221,7 @@ def main() -> int:
                       for st in stats]
             entry = {"max_abs_err": max(st[f"err_{name}"] for st in stats),
                      "ms": head[f"{name}_ms"],
+                     "device_ms": head[f"{name}_device_ms"],
                      "plain_ms": head[f"{name}_plain_ms"],
                      "bound_ms": head[f"{name}_bound"][0],
                      "bound_by": head[f"{name}_bound"][1],

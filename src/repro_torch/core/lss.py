@@ -334,7 +334,9 @@ def suite_hooks(suite, state: LSSState, live, regions, cfg: LSSConfig):
 
     Returns ``(status_viol, corrected, entry)`` in the shape
     :func:`correction_loop` consumes; ``regions`` is the packed
-    :class:`~repro_torch.core.regions.PackedSlot` the suite decides with.
+    :class:`~repro_torch.core.regions.PackedSlot` the suite decides with,
+    or the :class:`~repro_torch.kernels.ops.SlotTables` prepared from it
+    with ``cfg.eps``.
     """
     def status_viol(out_m, out_c):
         return suite.status_viol(state.x_m, state.x_c, out_m, out_c,
@@ -359,7 +361,7 @@ def cycle_impl(state: LSSState, topo: TopoArrays, cfg: LSSConfig, decide,
     cycle.  ``suite`` + ``regions`` (a
     :class:`~repro_torch.kernels.suite.KernelSuite` and a packed
     :class:`~repro_torch.core.regions.PackedSlot`, or for Q stacked slots
-    their :class:`~repro_torch.core.regions.PackedRegions` or
+    their :class:`~repro_torch.core.regions.PackedRegions`, or either's
     :class:`~repro_torch.kernels.ops.SlotTables`) route status/violations
     and the Eq.-10 correction through that suite; ``decide`` may then be
     None.  ``with_stats=True`` also returns the do-while's iteration count:
@@ -412,9 +414,9 @@ def cycle(state: LSSState, topo: TopoArrays, centers: torch.Tensor,
     """One synchronous simulator cycle.  Returns (state', sent_this_cycle).
 
     ``suite`` routes the hot loop through that suite with ``regions`` (by
-    default ``centers`` packed as a Voronoi slot; a caller stepping many
-    cycles passes the slot it packed once).  ``decide`` is the escape
-    hatch for opaque decision functions (reference formulas only).
+    default ``centers`` packed as a Voronoi slot; a caller stepping many cycles
+    passes the slot's tables, prepared once with ``cfg.eps``).  ``decide`` is
+    the escape hatch for opaque decision functions (reference formulas only).
     """
     if suite is not None:
         if decide is not None:
@@ -437,41 +439,34 @@ def metrics_impl(state: LSSState, topo: TopoArrays, decide, eps=1e-9,
     """Accuracy and quiescence.
 
     Returns ``(accuracy, quiescent, correct_mask, want)`` — ``want`` is the
-    ground-truth region id ``f(vec((+)X))`` over live peers; per slot for a
-    batched state.  By default the reference formulas with ``decide``; with
-    a fused ``suite`` and its packed ``regions``, S, the violations and
-    f(vec(S)) come from one ``lss_state`` launch and ``want`` from one
-    ``region_decide`` launch over the global averages (``decide`` may then
-    be None).
+    ground-truth region id ``f(vec((+)X))`` over live peers (the sum in
+    float64, :func:`wvs.live_sum`); per slot for a batched state.  By
+    default the reference formulas with ``decide``; with a fused ``suite``
+    and its packed ``regions``, S, the violations and f(vec(S)) come from
+    one ``lss_state`` launch and ``want`` from the suite's
+    ``global_decision``, one launch of ``region_decide``'s second entry
+    (``decide`` may then be None).  ``eps`` is one number or, for a
+    batched state, one per slot.
     """
     live = _live_mask(topo, state.alive)
     if suite is not None and suite.fused:
         _, _, viol, got = kernel_ops.lss_state(
             state.x_m, state.x_c, state.out_m, state.out_c, state.in_m,
             state.in_c, live, regions, eps=eps)
-        decide = lambda u: suite.decide(u, regions, eps)  # noqa: E731
-        return _accuracy(state, live, decide, eps, got, viol)
+        want = suite.global_decision(state.x_m, state.x_c, state.alive,
+                                     regions, eps)
+        return _accuracy(state, live, want, got, viol)
     s = stopping.status(state.x_m, state.x_c, state.out_m, state.out_c,
                         state.in_m, state.in_c, live)
     got = decide(wvs.vec(s, eps))
     a = stopping.agreements(state.out_m, state.out_c, state.in_m, state.in_c)
     viol = stopping.violations_alg1(decide, s, a, live, eps)
-    return _accuracy(state, live, decide, eps, got, viol)
-
-
-def _accuracy(state, live, decide, eps, got, viol):
-    # The global sum is taken in float64 and rounded to float32 once, so it
-    # does not depend on the reduction's order: a batched and an unbatched
-    # state (or another device) give the same ``want`` even where it is a
-    # near tie (a halfspace threshold at the data mean).
-    f64 = torch.float64
-    gx = wvs.WV(
-        torch.sum(torch.where(state.alive[..., None], state.x_m, 0.0),
-                  dim=-2, dtype=f64).to(state.x_m.dtype),
-        torch.sum(torch.where(state.alive, state.x_c, 0.0), dim=-1,
-                  dtype=f64).to(state.x_c.dtype),
-    )
+    gx = wvs.live_sum(wvs.WV(state.x_m, state.x_c), state.alive)
     want = decide(wvs.vec(gx, eps)[..., None, :])[..., 0]
+    return _accuracy(state, live, want, got, viol)
+
+
+def _accuracy(state, live, want, got, viol):
     correct = (got == want[..., None]) & state.alive
     acc = (torch.sum(correct, dim=-1)
            / torch.clamp(torch.sum(state.alive, dim=-1), min=1))
@@ -487,8 +482,9 @@ def metrics(state: LSSState, topo: TopoArrays, centers: torch.Tensor,
 
     With a fused ``suite``, S_i, the violations and f(vec(S_i)) come from
     one ``lss_state`` call and the global decision from one
-    ``region_decide`` call (``regions`` defaults to ``centers`` packed as a
-    Voronoi slot); otherwise from the reference formulas.
+    ``global_decision`` call (``regions``, a packed slot or its prepared
+    :class:`~repro_torch.kernels.ops.SlotTables`, defaults to ``centers``
+    packed as a Voronoi slot); otherwise from the reference formulas.
     """
     if suite is None or not suite.fused:
         decide = lambda v: regions_lib.decide_voronoi(v, centers)  # noqa: E731

@@ -23,10 +23,15 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels import ops as kernel_ops
 from ..kernels.suite import resolve_suite
 from . import lss, regions, topology, wvs
 
 __all__ = ["ProblemSpec", "make_problem", "run_static", "run_dynamic"]
+
+# The observe pass's eps: ``lss.metrics``' default, as the JAX driver
+# observes (its cycles use ``cfg.eps``).
+OBSERVE_EPS = 1e-9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +91,13 @@ class _Driver:
         self._centers, self._cfg = centers, cfg
         self._device = device
         self._suite = resolve_suite(use_kernels, device)
-        self._slot = regions.PackedSlot.voronoi(centers)
+        # The family's kernel tables, prepared once: with cfg.eps for the
+        # cycles' lss_state, with the observe's eps for metrics.
+        slot = regions.PackedSlot.voronoi(centers)
+        self._tables = kernel_ops.prep_slots(slot, cfg.eps)
+        self._observe_tables = (
+            self._tables if cfg.eps == OBSERVE_EPS else
+            kernel_ops.prep_slots(slot, OBSERVE_EPS))
         # A DynTopology enables true membership ops (churn through
         # remove_peer instead of a bare alive-mask edit); spare capacity
         # rows start dead via the present mask.
@@ -101,13 +112,13 @@ class _Driver:
         for _ in range(k):
             self._st, _ = lss.cycle(self._st, self._ta, self._centers,
                                     self._cfg, suite=self._suite,
-                                    regions=self._slot)
+                                    regions=self._tables)
 
     def observe(self):
         """(accuracy, quiescent) at the current cycle."""
         acc, quiescent, _ = lss.metrics(self._st, self._ta, self._centers,
-                                        suite=self._suite,
-                                        regions=self._slot)
+                                        eps=OBSERVE_EPS, suite=self._suite,
+                                        regions=self._observe_tables)
         return float(acc), bool(quiescent)
 
     def drain(self) -> int:

@@ -21,8 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["WV", "add", "sub", "smul", "vec", "wsum", "from_vector",
-           "allclose", "lead"]
+__all__ = ["WV", "add", "sub", "smul", "vec", "wsum", "live_sum",
+           "from_vector", "allclose", "lead"]
 
 
 class WV(NamedTuple):
@@ -91,6 +91,24 @@ def vec(x: WV, eps: float = 0.0) -> torch.Tensor:
 def wsum(x: WV, axis=0) -> WV:
     """(+)-fold over an axis of a batched WV: the paper's big-oplus."""
     return WV(torch.sum(x.m, dim=axis), torch.sum(x.c, dim=axis))
+
+
+def live_sum(x: WV, alive: torch.Tensor) -> WV:
+    """(+)-fold of ``x`` (``m`` (..., n, d), ``c`` (..., n)) over the peers
+    where ``alive`` (..., n): the observe pass's global sum.
+
+    The global sum is taken in float64 and rounded to float32 once, so it
+    does not depend on the reduction's order: a batched and an unbatched
+    state (or another device) give the same ``want`` even where it is a
+    near tie (a halfspace threshold at the data mean).
+    """
+    f64 = torch.float64
+    return WV(
+        torch.sum(torch.where(alive[..., None], x.m, 0.0),
+                  dim=-2, dtype=f64).to(x.m.dtype),
+        torch.sum(torch.where(alive, x.c, 0.0), dim=-1,
+                  dtype=f64).to(x.c.dtype),
+    )
 
 
 def allclose(x: WV, y: WV, rtol=1e-5, atol=1e-6) -> bool:

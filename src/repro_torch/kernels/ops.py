@@ -1,11 +1,12 @@
 """Public wrappers of the kernels (port of ``repro/kernels/ops.py``).
 
 ``region_decide``, ``lss_state`` and ``correction`` keep the JAX wrappers'
-signatures and returns.  Where the tensors lie decides what runs: a CPU
-tensor takes the plain PyTorch version (:mod:`.ref`), a CUDA tensor
-launches the CUDA kernel (:mod:`.region_decide`, :mod:`.lss_state`,
-:mod:`.correction`) or the call raises.  Nothing falls back from the kernel
-to the plain version.
+signatures and returns; ``global_decision`` is the observe pass's ground truth,
+which the JAX package computes with jnp ops and one decision.  Where the
+tensors lie decides what runs: a CPU tensor takes the plain PyTorch version
+(:mod:`.ref`), a CUDA tensor launches the CUDA kernel (:mod:`.region_decide`,
+:mod:`.lss_state`, :mod:`.correction`) or the call raises.  Nothing falls back
+from the kernel to the plain version.
 
 Every wrapper also takes a leading query-slot axis Q, which the JAX
 package got from ``vmap`` over its wrappers: moment arrays ``(Q, n, ...)``,
@@ -13,6 +14,8 @@ the Q families as a :class:`~repro_torch.core.regions.PackedRegions` (or
 the :class:`SlotTables` that :func:`prep_slots` built from one), and
 ``beta``/``eps`` one number or a (Q,) tensor.  All Q slots go through one
 kernel launch; the unbatched call launches the same kernel with Q = 1.
+A caller that calls the kernels many times with one family prepares its
+tables once with :func:`prep_slots`, batched or not.
 
 Inputs are normalized as the JAX wrappers normalize them (float32 moments,
 bool masks, contiguous), but not padded: the TPU's block and lane padding
@@ -33,8 +36,8 @@ from . import lss_state as _state
 from . import ref
 from . import region_decide as _dec
 
-__all__ = ["region_decide", "lss_state", "correction", "prep_slot",
-           "prep_slots", "SlotTables", "packed", "is_batched"]
+__all__ = ["region_decide", "lss_state", "correction", "global_decision",
+           "prep_slot", "prep_slots", "SlotTables", "packed", "is_batched"]
 
 
 class SlotTables(NamedTuple):
@@ -44,11 +47,14 @@ class SlotTables(NamedTuple):
     (Q, k) the center norms with ``+inf`` on masked padding centers (so a
     padded family decides like the unpadded one and an all-masked padding
     slot decides 0); ``meta`` (Q, 4) is ``[kind, b, eps, beta]``.  The
-    kernels read ``eps`` from ``meta``; a caller passing tables and an
-    ``eps`` passes the same values.
+    ``lss_state`` kernel reads ``eps`` from ``meta``; a caller passing
+    tables and an ``eps`` passes the same values.  ``regions`` is a
+    :class:`~repro_torch.core.regions.PackedRegions`, or for the tables of
+    one family a :class:`~repro_torch.core.regions.PackedSlot` (the arrays
+    then have Q = 1, and the wrappers treat the call as unbatched).
     """
 
-    regions: _regions.PackedRegions
+    regions: object
     cthw: torch.Tensor
     cn: torch.Tensor
     meta: torch.Tensor
@@ -61,20 +67,27 @@ def _per_slot(x, q: int, device) -> torch.Tensor:
     return torch.full((q,), float(x), dtype=torch.float32, device=device)
 
 
-def prep_slots(region: _regions.PackedRegions, eps=1e-9,
-               beta=0.0) -> SlotTables:
-    """Kernel tables of Q packed families (see :class:`SlotTables`).
+def prep_slots(region, eps=1e-9, beta=0.0) -> SlotTables:
+    """Kernel tables of Q packed families (a ``PackedRegions``), or of one
+    family (a ``PackedSlot`` or anything
+    :func:`~repro_torch.core.regions.as_packed_slot` coerces); see
+    :class:`SlotTables`.
 
     ``eps``/``beta`` are numbers or (Q,) tensors; everything lands on the
     families' device.
     """
+    if isinstance(region, _regions.PackedRegions):
+        fams = region
+    else:  # one family: Q = 1
+        region = _regions.as_packed_slot(region)
+        fams = _regions.PackedRegions(*(f[None] for f in region))
     f32 = torch.float32
-    centers = region.centers.to(f32)
-    cthw = torch.cat([centers.transpose(1, 2), region.w.to(f32)[:, :, None]],
+    centers = fams.centers.to(f32)
+    cthw = torch.cat([centers.transpose(1, 2), fams.w.to(f32)[:, :, None]],
                      dim=2).contiguous()
-    cn = torch.where(region.cmask, _regions.dot(centers, centers), torch.inf)
-    dev, q = centers.device, region.q
-    meta = torch.stack([region.kind.to(f32), region.b.to(f32),
+    cn = torch.where(fams.cmask, _regions.dot(centers, centers), torch.inf)
+    dev, q = centers.device, fams.q
+    meta = torch.stack([fams.kind.to(f32), fams.b.to(f32),
                         _per_slot(eps, q, dev), _per_slot(beta, q, dev)],
                        dim=-1)
     return SlotTables(region, cthw, cn, meta)
@@ -86,18 +99,13 @@ def prep_slot(region, eps=1e-9, beta=0.0):
     ``cthw`` (d, k+1), ``cn`` (k,), ``meta`` (4,): :func:`prep_slots` of a
     single slot, without its slot axis.
     """
-    tables = prep_slots(_one_slot(region), eps, beta)
+    tables = prep_slots(region, eps, beta)
     return tables.cthw[0], tables.cn[0], tables.meta[0]
 
 
-def _one_slot(region) -> _regions.PackedRegions:
-    slot = _regions.as_packed_slot(region)
-    return _regions.PackedRegions(*(f[None] for f in slot))
-
-
 def is_batched(region) -> bool:
-    """True for Q families (``PackedRegions`` or ``SlotTables``)."""
-    return isinstance(region, (SlotTables, _regions.PackedRegions))
+    """True for Q families (a ``PackedRegions`` or its ``SlotTables``)."""
+    return isinstance(packed(region), _regions.PackedRegions)
 
 
 def packed(region):
@@ -106,11 +114,8 @@ def packed(region):
 
 
 def _tables(region, eps=1e-9) -> SlotTables:
-    if isinstance(region, SlotTables):
-        return region
-    if isinstance(region, _regions.PackedRegions):
-        return prep_slots(region, eps)
-    return prep_slots(_one_slot(region), eps)
+    return region if isinstance(region, SlotTables) else \
+        prep_slots(region, eps)
 
 
 def _f32(t):
@@ -168,3 +173,28 @@ def correction(s_m, s_c, a_m, a_c, in_m, in_c, v_set, beta=1e-3, eps=1e-9):
         return _corr.launch(*args, *knobs)
     o_m, o_c = _corr.launch(*(a[None] for a in args), *knobs)
     return o_m[0], o_c[0]
+
+
+def global_decision(x_m, x_c, alive, region, eps=1e-9):
+    """The observe pass's ground truth ``f(vec((+)_alive X))``.
+
+    ``x_m`` (n, d), ``x_c`` (n,) and ``alive`` (n,) with one family, or
+    with a leading slot axis Q with Q families and ``eps`` one number or
+    one per slot.  The sum over live peers is taken in float64 and rounded
+    to float32 once.  Returns ``(want, gx_m, gx_c)``: the decision (int32)
+    and the rounded sums, each per slot when the inputs have a slot axis.
+    """
+    x_m, x_c, alive = _f32(x_m), _f32(x_c), _mask(alive)
+    if x_m.device.type == "cpu":
+        return ref.global_decision_ref(x_m, x_c, alive, packed(region), eps)
+    tables = _tables(region, eps)
+    batched = x_m.ndim == 3
+    q = x_m.shape[0] if batched else 1
+    knob = _per_slot(eps, q, x_m.device) if isinstance(eps, torch.Tensor) \
+        else eps
+    if batched:
+        return _dec.launch_global(x_m, x_c, alive, tables.cthw, tables.cn,
+                                  tables.meta, knob)
+    out = _dec.launch_global(x_m[None], x_c[None], alive[None], tables.cthw,
+                             tables.cn, tables.meta, knob)
+    return tuple(o[0] for o in out)

@@ -1,14 +1,15 @@
 """KernelSuite — the registry the hot loop plugs into (port of
 ``repro/kernels/suite.py``).
 
-A :class:`KernelSuite` bundles the operations Alg. 1's per-cycle hot path
-needs — ``decide``, ``status_viol`` and ``corrected`` — with region
-families in the packed :class:`~repro_torch.core.regions.PackedSlot` form
-and ``beta``/``eps`` as runtime values.  Every hook also takes a leading
-query-slot axis: Q families (a
+A :class:`KernelSuite` bundles the operations Alg. 1's per-cycle hot path needs
+— ``decide``, ``status_viol`` and ``corrected`` — with region families in the
+packed :class:`~repro_torch.core.regions.PackedSlot` form (or its prepared
+:class:`~repro_torch.kernels.ops.SlotTables`) and ``beta``/``eps`` as runtime
+values, and the observe pass's ``global_decision``, whose default is its plain
+version.  Every hook also takes a leading query-slot axis: Q families (a
 :class:`~repro_torch.core.regions.PackedRegions`, or the
-:class:`~repro_torch.kernels.ops.SlotTables` prepared from one) with
-``(Q, n, ...)`` arrays and one ``beta``/``eps`` per slot.
+:class:`~repro_torch.kernels.ops.SlotTables` prepared from one) with ``(Q, n,
+...)`` arrays and one ``beta``/``eps`` per slot.
 
 * ``reference`` — the plain PyTorch formulas (:mod:`..core.stopping`,
   :mod:`..core.correction`, :func:`..core.regions.decide_packed`).  This IS
@@ -29,7 +30,7 @@ import torch
 
 from ..core import correction as corr_lib
 from ..core import regions, stopping, wvs
-from . import ops
+from . import ops, ref
 
 __all__ = ["KernelSuite", "ReferenceSuite", "FusedSuite", "register_suite",
            "get_suite", "resolve_suite", "suite_names"]
@@ -54,6 +55,13 @@ class KernelSuite:
                   beta, eps):
         """Eq.-10 corrected out-messages on the ``v_set`` slots."""
         raise NotImplementedError
+
+    def global_decision(self, x_m, x_c, alive, slot: regions.PackedSlot,
+                        eps=1e-9):
+        """The observe pass's ground truth ``f(vec((+)_alive X))``: int32,
+        one per slot for Q families.  The default is the plain version."""
+        return ref.global_decision_ref(x_m, x_c, alive, ops.packed(slot),
+                                       eps)[0]
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"<KernelSuite {self.name!r} fused={self.fused}>"
@@ -102,6 +110,9 @@ class FusedSuite(KernelSuite):
     def corrected(self, old_s, a0, in_m, in_c, v_set, beta, eps):
         return ops.correction(old_s.m, old_s.c, a0.m, a0.c, in_m, in_c,
                               v_set, beta=beta, eps=eps)
+
+    def global_decision(self, x_m, x_c, alive, slot, eps=1e-9):
+        return ops.global_decision(x_m, x_c, alive, slot, eps)[0]
 
 
 _REGISTRY: Dict[str, KernelSuite] = {}

@@ -17,7 +17,10 @@ arithmetic (``regions.dot``).  ``lss_state`` and ``correction`` must also
 agree bitwise on inputs that are not dyadic (``test_lss_state_bitwise``,
 ``test_correction_bitwise``): each sums a row's live or violating slots in
 the plain version's order, so no sum may round otherwise, and ``viol`` /
-``dec`` must then be equal everywhere, near ties included.
+``dec`` must then be equal everywhere, near ties included.  The observe
+pass's global decision (``region_decide``'s second entry) must give the
+plain version's ``want`` and, bitwise, its rounded global sums
+(``test_global_decision_bitwise``).
 """
 
 import numpy as np
@@ -25,7 +28,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import regions, sim, topology, wvs
+from repro_torch.core import lss, regions, sim, topology, wvs
 from repro_torch.kernels import correction as k_corr
 from repro_torch.kernels import get_suite
 from repro_torch.kernels import lss_state as k_state
@@ -391,15 +394,118 @@ def test_launchers_check_their_inputs(dev):
 
 
 @pytest.mark.parametrize("make", [lambda: topology.grid(256),
-                                  lambda: topology.barabasi_albert(256, 2, 1)],
-                         ids=["grid", "ba"])
-def test_run_static_on_card_matches_cpu(dev, make):
+                                  lambda: topology.barabasi_albert(256, 2, 1),
+                                  lambda: topology.chord(256)],
+                         ids=["grid", "ba", "chord"])
+@pytest.mark.parametrize("eps", [1e-9, 1e-3])
+def test_run_static_on_card_matches_cpu(dev, make, eps):
+    """The driver's prepared tables (cfg.eps for the cycles, the observe's
+    own eps for metrics) give the CPU's records."""
     spec = sim.ProblemSpec(n=256)
-    on_card = sim.run_static(make(), spec, max_cycles=300, device=dev)
-    on_cpu = sim.run_static(make(), spec, max_cycles=300, device="cpu")
+    cfg = lss.LSSConfig(eps=eps)
+    on_card = sim.run_static(make(), spec, cfg, max_cycles=300, device=dev)
+    on_cpu = sim.run_static(make(), spec, cfg, max_cycles=300, device="cpu")
     for key in ("cycles_95", "cycles_100", "quiesced_at", "final_accuracy",
                 "quiescent", "msgs_per_link"):
         assert on_card[key] == on_cpu[key], key
+
+
+def _global_inputs(q, n, d, seed, dev, offset=0):
+    """Non-dyadic (q, n, ...) inputs of the global decision: x_m normal,
+    x_c in [0.5, 2), one peer in five dead; with q > 2 every peer of slot 2
+    dead; slot 1 (a halfspace slot of ``_mixed_slots``, or the only slot)
+    with unit weights and every peer alive, so that a threshold at the
+    float32 mean of its inputs is a rounding tie.  ``offset`` > 0 puts x_m
+    that many floats into its buffer, off 8- and 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    x_m = rng.standard_normal((q, n, d)).astype(np.float32)
+    x_c = rng.uniform(0.5, 2.0, (q, n)).astype(np.float32)
+    alive = rng.random((q, n)) >= 0.2
+    tie = min(1, q - 1)
+    x_c[tie] = 1.0
+    alive[tie] = True
+    if q > 2:
+        alive[2] = False
+    buf = torch.empty(x_m.size + offset, dtype=torch.float32, device=dev)
+    t_m = buf[offset:].view(x_m.shape)
+    t_m.copy_(torch.from_numpy(x_m))
+    mean = x_m[tie].mean(0)  # numpy float32, as heterogeneous_tenants
+    return (t_m, torch.tensor(x_c, device=dev), torch.tensor(alive,
+                                                             device=dev),
+            mean, tie)
+
+
+@pytest.mark.parametrize("q,n,d,k,fam,offset", [
+    (1, 80_000, 2, 3, "voronoi", 0), (64, 80_000, 2, 3, "mixed", 0),
+    (1, 80_000, 2, 3, "mean-halfspace", 0), (1, 1000, 2, 3, "voronoi", 1),
+    (5, 4097, 2, 3, "mixed", 0), (5, 4096, 3, 243, "mixed", 0),
+    (5, 300, 16, 7, "mixed", 0), (1, 700, 6, 243, "padded-voronoi", 1),
+    (5, 2049, 4, 3, "mixed", 1), (1, 1, 2, 3, "voronoi", 0)])
+def test_global_decision_bitwise(dev, q, n, d, k, fam, offset):
+    """The global decision equals its plain version: ``want`` equal and the
+    rounded sums ``gx`` bitwise (rtol = atol = 0), on non-dyadic inputs;
+    n off and on a multiple of a block's run, dead peers, an all-dead slot,
+    a padding slot, per-slot eps (one large enough to take the guard),
+    d = 16, k = 243, unaligned x_m, and a halfspace threshold at the float32
+    mean of the inputs (the tie ``service.heterogeneous_tenants`` builds);
+    q = 1 takes the unbatched call with one eps for the slot.  Two launches
+    give the same bits."""
+    x_m, x_c, alive, mean, tie = _global_inputs(q, n, d, seed=n + q + d,
+                                                dev=dev, offset=offset)
+    if q == 1:
+        x_m, x_c, alive = x_m[0], x_c[0], alive[0]
+        region = plain = _slot(fam if fam != "mean-halfspace" else "voronoi",
+                               d, k, seed=k, dev=dev)
+        eps = 1e-3
+    else:
+        plain = _mixed_slots(q, d, k, dev)
+        eps = torch.tensor([1e-9, 1e-3, 0.5, 1e-9, 1e6] * (q // 5 + 1),
+                           device=dev)[:q]
+        region = ops.prep_slots(plain, eps)
+    if fam != "voronoi" and fam != "padded-voronoi":  # a threshold at the mean
+        w = np.random.default_rng(k).standard_normal(d).astype(np.float32)
+        fam_t = regions.HalfspaceRegions(
+            torch.tensor(w, device=dev),
+            torch.tensor(np.float32(mean @ w), device=dev))
+        if q == 1:
+            region = plain = regions.as_packed_slot(fam_t)
+        else:
+            plain = plain.set(tie, fam_t)
+            region = ops.prep_slots(plain, eps)
+    kernels.reset_counts()
+    got = ops.global_decision(x_m, x_c, alive, region, eps)
+    again = ops.global_decision(x_m, x_c, alive, region, eps)
+    assert kernels.counts()["region_decide"] == 2
+    assert kernels.counts()["region_decide_ref"] == 0
+    want = ref.global_decision_ref(x_m, x_c, alive, plain, eps)
+    for name, g, a, w in zip(("want", "gx_m", "gx_c"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+        assert torch.equal(g, a), name
+
+
+def test_observe_launches_global_decision_once(dev, monkeypatch):
+    """A ``run_static`` cycle prepares no slot tables; one observe launches
+    ``lss_state`` once and the global decision once (the second entry of
+    ``region_decide``), and no plain version."""
+    drv, _, _ = sim._driver(topology.grid(256), sim.ProblemSpec(n=256),
+                            lss.LSSConfig(eps=1e-3), None, dev, None)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("prep_slots ran after the driver's set-up")
+
+    monkeypatch.setattr(ops, "prep_slots", refuse)
+    kernels.reset_counts()
+    drv.advance(2)
+    before = kernels.counts()
+    assert before["region_decide"] == 0 and before["lss_state"] >= 2
+    drv.observe()
+    after = kernels.counts()
+    assert after["region_decide"] == 1
+    assert after["lss_state"] == before["lss_state"] + 1
+    assert after["correction"] == before["correction"]
+    assert not any(after[f"{k}_ref"] for k in
+                   ("region_decide", "lss_state", "correction"))
 
 
 def test_service_on_card_matches_cpu(dev):
