@@ -50,11 +50,34 @@ Phases, in order; any failure exits nonzero:
 7. service parity: tenants 0 (Voronoi) and 1 (halfspace) of each run
    replayed alone through the single-query ``cycle_impl`` must give the
    served per-dispatch msgs and accuracy, and at grid 4,096 with Q = 8 the
-   fused-suite and reference-suite services must give identical records.
+   fused-suite and reference-suite services must give identical records;
+8. the sharded engine: ``run_static(engine=EngineConfig(num_shards=8,
+   cycles_per_dispatch=10))`` (``benchmarks/engine_scaleup.py``'s S and K)
+   on the three topologies at 80,000 peers through the kernels, counters
+   zeroed before each run and read after it.  Its results must equal the
+   core's observed at the engine's grain (``check_every=10``) exactly, and
+   phase 4's where the grain does not enter (``total_msgs``,
+   ``msgs_per_link``, ``final_accuracy``, ``quiescent``; ``quiesced_at``
+   rounded up to a multiple of 10).  Then the engine's loop is timed as
+   phase 4 times the core's (set-up, the BFS partition included, outside
+   the timed runs) and profiled once more, beside the core's loop
+   observed at the engine's grain (the same cycles and observes), with
+   the cut edges, the halo
+   width and the modeled halo bytes per cycle of the ``exact`` and
+   ``compact`` wires, and the three kernels' wrappers are held bitwise to
+   their plain versions on the engine's own flat state; a grid run on the
+   ``compact`` wire must give the
+   ``exact`` wire's results; at 4,096 peers the engine through the kernels
+   and through the reference formulas must give identical results; and
+   ``engine.sweep_static`` on Chord at 80,000 peers (seeds 0-3, 40
+   cycles, counters zeroed before and read after) must give each seed's
+   sequential ``run_static(max_cycles=40)`` final accuracy and message
+   count.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
-``run_static`` and service runs; ``share_of_bound`` = bound / time beside
+``run_static``, service, engine and sweep runs, each path's in
+``launches_by_path``; ``share_of_bound`` = bound / time beside
 each time, ``device_ms`` the profiler's device time a launch,
 ``bitwise_values`` the values held bitwise; ``correction``'s also carries
 ``bound_v_ms``, the bound of the violating-set part the main path keeps;
@@ -95,6 +118,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # Outside a checkout of the repository this import fails: no result.
 from repro_torch import kernels, service  # noqa: E402
 from repro_torch.core import lss, regions, sim, topology, wvs  # noqa: E402
+from repro_torch.engine import EngineConfig, exchange  # noqa: E402
+from repro_torch.engine import sweep as engine_sweep  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import correction as kcorr  # noqa: E402
 from repro_torch.kernels import lss_state as kst  # noqa: E402
@@ -107,6 +132,12 @@ K_SERVICE = 16
 SERVICE_DISPATCHES = 4
 SERVICE_TOPOS = ("grid", "chord")  # BA at Q = 64 would need ~96 GB
 MAX_CYCLES = 600  # as benchmarks/common.py::timed_static
+ENGINE = dict(num_shards=8, cycles_per_dispatch=10)  # engine_scaleup.py
+SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_CYCLES = 40
+KERNELS = ("region_decide", "lss_state", "correction")
+RESULT_KEYS = ("cycles_95", "cycles_100", "quiesced_at", "total_msgs",
+               "msgs_per_link", "final_accuracy", "quiescent")
 TIMED_REPEATS = 7
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -982,46 +1013,57 @@ def phase_service_parity(topos, dev, runs):
 # --- phases 4 and 5: the main path --------------------------------------
 
 
+def _counted_run(label, fn=sim.run_static, **kw):
+    """``fn(**kw)`` (a main path's entry point) with the launch counters
+    zeroed before it and read after it; fails unless every kernel launched
+    and no plain version ran."""
+    kernels.reset_counts()
+    res = fn(**kw)
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    if min(counts[key] for key in KERNELS) <= 0:
+        raise AssertionError(f"{label}: the path launched no kernel")
+    if any(counts[f"{key}_ref"] for key in KERNELS):
+        raise AssertionError(f"{label}: the path ran a plain version")
+    return res, counts
+
+
 def phase_main_path(topos, dev):
     totals = {"region_decide": 0, "lss_state": 0, "correction": 0}
-    cycles = {}
+    cycles, results = {}, {}
     for name, topo in topos.items():
-        spec = sim.ProblemSpec(n=topo.n)
-        kernels.reset_counts()
-        res = sim.run_static(topo, spec, max_cycles=MAX_CYCLES, device=dev)
-        torch.cuda.synchronize()
-        counts = kernels.counts()
+        res, counts = _counted_run(name, topo=topo,
+                                   spec=sim.ProblemSpec(n=topo.n),
+                                   max_cycles=MAX_CYCLES, device=dev)
         cycles[name] = res["quiesced_at"] or MAX_CYCLES
+        results[name] = res
         print(f"[main] {name} n={topo.n} D={topo.max_deg}: cycles_95="
               f"{res['cycles_95']} cycles_100={res['cycles_100']} "
               f"quiesced_at={res['quiesced_at']} msgs_per_link="
               f"{res['msgs_per_link']!r} final_accuracy="
               f"{res['final_accuracy']!r} counts={counts}", flush=True)
-        if min(counts[key] for key in totals) <= 0:
-            raise AssertionError(f"{name}: the main path launched no kernel")
-        if any(counts[f"{key}_ref"] for key in totals):
-            raise AssertionError(f"{name}: the main path ran a plain version")
         acc = res["final_accuracy"]
         if not 0.0 <= acc <= 1.0 or res["msgs_per_link"] <= 0:
             raise AssertionError(f"{name}: implausible result {res}")
         for key in totals:
             totals[key] += counts[key]
-    return totals, cycles
+    return totals, cycles, results
 
 
-def _set_up(topo, dev):
-    """``run_static``'s set-up (tables, state and inputs on the card)."""
+def _set_up(topo, dev, engine=None):
+    """``run_static``'s set-up (tables, state and inputs on the card; with
+    ``engine``, the partition and the engine's tables too)."""
     drv, _, _ = sim._driver(topo, sim.ProblemSpec(n=topo.n), lss.LSSConfig(),
-                            None, dev, None)
+                            engine, dev, None)
     torch.cuda.synchronize()
     return drv
 
 
-def _timed_loop(drv, topo):
+def _timed_loop(drv, topo, check_every=1):
     """Wall seconds of ``run_static``'s loop on a driver set up already."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = sim._run_to_quiescence(drv, topo, MAX_CYCLES, 1)
+    res = sim._run_to_quiescence(drv, topo, MAX_CYCLES, check_every)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, res
 
@@ -1139,6 +1181,207 @@ def phase_parity(dev):
               flush=True)
 
 
+# --- phase 8: the sharded engine and the sweep --------------------------
+
+
+def _engine_cfg(**kw):
+    return EngineConfig(**ENGINE, **kw)
+
+
+def _diffs(got, want, keys=RESULT_KEYS):
+    return {k: (got[k], want[k]) for k in keys if got[k] != want[k]}
+
+
+def _halo_line(name, eng, res):
+    """Cut edges, halo width and the modeled halo bytes per cycle of both
+    lossless wires (the engine runs ``exact``)."""
+    exact = int(eng.wire_pair_bytes(2).sum())
+    compact = int(exchange.get_wire("compact").pair_bytes(
+        eng._pair_counts, eng.stopo.halo_width, 2).sum())
+    print(f"[engine] {name}: S={eng.S} B={eng.B} D={eng.D} cut_edges="
+          f"{res['cut_edges']} of {eng.num_edges} halo_width="
+          f"{eng.stopo.halo_width} halo bytes per cycle: exact {exact} "
+          f"compact {compact}", flush=True)
+
+
+def phase_engine(topos, dev, core_results):
+    """The engine route of ``run_static`` at 80,000 peers through the
+    kernels; returns (launch totals, cycles run, drivers' engines)."""
+    K = ENGINE["cycles_per_dispatch"]
+    totals = {key: 0 for key in KERNELS}
+    cycles = {}
+    for name, topo in topos.items():
+        spec = sim.ProblemSpec(n=topo.n)
+        res, counts = _counted_run(f"engine {name}", topo=topo, spec=spec,
+                                   max_cycles=MAX_CYCLES,
+                                   engine=_engine_cfg(), device=dev)
+        for key in totals:
+            totals[key] += counts[key]
+        cycles[name] = res["quiesced_at"] or MAX_CYCLES
+        print(f"[engine] {name} n={topo.n}: cycles_95={res['cycles_95']} "
+              f"cycles_100={res['cycles_100']} quiesced_at="
+              f"{res['quiesced_at']} msgs_per_link={res['msgs_per_link']!r}"
+              f" final_accuracy={res['final_accuracy']!r} counts={counts}",
+              flush=True)
+        # The core observed at the engine's grain gives the same results.
+        grain = sim.run_static(topo, spec, max_cycles=MAX_CYCLES,
+                               check_every=K, device=dev)
+        diffs = _diffs(res, grain)
+        # Phase 4's run observes every cycle: the keys the grain does not
+        # enter are equal, and quiescence rounds up to the grain.
+        core = core_results[name]
+        diffs.update(_diffs(res, core, ("total_msgs", "msgs_per_link",
+                                         "final_accuracy", "quiescent")))
+        if core["quiesced_at"] is not None and \
+                res["quiesced_at"] != -(-core["quiesced_at"] // K) * K:
+            diffs["quiesced_at vs phase 4"] = (res["quiesced_at"],
+                                               core["quiesced_at"])
+        if diffs:
+            raise AssertionError(f"engine {name}: (engine, core) {diffs}")
+        print(f"[engine] {name}: equal to the core at check_every={K} and "
+              "to phase 4's results", flush=True)
+    return totals, cycles
+
+
+def _check_engine_kernels(name, eng, st0):
+    """The three kernels' wrappers on the engine's own flat ``S*B``-row
+    state three cycles in (padding rows included), bitwise against their
+    plain versions: ``lss_state`` and ``correction`` (V = every live slot)
+    with the cycles' tables, the global decision with the observe's."""
+    flat = eng._flat_state(eng.run(st0, 3))
+    live = lss._live_mask(eng._flat_topo, flat.alive)
+    cfg, tables = eng.cfg, eng._tables_for(eng.cfg.eps)
+    args = (flat.x_m, flat.x_c, flat.out_m, flat.out_c, flat.in_m,
+            flat.in_c, live)
+    state = ops.lss_state(*args, tables, eps=cfg.eps)
+    checks = [("lss_state", state, ref.lss_state_ref(
+        *args, tables.regions, cfg.eps))]
+    s_m, s_c, _, _ = state
+    cargs = (s_m, s_c, flat.out_m + flat.in_m, flat.out_c + flat.in_c,
+             flat.in_m, flat.in_c, live)
+    checks.append(("correction",
+                   ops.correction(*cargs, beta=cfg.beta, eps=cfg.eps),
+                   ref.correction_ref(*cargs, cfg.beta, cfg.eps)))
+    observe = eng._tables_for(sim.OBSERVE_EPS)
+    gargs = (flat.x_m, flat.x_c, flat.alive)
+    checks.append(("region_decide",
+                   ops.global_decision(*gargs, observe, sim.OBSERVE_EPS),
+                   ref.global_decision_ref(*gargs, observe.regions,
+                                           sim.OBSERVE_EPS)))
+    torch.cuda.synchronize()
+    for kname, got, want in checks:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"engine {name}: {kname} differs from its plain version "
+                    f"at the engine's shape in {int((g != w).sum())} values")
+    print(f"[engine] {name}: lss_state, correction and the global decision "
+          f"bitwise equal to their plain versions on the engine's "
+          f"{flat.alive.shape[0]} rows x D={eng.D} (V: all "
+          f"{int(live.sum())} live slots)", flush=True)
+
+
+def _time_from(label, drv, topo, cycles, check_every):
+    """µs per cycle of ``run_static``'s loop on ``drv``: median and spread
+    over TIMED_REPEATS runs from the driver's initial state (the engine's
+    and the core's functions are pure, so each run starts from the same
+    state), then one more run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st0 = drv._st
+    us = []
+    for _ in range(TIMED_REPEATS):
+        drv._st = st0
+        wall, res = _timed_loop(drv, topo, check_every)
+        if (res["quiesced_at"] or MAX_CYCLES) != cycles:
+            raise AssertionError(f"{label}: a timed run took another "
+                                 "number of cycles")
+        us.append(wall / cycles * 1e6)
+    median = float(np.median(us))
+    print(f"[engine-timing] {label}: us_per_cycle median {median:.1f} min "
+          f"{min(us):.1f} max {max(us):.1f} over {len(us)} runs of {cycles}"
+          f" cycles; all {[round(u, 1) for u in us]}", flush=True)
+    drv._st = st0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _timed_loop(drv, topo, check_every)
+    _print_profile(label, prof, wall * 1e3, median * cycles / 1e3, cycles)
+
+
+def phase_engine_timing(topos, dev, cycles):
+    """The engine route's loop timed and profiled (its set-up, the
+    partition included, outside the timed runs), beside the core's loop
+    observed at the engine's grain (``check_every=10``): the same cycles
+    and the same observes, so the difference is the engine's own."""
+    K = ENGINE["cycles_per_dispatch"]
+    for name, topo in topos.items():
+        t0 = time.perf_counter()
+        drv = _set_up(topo, dev, _engine_cfg())
+        print(f"[engine-timing] {name}: engine set-up (partition, tables, "
+              f"state) {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+        _halo_line(name, drv._eng, drv.extra)
+        _check_engine_kernels(name, drv._eng, drv._st)
+        _time_from(f"engine {name}", drv, topo, cycles[name], 1)
+        _time_from(f"core {name} check_every={K}", _set_up(topo, dev), topo,
+                   cycles[name], K)
+
+
+def phase_engine_parity(dev, grid):
+    """The compact wire against the exact one at 80,000 peers; the kernels
+    against the reference formulas through the engine at 4,096."""
+    spec = sim.ProblemSpec(n=grid.n)
+    runs = [sim.run_static(grid, spec, max_cycles=MAX_CYCLES,
+                           engine=_engine_cfg(wire=w), device=dev)
+            for w in ("exact", "compact")]
+    diffs = _diffs(runs[1], runs[0], RESULT_KEYS + ("cut_edges",))
+    if diffs:
+        raise AssertionError(f"compact wire: (compact, exact) {diffs}")
+    print(f"[engine-parity] grid n={grid.n}: compact wire equal to exact",
+          flush=True)
+    side = int(round(N_SMALL ** 0.5))
+    for name, topo in (("grid", topology.grid(side * side)),
+                       ("ba", topology.barabasi_albert(N_SMALL, m=2,
+                                                       seed=1))):
+        spec = sim.ProblemSpec(n=topo.n)
+        fused, plain = (sim.run_static(topo, spec, max_cycles=MAX_CYCLES,
+                                       engine=_engine_cfg(use_kernels=u),
+                                       device=dev)
+                        for u in (True, False))
+        if fused != plain:
+            raise AssertionError(f"engine {name}: fused {fused} != "
+                                 f"reference {plain}")
+        print(f"[engine-parity] {name} n={topo.n}: fused equal to reference"
+              f" (quiesced_at={fused['quiesced_at']}, total_msgs="
+              f"{fused['total_msgs']!r})", flush=True)
+
+
+def phase_sweep(dev, chord):
+    """``sweep_static`` on Chord at 80,000 peers against sequential runs;
+    returns the sweep's launch counts."""
+    t0 = time.perf_counter()
+    res, counts = _counted_run(
+        "sweep", engine_sweep.sweep_static, topo=chord,
+        spec=sim.ProblemSpec(n=chord.n), seeds=SWEEP_SEEDS,
+        cycles=SWEEP_CYCLES, device=dev)
+    wall = time.perf_counter() - t0
+    for i, seed in enumerate(SWEEP_SEEDS):
+        seq = sim.run_static(chord, sim.ProblemSpec(n=chord.n, seed=seed),
+                             max_cycles=SWEEP_CYCLES, device=dev)
+        got = (float(res["accuracy"][i, -1]), float(res["msgs"][i, -1]))
+        if got != (seq["final_accuracy"], seq["total_msgs"]):
+            raise AssertionError(f"sweep seed {seed}: (accuracy, msgs) "
+                                 f"{got} != sequential {seq}")
+        q = seq["quiesced_at"]
+        if q is not None and not res["quiescent"][i, q - 1]:
+            raise AssertionError(f"sweep seed {seed}: not quiescent at {q}")
+    print(f"[sweep] chord n={chord.n} seeds={list(SWEEP_SEEDS)} "
+          f"{SWEEP_CYCLES} cycles in {wall * 1e3:.1f} ms (set-up included):"
+          f" final accuracy {res['accuracy'][:, -1].tolist()} msgs "
+          f"{res['msgs'][:, -1].tolist()}, equal to sequential runs; "
+          f"counts={counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1166,12 +1409,16 @@ def main() -> int:
 
     main_stats = phase_kernels(topos, dev)
     batched = phase_kernels_batched(topos, dev)
-    totals, cycles = phase_main_path(topos, dev)
+    totals, cycles, results = phase_main_path(topos, dev)
     medians = phase_timing(topos, dev, cycles)
     phase_profile(topos, dev, medians, cycles)
     phase_parity(dev)
     svc_totals, runs = phase_service(topos, dev)
     phase_service_parity(topos, dev, runs)
+    eng_totals, eng_cycles = phase_engine(topos, dev, results)
+    phase_engine_timing(topos, dev, eng_cycles)
+    phase_engine_parity(dev, topos["grid"])
+    sweep_totals = phase_sweep(dev, topos["chord"])
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -1230,9 +1477,12 @@ def main() -> int:
                      "shape": head["label"]}
         line["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": totals[name] + svc_totals[name],
+            "launches": (totals[name] + svc_totals[name] + eng_totals[name]
+                         + sweep_totals[name]),
             "launches_by_path": {"run_static": totals[name],
-                                 "service": svc_totals[name]},
+                                 "service": svc_totals[name],
+                                 "engine": eng_totals[name],
+                                 "sweep": sweep_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

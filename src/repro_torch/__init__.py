@@ -9,8 +9,10 @@ kernel's plain PyTorch version instead.
 
 Ported so far: the paper's formulas (:mod:`.core.wvs`, :mod:`.core.regions`,
 :mod:`.core.stopping`, :mod:`.core.correction`), the topologies, Alg. 1
-(:mod:`.core.lss`) and the Sec.-VI experiment driver (:mod:`.core.sim`),
-with the ``lss_state`` and ``correction`` kernels.
+(:mod:`.core.lss`), the Sec.-VI experiment driver (:mod:`.core.sim`), the
+multi-tenant monitor service (:mod:`.service`, core backend), the sharded
+engine's synchronous single-device path and its sweeps (:mod:`.engine`),
+and all three kernels: ``lss_state``, ``correction`` and ``region_decide``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

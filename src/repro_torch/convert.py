@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The port never imports JAX; a caller that holds a JAX ``LSSState``,
-``TopoArrays``, ``PackedSlot`` or service ``QuerySpec`` hands its fields
+engine ``ShardedState``, ``TopoArrays``, ``PackedSlot`` or service
+``QuerySpec`` hands its fields
 over as numpy arrays (``{f: np.asarray(getattr(s, f)) for f in
 s._fields}``) and gets the port's twin back on ``device``.  This is how
 the parity tests start both packages from the same state and the same
@@ -14,10 +15,12 @@ import numpy as np
 import torch
 
 from .core import lss, regions
+from .engine import engine as engine_lib
 from .service.controlplane import SLOSpec
 from .service.query import QuerySpec
 
 __all__ = ["state_from_jax_numpy", "states_from_jax_numpy", "state_to_numpy",
+           "sharded_state_from_jax_numpy",
            "topo_from_numpy", "slot_from_numpy", "query_spec_from_numpy"]
 
 _STATE_DTYPES = {
@@ -58,10 +61,30 @@ def states_from_jax_numpy(fields, device, seeds) -> lss.LSSState:
     return lss.LSSState(**out)
 
 
-def state_to_numpy(state: lss.LSSState) -> dict:
-    """Every field but ``rng`` as a numpy array (on the host)."""
+def state_to_numpy(state) -> dict:
+    """Every field but ``rng`` of an ``LSSState`` or an engine
+    ``ShardedState`` as a numpy array (on the host)."""
     return {name: getattr(state, name).detach().cpu().numpy()
             for name in _STATE_DTYPES}
+
+
+def sharded_state_from_jax_numpy(fields, device,
+                                 seed: int = 0) -> engine_lib.ShardedState:
+    """The port's engine :class:`~repro_torch.engine.ShardedState` from a
+    dict of numpy arrays named like the JAX ``ShardedState`` fields (the
+    ``(S, B, ...)`` layout of an engine with the same partition).
+
+    The JAX per-shard ``rng`` keys and the quantized wires' ``wire_err_*``
+    are dropped: the state gets one drop generator per shard derived from
+    ``seed``, as :meth:`~repro_torch.engine.ShardedLSS.init` derives them.
+    :func:`state_to_numpy` is the inverse, for either kind of state.
+    """
+    out = {name: torch.tensor(np.asarray(fields[name]), dtype=dt,
+                              device=device)
+           for name, dt in _STATE_DTYPES.items()}
+    out["rng"] = engine_lib._shard_generators(
+        torch.device(device), seed, out["msgs"].shape[0])
+    return engine_lib.ShardedState(**out)
 
 
 def topo_from_numpy(nbr, mask, rev, device) -> lss.TopoArrays:

@@ -12,7 +12,9 @@ Data, noise and churn draw from numpy's RNG in the JAX twin's order, so
 both packages see identical inputs and event streams.  The driver runs on
 ``device`` (default: CUDA, see :func:`repro_torch.default_device`) and steps
 Alg. 1 through the CUDA kernels on the card and the reference formulas on
-the CPU (``run_static``'s ``use_kernels`` overrides that choice).
+the CPU (``run_static``'s ``use_kernels`` overrides that choice), either
+on the single-device core loop or, with ``engine=``, on the sharded
+:class:`repro_torch.engine.ShardedLSS`.
 """
 
 from __future__ import annotations
@@ -80,16 +82,48 @@ def _drain_msgs(state: lss.LSSState):
     return state._replace(msgs=torch.zeros_like(state.msgs)), int(state.msgs)
 
 
-class _Driver:
-    """Stepping interface of the single-device core loop.
+def _make_engine(topo, centers, cfg, engine, device, use_kernels):
+    """Resolve the ``engine=`` argument (shard count or EngineConfig); the
+    driver's ``use_kernels`` applies where the EngineConfig leaves it
+    None."""
+    from ..engine import EngineConfig, ShardedLSS  # lazy: avoid a cycle
 
-    ``advance``/``observe``/``drain`` and the dynamic-data edits of the JAX
-    twin's driver, for ``engine=None``; the sharded engine is not ported yet.
+    ecfg = EngineConfig(num_shards=engine) if isinstance(engine, int) \
+        else engine
+    if ecfg.use_kernels is None:
+        ecfg = ecfg._replace(use_kernels=use_kernels)
+    return ShardedLSS(topo, centers, cfg, ecfg, device=device)
+
+
+class _Driver:
+    """One stepping interface over both execution paths.
+
+    ``advance``/``observe``/``drain`` and the dynamic-data edits dispatch
+    to either the single-device core loop or the sharded engine, so the
+    cycles-to-accuracy / quiescence / message bookkeeping exists once.
     """
 
-    def __init__(self, topo, centers, cfg, inputs, spec, device, use_kernels):
+    def __init__(self, topo, centers, cfg, inputs, spec, device, use_kernels,
+                 engine=None):
         self._centers, self._cfg = centers, cfg
         self._device = device
+        self.extra: dict = {}
+        # A DynTopology enables true membership ops (churn through
+        # remove_peer instead of a bare alive-mask edit); spare capacity
+        # rows start dead via the present mask.
+        self._dyn = topo if isinstance(topo, topology.DynTopology) else None
+        self._dyn_version = self._dyn.version if self._dyn else 0
+        alive = self._dyn.present.copy() if self._dyn else None
+        if engine is not None:
+            self._eng = _make_engine(topo, centers, cfg, engine, device,
+                                     use_kernels)
+            self._st = self._eng.init(inputs, seed=spec.seed, alive=alive)
+            self.chunk = max(1, self._eng.ecfg.cycles_per_dispatch)
+            self.extra = {"engine_shards": self._eng.S,
+                          "cut_edges": self._eng.stopo.cut_edges()}
+            return
+        self._eng = None
+        self.chunk = 1
         self._suite = resolve_suite(use_kernels, device)
         # The family's kernel tables, prepared once: with cfg.eps for the
         # cycles' lss_state, with the observe's eps for metrics.
@@ -98,17 +132,14 @@ class _Driver:
         self._observe_tables = (
             self._tables if cfg.eps == OBSERVE_EPS else
             kernel_ops.prep_slots(slot, OBSERVE_EPS))
-        # A DynTopology enables true membership ops (churn through
-        # remove_peer instead of a bare alive-mask edit); spare capacity
-        # rows start dead via the present mask.
-        self._dyn = topo if isinstance(topo, topology.DynTopology) else None
-        self._dyn_version = self._dyn.version if self._dyn else 0
-        alive = self._dyn.present.copy() if self._dyn else None
         self._ta = lss.TopoArrays.from_topology(topo, device)
         self._st = lss.init_state(self._ta, inputs, seed=spec.seed,
                                   alive=alive)
 
     def advance(self, k: int):
+        if self._eng is not None:
+            self._st = self._eng.run(self._st, k)
+            return
         for _ in range(k):
             self._st, _ = lss.cycle(self._st, self._ta, self._centers,
                                     self._cfg, suite=self._suite,
@@ -116,17 +147,26 @@ class _Driver:
 
     def observe(self):
         """(accuracy, quiescent) at the current cycle."""
-        acc, quiescent, _ = lss.metrics(self._st, self._ta, self._centers,
-                                        eps=OBSERVE_EPS, suite=self._suite,
-                                        regions=self._observe_tables)
+        if self._eng is not None:
+            acc, quiescent, _ = self._eng.metrics(self._st, eps=OBSERVE_EPS)
+        else:
+            acc, quiescent, _ = lss.metrics(
+                self._st, self._ta, self._centers, eps=OBSERVE_EPS,
+                suite=self._suite, regions=self._observe_tables)
         return float(acc), bool(quiescent)
 
     def drain(self) -> int:
         """Read-and-reset the device send counter (exact host int)."""
-        self._st, sent = _drain_msgs(self._st)
+        if self._eng is not None:
+            self._st, sent = self._eng.drain_msgs(self._st)
+        else:
+            self._st, sent = _drain_msgs(self._st)
         return sent
 
     def set_inputs(self, who, vals):
+        if self._eng is not None:
+            self._st = self._eng.set_inputs(self._st, who, vals)
+            return
         x_m = self._st.x_m.clone()
         x_m[torch.as_tensor(who, device=self._device)] = torch.as_tensor(
             vals, device=self._device)
@@ -136,14 +176,17 @@ class _Driver:
         """Churn.  On a plain Topology this is the paper's alive-mask edit;
         on a DynTopology the peers *leave*: their links are torn out of the
         topology (``remove_peer``), the freed slots scrubbed, and the tables
-        copied anew — the same live-link set either way."""
+        repaired — the same live-link set either way."""
         if self._dyn is not None:
             for p in np.asarray(who).ravel():
                 self._dyn.remove_peer(int(p))
             self._sync_membership()
-        self._st = self._st._replace(
-            alive=torch.tensor(alive_np, dtype=torch.bool,
-                               device=self._device))
+        if self._eng is not None:
+            self._st = self._eng.kill_peers(self._st, who)
+        else:
+            self._st = self._st._replace(
+                alive=torch.tensor(alive_np, dtype=torch.bool,
+                                   device=self._device))
 
     def _sync_membership(self):
         """Catch the tables + slot state up to the DynTopology."""
@@ -154,20 +197,24 @@ class _Driver:
             if ev.kind in ("link", "unlink"):
                 rows += [ev.a, ev.b]
                 slots += [ev.slot_a, ev.slot_b]
-        self._ta = lss.TopoArrays.from_topology(self._dyn, self._device)
         if rows:
-            self._st = lss.clear_slots(self._st, *lss.pad_bucket(
-                np.asarray(rows, np.int32), np.asarray(slots, np.int32)))
+            rows, slots = lss.pad_bucket(np.asarray(rows, np.int32),
+                                         np.asarray(slots, np.int32))
+        if self._eng is not None:
+            self._eng.apply_membership(self._dyn)
+            if len(rows):
+                self._st = self._eng.clear_slots(self._st, rows, slots)
+        else:
+            self._ta = lss.TopoArrays.from_topology(self._dyn, self._device)
+            if len(rows):
+                self._st = lss.clear_slots(self._st, rows, slots)
 
 
 def _driver(topo, spec, cfg, engine, device, use_kernels):
-    if engine is not None:
-        raise NotImplementedError(
-            "the sharded engine is not ported yet (ROADMAP A.4); "
-            "use engine=None")
     device = resolve_device(device)
     centers, sample, rng, inputs = _setup(topo, spec, device)
-    drv = _Driver(topo, centers, cfg, inputs, spec, device, use_kernels)
+    drv = _Driver(topo, centers, cfg, inputs, spec, device, use_kernels,
+                  engine)
     return drv, sample, rng
 
 
@@ -183,7 +230,13 @@ def run_static(
 ):
     """Run until quiescence; return the paper's static-data metrics.
 
-    ``engine`` must be None (the sharded engine is ROADMAP A.4).
+    ``engine``: None runs the single-device core loop; a shard count (int)
+    or :class:`repro_torch.engine.EngineConfig` routes through the sharded
+    :class:`repro_torch.engine.ShardedLSS`, which advances
+    ``cycles_per_dispatch`` cycles per dispatch, so accuracy/quiescence are
+    observed every ``max(check_every, cycles_per_dispatch)`` cycles (the
+    cycle counts in the result quantize accordingly) and the result also
+    carries ``engine_shards`` and ``cut_edges``.
     ``device``: None runs on CUDA (and raises without a card).
     ``use_kernels``: the suite knob of :func:`repro_torch.kernels.suite.
     resolve_suite` — None picks the CUDA kernels on a CUDA device.
@@ -195,12 +248,13 @@ def run_static(
 def _run_to_quiescence(drv, topo, max_cycles, check_every):
     """The loop of :func:`run_static` on a driver already set up."""
     edges = max(topo.num_edges, 1)
+    chunk = max(check_every, drv.chunk)
     c95 = c100 = quiesced_at = None
     total_msgs = 0  # host-side exact accumulator (drained every check)
     t = 0
     acc = quiescent = None
     while t < max_cycles:
-        step = min(check_every, max_cycles - t)
+        step = min(chunk, max_cycles - t)
         drv.advance(step)
         t += step
         acc, quiescent = drv.observe()
@@ -223,6 +277,7 @@ def _run_to_quiescence(drv, topo, max_cycles, check_every):
         "quiescent": quiescent,
         "msgs_per_link": total_msgs / edges,
         "total_msgs": float(total_msgs),
+        **drv.extra,
     }
 
 
@@ -242,8 +297,9 @@ def run_dynamic(
     Passing a :class:`~repro_torch.core.topology.DynTopology` routes churn
     through the real membership ops (dead peers *leave*); the live link set
     and so the reported dynamics are identical either way.  ``engine`` and
-    ``device`` as in :func:`run_static`; the kernel suite is the default
-    one for ``device``.
+    ``device`` as in :func:`run_static` (noise/churn edits land between
+    cycles, so the engine route dispatches one cycle at a time); the kernel
+    suite is the default one for ``device``.
     """
     drv, sample, rng = _driver(topo, spec, cfg, engine, device, None)
     edges = max(topo.num_edges, 1)

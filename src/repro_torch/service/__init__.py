@@ -22,7 +22,7 @@ Components:
 
 Ported: the core backend in synchronous mode on a static topology.  The
 engine backend, the overlapped boundary, dynamic membership and the
-profiling / alert / audit hooks are not ported yet (ROADMAP A.4, A.6,
+profiling / alert / audit hooks are not ported yet (ROADMAP A.6,
 A.7); :class:`Service` raises on them.
 """
 

@@ -29,7 +29,7 @@ admission/preemption scheduler (preempted queries are snapshotted and
 resume bitwise where they stopped), SLO-driven queue eviction.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: ``backend="engine"`` (A.4), ``overlap=True`` and a ``DynTopology``
+item: ``backend="engine"``, ``overlap=True`` and a ``DynTopology``
 with its membership events and regrow/rebalance epochs (A.6),
 ``profile_dispatch``/``profiler_dir``, ``alerts`` and ``audit_every > 0``
 (A.7).
@@ -79,8 +79,8 @@ class ServiceConfig(NamedTuple):
 
     Fields of the JAX twin that select parts not ported yet are kept so
     configurations carry over, and the service raises on them:
-    ``backend="engine"`` and the ``engine_*`` fields (ROADMAP A.4),
-    ``overlap`` (A.6), ``profile_dispatch``/``profiler_dir``/
+    ``backend="engine"`` and the ``engine_*`` fields and ``overlap``
+    (ROADMAP A.6), ``profile_dispatch``/``profiler_dir``/
     ``profile_sample_every``, ``alerts`` and ``audit_every`` (A.7).
     """
 
@@ -94,7 +94,7 @@ class ServiceConfig(NamedTuple):
     beta: float = 1e-3
     ell: int = 1
     eps: float = 1e-9
-    backend: str = "core"  # "core" ("engine": ROADMAP A.4)
+    backend: str = "core"  # "core" ("engine": ROADMAP A.6)
     engine_shards: int = 2
     engine_method: str = "bfs"
     engine_halo_slack: float = 1.5
@@ -117,7 +117,7 @@ def _unported(scfg: ServiceConfig, topo) -> Optional[str]:
     """What of ``scfg``/``topo`` the port cannot serve yet, with its
     ROADMAP item, or None."""
     if scfg.backend == "engine":
-        return "backend='engine' needs the sharded engine (ROADMAP A.4)"
+        return "backend='engine' (the service's engine backend, ROADMAP A.6)"
     if scfg.backend != "core":
         raise ValueError(f"unknown backend {scfg.backend!r}")
     if scfg.overlap:

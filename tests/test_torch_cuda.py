@@ -538,3 +538,61 @@ def test_service_on_card_matches_cpu(dev):
             assert counts["region_decide"] == 4  # one per observe
             assert counts["lss_state_ref"] == counts["correction_ref"] == 0
     assert runs[0] == runs[1]
+
+
+def _engine_runs(dev, topo, use_kernels, cycles=30):
+    """(engine, per-dispatch states) of a 3-shard engine on the card,
+    K = 5, from ``run_static``'s problem."""
+    from repro_torch.engine import EngineConfig, ShardedLSS
+
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    eng = ShardedLSS(topo, centers, lss.LSSConfig(),
+                     EngineConfig(num_shards=3, cycles_per_dispatch=5,
+                                  use_kernels=use_kernels), device=dev)
+    st = eng.init(inputs, seed=0)
+    states = []
+    for _ in range(cycles // 5):
+        st = eng.run(st, 5)
+        states.append((eng.to_lss_state(st), eng.metrics(st)))
+    return eng, states
+
+
+def _assert_states_equal(got, want, msg):
+    for name in lss.LSSState._fields:
+        if name != "rng":
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                f"{msg}: {name}"
+
+
+@pytest.mark.parametrize("make", [lambda: topology.grid(3025),
+                                  lambda: topology.chord(3000),
+                                  lambda: topology.barabasi_albert(
+                                      3000, m=2, seed=1)],
+                         ids=["grid", "chord", "ba"])
+def test_engine_fused_matches_reference_and_core(dev, make):
+    """The engine through the kernels equals the engine through the
+    reference formulas and the core loop through the kernels, on every
+    state field and the metrics, dispatch by dispatch (S = 3)."""
+    topo = make()
+    kernels.reset_counts()
+    eng, fused = _engine_runs(dev, topo, None)
+    counts = kernels.counts()
+    assert eng.suite.name == "fused"
+    assert min(counts[k] for k in ("lss_state", "correction",
+                                   "region_decide")) > 0
+    assert not any(counts[f"{k}_ref"] for k in ("lss_state", "correction",
+                                                "region_decide"))
+    _, plain = _engine_runs(dev, topo, False)
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    ta = lss.TopoArrays.from_topology(topo, dev)
+    core = lss.init_state(ta, inputs, seed=0)
+    suite = get_suite("fused")
+    for i, ((f_st, f_m), (p_st, p_m)) in enumerate(zip(fused, plain)):
+        for _ in range(5):
+            core, _ = lss.cycle(core, ta, centers, lss.LSSConfig(),
+                                suite=suite)
+        _assert_states_equal(f_st, p_st, f"dispatch {i} fused/reference")
+        _assert_states_equal(f_st, core, f"dispatch {i} engine/core")
+        c_m = lss.metrics(core, ta, centers, suite=suite)
+        for a, b, c in zip(f_m, p_m, c_m):
+            assert torch.equal(a, b) and torch.equal(a, c), f"dispatch {i}"

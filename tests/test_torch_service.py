@@ -312,7 +312,7 @@ def test_workload_matches_jax():
 
 def test_unported_parts_raise_and_cpu_needs_asking():
     topo = t_top.grid(16)
-    for kw, item in (({"backend": "engine"}, "A.4"),
+    for kw, item in (({"backend": "engine"}, "A.6"),
                      ({"overlap": True}, "A.6"),
                      ({"profile_dispatch": True}, "A.7"),
                      ({"alerts": ("rule",)}, "A.7"),

@@ -108,10 +108,20 @@ def test_default_device_is_cuda_or_raises():
         t_sim.run_dynamic(topo, spec, cycles=2)
 
 
-def test_engine_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        t_sim.run_static(t_top.grid(16), t_sim.ProblemSpec(n=16),
-                         engine=2, device="cpu")
+def test_engine_unported_options_raise():
+    """The engine route runs, and what of the engine is not ported yet
+    raises naming its ROADMAP item."""
+    from repro_torch.engine import EngineConfig
+
+    topo, spec = t_top.grid(16), t_sim.ProblemSpec(n=16)
+    res = t_sim.run_static(topo, spec, engine=2, device="cpu")
+    assert res["engine_shards"] == 2 and res["quiescent"]
+    for ecfg, item in ((EngineConfig(async_mode=True), "A.4b"),
+                       (EngineConfig(wire="int8"), "A.4b"),
+                       (EngineConfig(profile=True), "A.7"),
+                       (EngineConfig(auto_plan=True), "A.8")):
+        with pytest.raises(NotImplementedError, match=item):
+            t_sim.run_static(topo, spec, engine=ecfg, device="cpu")
 
 
 def _imported_roots(path: Path):
@@ -136,6 +146,7 @@ def test_port_import_leaves_jax_unloaded():
     code = ("import sys\n"
             "import repro_torch, repro_torch.convert\n"
             "import repro_torch.core.sim, repro_torch.kernels.ops\n"
+            "import repro_torch.engine, repro_torch.engine.sweep\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'repro' not in sys.modules, 'repro was imported'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
