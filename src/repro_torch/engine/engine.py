@@ -155,8 +155,9 @@ class ShardedLSS:
       centers: (k, d) Voronoi option points.
       cfg: the simulator :class:`~repro_torch.core.lss.LSSConfig`.
       ecfg: :class:`EngineConfig` (shards, dispatch grain, suite, wire).
-      decide: optional OPAQUE region decision fn (reference formulas only;
-        with a fused suite it raises — pass ``region=`` instead).
+      decide: optional OPAQUE region decision fn (reference formulas only:
+        with the fused suite, the auto choice on CUDA, it raises — pass
+        ``region=`` instead, or ``use_kernels=False``).
       region: optional region family (``VoronoiRegions`` /
         ``HalfspaceRegions`` / :class:`~repro_torch.core.regions.
         PackedSlot`) replacing the default Voronoi-on-``centers``.
@@ -194,23 +195,17 @@ class ShardedLSS:
         else:
             self.region_slot = None  # opaque decide: not packable
             self.decide = decide
-        if self.region_slot is None:
-            # An opaque decide cannot feed the packed kernels: auto stays on
-            # the reference formulas, an explicitly requested FUSED suite is
-            # an error.
-            requested = (kernel_suite.get_suite("reference")
-                         if ecfg.use_kernels in (None, False)
-                         else kernel_suite.resolve_suite(ecfg.use_kernels,
-                                                         self.device))
-            if requested.fused:
-                raise ValueError(
-                    "use_kernels routes decisions through the packed CUDA "
-                    "kernels and cannot honor an opaque `decide` callable "
-                    "— pass `region=` (a region family) instead")
-            self.suite = requested
-        else:
-            self.suite = kernel_suite.resolve_suite(ecfg.use_kernels,
-                                                    self.device)
+        self.suite = kernel_suite.resolve_suite(ecfg.use_kernels,
+                                                self.device)
+        if self.region_slot is None and self.suite.fused:
+            # An opaque decide cannot feed the packed kernels, and on a CUDA
+            # device the auto choice is the fused suite: the plain formulas
+            # run only when the caller asks for them (use_kernels=False).
+            raise ValueError(
+                "the fused suite routes decisions through the packed CUDA "
+                "kernels and cannot honor an opaque `decide` callable — "
+                "pass `region=` (a region family) instead, or "
+                "use_kernels=False for the reference formulas")
         self.use_kernels = self.suite.fused
         self.dispatch_info = {"suite": self.suite.name,
                               "fused": self.suite.fused}

@@ -36,6 +36,11 @@ the receiver ``decode``-s it back before the scatter.
 ``int8`` and ``bf16`` (quantized, with error feedback) are ROADMAP A.4b and
 raise ``NotImplementedError``.  ``pair_bytes`` is each format's host-side
 traffic model: modeled wire bytes per cycle for every ordered shard pair.
+
+On one device the transport is a transpose in device memory, so ``compact``
+saves no bytes there: its pack and unpack are extra launches, and what it
+changes is the trimmed tables and the modeled ``pair_bytes``.  Its saving
+is real only once a transport moves the payload between devices (A.5).
 """
 
 from __future__ import annotations

@@ -596,3 +596,21 @@ def test_engine_fused_matches_reference_and_core(dev, make):
         c_m = lss.metrics(core, ta, centers, suite=suite)
         for a, b, c in zip(f_m, p_m, c_m):
             assert torch.equal(a, b) and torch.equal(a, c), f"dispatch {i}"
+
+
+def test_engine_opaque_decide_on_the_card_needs_the_plain_suite(dev):
+    """On a CUDA device the auto suite is the fused one, which cannot honor
+    an opaque ``decide``: the engine raises rather than run the plain
+    formulas on the card, and runs them only when asked to."""
+    from repro_torch.engine import EngineConfig, ShardedLSS
+
+    topo = topology.grid(144)
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    custom = lambda v: (v[..., 0] > 0).to(torch.int32)  # noqa: E731
+    with pytest.raises(ValueError, match="opaque"):
+        ShardedLSS(topo, centers, decide=custom, device=dev)
+    eng = ShardedLSS(topo, centers, ecfg=EngineConfig(use_kernels=False),
+                     decide=custom, device=dev)
+    assert eng.suite.name == "reference" and not eng.use_kernels
+    st = eng.run(eng.init(inputs), 8)
+    assert int(eng.total_msgs(st)) > 0

@@ -522,6 +522,9 @@ def test_opaque_decide_cannot_ride_the_fused_suite():
                    device="cpu")
     eng = ShardedLSS(topo, torch.zeros((3, 2)), decide=custom, device="cpu")
     assert not eng.use_kernels and eng.suite.name == "reference"
+    asked = ShardedLSS(topo, torch.zeros((3, 2)), decide=custom,
+                       ecfg=EngineConfig(use_kernels=False), device="cpu")
+    assert asked.suite.name == "reference"
     _, inputs = _engine(topo, 2)
     est = eng.run(eng.init(inputs), 8)
     assert int(eng.total_msgs(est)) > 0
