@@ -72,14 +72,34 @@ Phases, in order; any failure exits nonzero:
    ``engine.sweep_static`` on Chord at 80,000 peers (seeds 0-3, 40
    cycles, counters zeroed before and read after) must give each seed's
    sequential ``run_static(max_cycles=40)`` final accuracy and message
-   count.
+   count;
+9. the engine's async ring and quantized wires, through the same route
+   and configuration on the three topologies at 80,000 peers, each
+   engine built once, counters zeroed before each run and read after it:
+   (a) ``async_mode=True, staleness=0`` must give phase 8's sync results
+   exactly, and on grid every ``ShardedState`` field bitwise after 20
+   cycles at ``drop_rate`` 0 and 0.1; (b) ``staleness=2`` must quiesce
+   within ``MAX_CYCLES`` with its realized mean delay in (0, 2] and
+   reach 95 % accuracy (100 % on grid: on Barabási–Albert the JAX
+   reference too quiesces below 100 %, because publications that no
+   bounded-stale read picks age out of the ring, ROADMAP C.3); printed
+   beside the sync engine's cycles and msgs per link with
+   ``async_lag_stats``; (c) the ``int8`` and ``bf16`` wires must reach
+   the exact wire's accuracy (1.0) and quiesce, with a nonzero error
+   feedback; their modeled halo bytes per cycle are printed beside the
+   lossless wires'; (d) ``int8`` at staleness 2 on grid must reach 1.0;
+   (e) the three kernels are held bitwise to their plain versions on the
+   async-2 and int8 engines' own state.  The async-2 and int8 loops are
+   timed and profiled as phase 8's, and printed beside the exact sync
+   engine's numbers from this run.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
-``run_static``, service, engine and sweep runs, each path's in
-``launches_by_path``; ``share_of_bound`` = bound / time beside
-each time, ``device_ms`` the profiler's device time a launch,
-``bitwise_values`` the values held bitwise; ``correction``'s also carries
+``run_static``, service, engine, sweep, async-engine and
+quantized-engine runs, each path's in ``launches_by_path``;
+``share_of_bound`` = bound / time beside each time, ``device_ms`` the
+profiler's device time a launch, ``bitwise_values`` the values held
+bitwise; ``correction``'s also carries
 ``bound_v_ms``, the bound of the violating-set part the main path keeps;
 ``region_decide``'s numbers are its second entry's, the one the main
 paths launch, with the first entry's shapes in ``by_shape``),
@@ -1115,12 +1135,14 @@ def _print_profile(label, prof, wall_ms, unprofiled_ms, steps=None,
                    step="cycle"):
     """Device busy time, idle share of the profiled wall, the device time
     by kernel and the device kernels launched (per ``step`` over ``steps``
-    of them) of one torch.profiler trace."""
+    of them) of one torch.profiler trace.  Returns ``{"events": events per
+    step, "idle": idle share}``, None where the profiler saw no device
+    event."""
     ivals = _device_intervals(prof)
     if not ivals:
         print(f"[profile] {label}: device time not measured (the profiler "
               "saw no device events)", flush=True)
-        return
+        return None
     copies = sum(name.startswith(("Memcpy", "Memset")) for name, _, _ in
                  ivals)
     if steps:
@@ -1142,6 +1164,8 @@ def _print_profile(label, prof, wall_ms, unprofiled_ms, steps=None,
         print(f"[profile] {label}:   {us / 1e3:9.3f} ms "
               f"{100.0 * us / 1e3 / busy_ms:5.1f}%  {kname[:90]}",
               flush=True)
+    return {"events": len(ivals) / steps if steps else None,
+            "idle": 1.0 - busy_ms / wall_ms}
 
 
 def phase_profile(topos, dev, medians, cycles):
@@ -1206,10 +1230,10 @@ def _halo_line(name, eng, res):
 
 def phase_engine(topos, dev, core_results):
     """The engine route of ``run_static`` at 80,000 peers through the
-    kernels; returns (launch totals, cycles run, drivers' engines)."""
+    kernels; returns (launch totals, cycles run, results)."""
     K = ENGINE["cycles_per_dispatch"]
     totals = {key: 0 for key in KERNELS}
-    cycles = {}
+    cycles, results = {}, {}
     for name, topo in topos.items():
         spec = sim.ProblemSpec(n=topo.n)
         res, counts = _counted_run(f"engine {name}", topo=topo, spec=spec,
@@ -1218,6 +1242,7 @@ def phase_engine(topos, dev, core_results):
         for key in totals:
             totals[key] += counts[key]
         cycles[name] = res["quiesced_at"] or MAX_CYCLES
+        results[name] = res
         print(f"[engine] {name} n={topo.n}: cycles_95={res['cycles_95']} "
               f"cycles_100={res['cycles_100']} quiesced_at="
               f"{res['quiesced_at']} msgs_per_link={res['msgs_per_link']!r}"
@@ -1240,7 +1265,21 @@ def phase_engine(topos, dev, core_results):
             raise AssertionError(f"engine {name}: (engine, core) {diffs}")
         print(f"[engine] {name}: equal to the core at check_every={K} and "
               "to phase 4's results", flush=True)
-    return totals, cycles
+    return totals, cycles, results
+
+
+def _replay_state(st):
+    """``st`` with copies of its drop and delay generators, so that a run
+    from it draws what any other run from ``st`` draws."""
+    from repro_torch.engine.engine import AsyncShardedState, _copy_generator
+
+    def copy(gs):
+        return tuple(_copy_generator(g) for g in gs)
+
+    if isinstance(st, AsyncShardedState):
+        return st._replace(sync=_replay_state(st.sync),
+                           delay_rng=copy(st.delay_rng))
+    return st._replace(rng=copy(st.rng)) if isinstance(st.rng, tuple) else st
 
 
 def _check_engine_kernels(name, eng, st0):
@@ -1248,7 +1287,7 @@ def _check_engine_kernels(name, eng, st0):
     state three cycles in (padding rows included), bitwise against their
     plain versions: ``lss_state`` and ``correction`` (V = every live slot)
     with the cycles' tables, the global decision with the observe's."""
-    flat = eng._flat_state(eng.run(st0, 3))
+    flat = eng._flat_state(eng.run(_replay_state(st0), 3))
     live = lss._live_mask(eng._flat_topo, flat.alive)
     cfg, tables = eng.cfg, eng._tables_for(eng.cfg.eps)
     args = (flat.x_m, flat.x_c, flat.out_m, flat.out_c, flat.in_m,
@@ -1285,13 +1324,15 @@ def _time_from(label, drv, topo, cycles, check_every):
     """µs per cycle of ``run_static``'s loop on ``drv``: median and spread
     over TIMED_REPEATS runs from the driver's initial state (the engine's
     and the core's functions are pure, so each run starts from the same
-    state), then one more run under torch.profiler."""
+    state, with copies of its generators), then one more run under
+    torch.profiler.  Returns the median, min, max and the profile's
+    summary."""
     from torch.profiler import ProfilerActivity, profile
 
     st0 = drv._st
     us = []
     for _ in range(TIMED_REPEATS):
-        drv._st = st0
+        drv._st = _replay_state(st0)
         wall, res = _timed_loop(drv, topo, check_every)
         if (res["quiesced_at"] or MAX_CYCLES) != cycles:
             raise AssertionError(f"{label}: a timed run took another "
@@ -1301,11 +1342,14 @@ def _time_from(label, drv, topo, cycles, check_every):
     print(f"[engine-timing] {label}: us_per_cycle median {median:.1f} min "
           f"{min(us):.1f} max {max(us):.1f} over {len(us)} runs of {cycles}"
           f" cycles; all {[round(u, 1) for u in us]}", flush=True)
-    drv._st = st0
+    drv._st = _replay_state(st0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = _timed_loop(drv, topo, check_every)
-    _print_profile(label, prof, wall * 1e3, median * cycles / 1e3, cycles)
+    summary = _print_profile(label, prof, wall * 1e3, median * cycles / 1e3,
+                             cycles)
+    return {"median": median, "min": min(us), "max": max(us),
+            **(summary or {"events": None, "idle": None})}
 
 
 def phase_engine_timing(topos, dev, cycles):
@@ -1314,6 +1358,7 @@ def phase_engine_timing(topos, dev, cycles):
     observed at the engine's grain (``check_every=10``): the same cycles
     and the same observes, so the difference is the engine's own."""
     K = ENGINE["cycles_per_dispatch"]
+    timings = {}
     for name, topo in topos.items():
         t0 = time.perf_counter()
         drv = _set_up(topo, dev, _engine_cfg())
@@ -1321,9 +1366,11 @@ def phase_engine_timing(topos, dev, cycles):
               f"state) {(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
         _halo_line(name, drv._eng, drv.extra)
         _check_engine_kernels(name, drv._eng, drv._st)
-        _time_from(f"engine {name}", drv, topo, cycles[name], 1)
+        timings[name] = _time_from(f"engine {name}", drv, topo, cycles[name],
+                                   1)
         _time_from(f"core {name} check_every={K}", _set_up(topo, dev), topo,
                    cycles[name], K)
+    return timings
 
 
 def phase_engine_parity(dev, grid):
@@ -1382,6 +1429,160 @@ def phase_sweep(dev, chord):
     return counts
 
 
+# --- phase 9: the async ring and the quantized wires ---------------------
+
+
+STALENESS = 2  # tests/test_async_engine.py's budget
+QUANT_WIRES = ("int8", "bf16")
+BITWISE_CYCLES = 20
+
+
+def _engine_run(label, topo, dev, **kw):
+    """``run_static``'s engine route with ``EngineConfig(**ENGINE, **kw)``:
+    set up once (timed apart), then its loop run once from a copy of the
+    initial state, counters zeroed before it and read after it.  Returns
+    (driver, initial state, result, counts)."""
+    t0 = time.perf_counter()
+    drv = _set_up(topo, dev, _engine_cfg(**kw))
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    st0 = drv._st
+    drv._st = _replay_state(st0)
+    res, counts = _counted_run(label, lambda: sim._run_to_quiescence(
+        drv, topo, MAX_CYCLES, 1))
+    print(f"[async-quant] {label}: set-up {setup_ms:.1f} ms; cycles_95="
+          f"{res['cycles_95']} cycles_100={res['cycles_100']} quiesced_at="
+          f"{res['quiesced_at']} msgs_per_link={res['msgs_per_link']!r} "
+          f"final_accuracy={res['final_accuracy']!r} counts={counts}",
+          flush=True)
+    return drv, st0, res, counts
+
+
+def _beside(res, sync):
+    keys = ("cycles_95", "cycles_100", "quiesced_at", "msgs_per_link")
+    return ", ".join(f"{k} {res[k]!r} (sync {sync[k]!r})" for k in keys)
+
+
+def _check_async0_bitwise(grid, dev):
+    """Staleness 0 against the sync engine on grid, every ShardedState
+    field (and the drop generators) after the same cycles, lossless and
+    under loss."""
+    from repro_torch.engine import ShardedLSS, ShardedState
+
+    centers, _, _, inputs = sim._setup(grid, sim.ProblemSpec(n=grid.n), dev)
+    for drop in (0.0, 0.1):
+        cfg = lss.LSSConfig(drop_rate=drop)
+        sync, asyn = (ShardedLSS(grid, centers, cfg, _engine_cfg(**kw),
+                                 device=dev)
+                      for kw in ({}, {"async_mode": True}))
+        s = sync.run(sync.init(inputs, seed=0), BITWISE_CYCLES)
+        a = asyn.run(asyn.init(inputs, seed=0), BITWISE_CYCLES).sync
+        for name in ShardedState._fields:
+            x, y = getattr(s, name), getattr(a, name)
+            same = (all(torch.equal(g.get_state(), h.get_state())
+                        for g, h in zip(x, y)) if name == "rng"
+                    else (x is None and y is None) or torch.equal(x, y))
+            if not same:
+                raise AssertionError(f"async-0 grid drop {drop}: {name} "
+                                     "differs from the sync engine")
+        print(f"[async-quant] grid n={grid.n} drop_rate={drop}: async "
+              f"staleness 0 bitwise equal to the sync engine on every "
+              f"ShardedState field after {BITWISE_CYCLES} cycles "
+              f"(msgs {int(sync.total_msgs(s))})", flush=True)
+
+
+def _timing_line(name, rows):
+    for label, t in rows:
+        events = "not measured" if t["events"] is None else \
+            f"{t['events']:.2f}"
+        idle = "not measured" if t["idle"] is None else f"{t['idle']:.3f}"
+        print(f"[async-quant-timing] {name} {label}: us_per_cycle median "
+              f"{t['median']:.1f} (min {t['min']:.1f} max {t['max']:.1f}); "
+              f"device events per cycle {events}; idle share {idle}",
+              flush=True)
+
+
+def phase_async_quantized(topos, dev, sync_results, sync_timings):
+    """The async ring and the quantized wires through ``run_static``'s
+    engine route at 80,000 peers; returns the launch totals of the two
+    paths."""
+    totals = {path: {key: 0 for key in KERNELS}
+              for path in ("engine_async", "engine_quantized")}
+
+    def add(path, counts):
+        for key in KERNELS:
+            totals[path][key] += counts[key]
+
+    for name, topo in topos.items():
+        sync = sync_results[name]
+        rows = [("exact sync", sync_timings[name])]
+        # (a) staleness 0 is the sync engine.
+        _, _, res, counts = _engine_run(f"async-0 {name}", topo, dev,
+                                        async_mode=True)
+        add("engine_async", counts)
+        diffs = _diffs(res, sync)
+        if diffs:
+            raise AssertionError(f"async-0 {name}: (async, sync) {diffs}")
+        print(f"[async-quant] async-0 {name}: equal to phase 8's sync "
+              "engine on every result key", flush=True)
+        # (b) staleness 2: bounded-stale reads, the sequence guard.
+        label = f"async-{STALENESS} {name}"
+        drv, st0, res, counts = _engine_run(label, topo, dev,
+                                            async_mode=True,
+                                            staleness=STALENESS)
+        add("engine_async", counts)
+        lag = drv._eng.async_lag_stats(drv._st)
+        print(f"[async-quant] {label}: {_beside(res, sync)}; final_accuracy "
+              f"{res['final_accuracy']!r}; async_lag_stats {lag}",
+              flush=True)
+        if not (res["quiescent"] and res["cycles_95"] is not None
+                and lag["applied"] > 0
+                and 0.0 < lag["mean_delay"] <= STALENESS):
+            raise AssertionError(f"{label}: {res} {lag}")
+        if name == "grid" and res["final_accuracy"] != 1.0:
+            raise AssertionError(f"{label}: accuracy {res}")
+        _check_engine_kernels(label, drv._eng, st0)
+        drv._st = st0
+        rows.append((f"async staleness {STALENESS}",
+                     _time_from(f"engine {label}", drv, topo,
+                                res["quiesced_at"] or MAX_CYCLES, 1)))
+        # (c) the quantized wires, sync.
+        for wire in QUANT_WIRES:
+            label = f"{wire} {name}"
+            drv, st0, res, counts = _engine_run(label, topo, dev, wire=wire)
+            add("engine_quantized", counts)
+            eng, st = drv._eng, drv._st
+            err = max(float(st.wire_err_m.abs().max()),
+                      float(st.wire_err_c.abs().max()))
+            compact = int(exchange.get_wire("compact").pair_bytes(
+                eng._pair_counts, eng._wire_w, 2).sum())
+            exact = int(exchange.get_wire("exact").pair_bytes(
+                eng._pair_counts, eng.stopo.halo_width, 2).sum())
+            print(f"[async-quant] {label}: {_beside(res, sync)}; modeled "
+                  f"halo bytes per cycle {int(eng.wire_pair_bytes(2).sum())}"
+                  f" (compact {compact}, exact {exact}); max|wire_err| "
+                  f"{err!r}", flush=True)
+            if not (res["final_accuracy"] == sync["final_accuracy"] == 1.0
+                    and res["quiescent"] and err > 0.0):
+                raise AssertionError(f"{label}: {res} max|err| {err}")
+            if wire == "int8":
+                _check_engine_kernels(label, eng, st0)
+                drv._st = st0
+                rows.append(("int8 sync", _time_from(
+                    f"engine {label}", drv, topo,
+                    res["quiesced_at"] or MAX_CYCLES, 1)))
+        _timing_line(name, rows)
+    # (d) int8 under bounded staleness.
+    grid = topos["grid"]
+    _, _, res, counts = _engine_run(f"int8 async-{STALENESS} grid", grid,
+                                    dev, wire="int8", async_mode=True,
+                                    staleness=STALENESS)
+    add("engine_quantized", counts)
+    if res["final_accuracy"] != 1.0 or not res["quiescent"]:
+        raise AssertionError(f"int8 async-{STALENESS} grid: {res}")
+    _check_async0_bitwise(grid, dev)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1407,18 +1608,30 @@ def main() -> int:
           f"(D: {', '.join(f'{k}={t.max_deg}' for k, t in topos.items())})",
           flush=True)
 
-    main_stats = phase_kernels(topos, dev)
-    batched = phase_kernels_batched(topos, dev)
-    totals, cycles, results = phase_main_path(topos, dev)
-    medians = phase_timing(topos, dev, cycles)
-    phase_profile(topos, dev, medians, cycles)
-    phase_parity(dev)
-    svc_totals, runs = phase_service(topos, dev)
-    phase_service_parity(topos, dev, runs)
-    eng_totals, eng_cycles = phase_engine(topos, dev, results)
-    phase_engine_timing(topos, dev, eng_cycles)
-    phase_engine_parity(dev, topos["grid"])
-    sweep_totals = phase_sweep(dev, topos["chord"])
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[wall] {label}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    main_stats = phase("phase 3", phase_kernels, topos, dev)
+    batched = phase("phase 3b", phase_kernels_batched, topos, dev)
+    totals, cycles, results = phase("phase 4 runs", phase_main_path, topos,
+                                    dev)
+    medians = phase("phase 4 timing", phase_timing, topos, dev, cycles)
+    phase("phase 4 profile", phase_profile, topos, dev, medians, cycles)
+    phase("phase 5", phase_parity, dev)
+    svc_totals, runs = phase("phase 6", phase_service, topos, dev)
+    phase("phase 7", phase_service_parity, topos, dev, runs)
+    eng_totals, eng_cycles, eng_results = phase("phase 8 runs", phase_engine,
+                                                topos, dev, results)
+    eng_timings = phase("phase 8 timing", phase_engine_timing, topos, dev,
+                        eng_cycles)
+    phase("phase 8 parity", phase_engine_parity, dev, topos["grid"])
+    sweep_totals = phase("phase 8 sweep", phase_sweep, dev, topos["chord"])
+    aq_totals = phase("phase 9", phase_async_quantized, topos, dev,
+                      eng_results, eng_timings)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -1478,11 +1691,14 @@ def main() -> int:
         line["kernels"].append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (totals[name] + svc_totals[name] + eng_totals[name]
-                         + sweep_totals[name]),
+                         + sweep_totals[name]
+                         + sum(t[name] for t in aq_totals.values())),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
-                                 "sweep": sweep_totals[name]},
+                                 "sweep": sweep_totals[name],
+                                 **{path: t[name]
+                                    for path, t in aq_totals.items()}},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ Ported so far: the paper's formulas (:mod:`.core.wvs`, :mod:`.core.regions`,
 :mod:`.core.stopping`, :mod:`.core.correction`), the topologies, Alg. 1
 (:mod:`.core.lss`), the Sec.-VI experiment driver (:mod:`.core.sim`), the
 multi-tenant monitor service (:mod:`.service`, core backend), the sharded
-engine's synchronous single-device path and its sweeps (:mod:`.engine`),
-and all three kernels: ``lss_state``, ``correction`` and ``region_decide``.
+engine's single-device path (sync and async, all four halo wires) and its
+sweeps (:mod:`.engine`), the halo quantizer (:mod:`.distributed`), and all
+three kernels: ``lss_state``, ``correction`` and ``region_decide``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

@@ -1,8 +1,8 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 The port never imports JAX; a caller that holds a JAX ``LSSState``,
-engine ``ShardedState``, ``TopoArrays``, ``PackedSlot`` or service
-``QuerySpec`` hands its fields
+engine ``ShardedState`` or ``AsyncShardedState``, ``TopoArrays``,
+``PackedSlot`` or service ``QuerySpec`` hands its fields
 over as numpy arrays (``{f: np.asarray(getattr(s, f)) for f in
 s._fields}``) and gets the port's twin back on ``device``.  This is how
 the parity tests start both packages from the same state and the same
@@ -20,7 +20,7 @@ from .service.controlplane import SLOSpec
 from .service.query import QuerySpec
 
 __all__ = ["state_from_jax_numpy", "states_from_jax_numpy", "state_to_numpy",
-           "sharded_state_from_jax_numpy",
+           "sharded_state_from_jax_numpy", "async_state_from_jax_numpy",
            "topo_from_numpy", "slot_from_numpy", "query_spec_from_numpy"]
 
 _STATE_DTYPES = {
@@ -30,6 +30,28 @@ _STATE_DTYPES = {
     "pending": torch.bool, "last_send": torch.int32, "alive": torch.bool,
     "t": torch.int32, "msgs": lss.counter_dtype(),
 }
+_ERR_DTYPES = {"wire_err_m": torch.float32, "wire_err_c": torch.float32}
+_ASYNC_DTYPES = {
+    "clock": torch.int32, "out_seq": torch.int32, "last_seq": torch.int32,
+    "ring_m": torch.float32, "ring_c": torch.float32,
+    "ring_flag": torch.bool, "ring_seq": torch.int32,
+    "stale_drops": lss.counter_dtype(), "applied": lss.counter_dtype(),
+    "delay_sum": lss.counter_dtype(),
+}
+
+
+def _tensors(fields, dtypes, device) -> dict:
+    """The named numpy arrays present in ``fields`` as tensors on
+    ``device``."""
+    return {name: torch.tensor(np.asarray(fields[name]), dtype=dt,
+                               device=device)
+            for name, dt in dtypes.items()
+            if fields.get(name) is not None}
+
+
+def _numpy(state, names) -> dict:
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in names if getattr(state, name) is not None}
 
 
 def state_from_jax_numpy(fields, device, seed: int = 0) -> lss.LSSState:
@@ -39,9 +61,7 @@ def state_from_jax_numpy(fields, device, seed: int = 0) -> lss.LSSState:
     The JAX ``rng`` key (if present) is dropped: its threefry stream has no
     torch counterpart, so the state gets a generator seeded with ``seed``.
     """
-    out = {name: torch.tensor(np.asarray(fields[name]), dtype=dt,
-                              device=device)
-           for name, dt in _STATE_DTYPES.items()}
+    out = _tensors(fields, _STATE_DTYPES, device)
     out["rng"] = lss._generator(torch.device(device), seed)
     return lss.LSSState(**out)
 
@@ -53,19 +73,22 @@ def states_from_jax_numpy(fields, device, seeds) -> lss.LSSState:
     The JAX ``rng`` keys are dropped; slot q gets a generator seeded with
     ``seeds[q]``.
     """
-    out = {name: torch.tensor(np.asarray(fields[name]), dtype=dt,
-                              device=device)
-           for name, dt in _STATE_DTYPES.items()}
+    out = _tensors(fields, _STATE_DTYPES, device)
     dev = torch.device(device)
     out["rng"] = tuple(lss._generator(dev, s) for s in seeds)
     return lss.LSSState(**out)
 
 
 def state_to_numpy(state) -> dict:
-    """Every field but ``rng`` of an ``LSSState`` or an engine
-    ``ShardedState`` as a numpy array (on the host)."""
-    return {name: getattr(state, name).detach().cpu().numpy()
-            for name in _STATE_DTYPES}
+    """Every field but the generators of an ``LSSState``, an engine
+    ``ShardedState`` (its ``wire_err_*`` where not None) or an
+    ``AsyncShardedState`` (its books, and its sync state's fields as a
+    dict under ``"sync"``) as numpy arrays (on the host)."""
+    if isinstance(state, engine_lib.AsyncShardedState):
+        return {**_numpy(state, _ASYNC_DTYPES),
+                "sync": state_to_numpy(state.sync)}
+    return _numpy(state, [*_STATE_DTYPES, *(
+        _ERR_DTYPES if isinstance(state, engine_lib.ShardedState) else ())])
 
 
 def sharded_state_from_jax_numpy(fields, device,
@@ -74,17 +97,32 @@ def sharded_state_from_jax_numpy(fields, device,
     dict of numpy arrays named like the JAX ``ShardedState`` fields (the
     ``(S, B, ...)`` layout of an engine with the same partition).
 
-    The JAX per-shard ``rng`` keys and the quantized wires' ``wire_err_*``
-    are dropped: the state gets one drop generator per shard derived from
-    ``seed``, as :meth:`~repro_torch.engine.ShardedLSS.init` derives them.
-    :func:`state_to_numpy` is the inverse, for either kind of state.
+    The quantized wires' ``wire_err_*`` are carried when present.  The JAX
+    per-shard ``rng`` keys are dropped: the state gets one drop generator
+    per shard derived from ``seed``, as :meth:`~repro_torch.engine.
+    ShardedLSS.init` derives them.  :func:`state_to_numpy` is the inverse.
     """
-    out = {name: torch.tensor(np.asarray(fields[name]), dtype=dt,
-                              device=device)
-           for name, dt in _STATE_DTYPES.items()}
+    out = _tensors(fields, {**_STATE_DTYPES, **_ERR_DTYPES}, device)
     out["rng"] = engine_lib._shard_generators(
         torch.device(device), seed, out["msgs"].shape[0])
     return engine_lib.ShardedState(**out)
+
+
+def async_state_from_jax_numpy(fields, device,
+                               seed: int = 0) -> engine_lib.AsyncShardedState:
+    """The port's :class:`~repro_torch.engine.AsyncShardedState` from a
+    dict of numpy arrays named like the JAX ``AsyncShardedState``'s book
+    fields (``clock``, ``out_seq``, ``last_seq``, ``ring_*``,
+    ``stale_drops``, ``applied``, ``delay_sum``), with the sync state's
+    fields as a dict under ``"sync"``
+    (:func:`sharded_state_from_jax_numpy`).  The delay generators are
+    derived from the drop generators, as :meth:`~repro_torch.engine.
+    ShardedLSS.wrap_async` derives them.
+    """
+    sync = sharded_state_from_jax_numpy(fields["sync"], device, seed)
+    return engine_lib.AsyncShardedState(
+        sync=sync, **_tensors(fields, _ASYNC_DTYPES, device),
+        delay_rng=engine_lib._delay_generators(sync.rng))
 
 
 def topo_from_numpy(nbr, mask, rev, device) -> lss.TopoArrays:

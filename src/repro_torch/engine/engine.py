@@ -1,6 +1,6 @@
 """ShardedLSS — the exact :mod:`repro_torch.core.lss` semantics over a
 partitioned peer population (port of ``repro/engine/engine.py``, the
-synchronous single-device path).
+single-device gather path, sync and async).
 
 The peer population is partitioned into ``S`` blocks (:mod:`.partition`);
 every state array carries a leading shard axis ``(S, B, ...)``.  One engine
@@ -22,20 +22,30 @@ core (up to the row permutation, and to the drop stream when
 ``drop_rate > 0``: the engine draws from one generator per shard).  Padding
 rows are dead and have no valid slot.
 
+Async mode (``EngineConfig.async_mode`` / :meth:`ShardedLSS.init_async`):
+every shard keeps its own clock, publishes its boundary sends into a
+bounded-staleness ring (:func:`repro_torch.engine.exchange.ring_publish`)
+and reads every peer shard at a receiver-chosen delay of up to
+``EngineConfig.staleness`` cycles; Alg. 1's per-message sequence numbers
+drop reordered and superseded deliveries.  At ``staleness=0`` the mode is
+bitwise the sync engine, drop stream included: the delays come from a
+second set of per-shard generators, drawn only when ``staleness > 0``.
+
 Differences from the JAX twin: a dispatch of ``cycles_per_dispatch`` (K)
 cycles is a host loop, not one compiled ``fori_loop`` with donated buffers:
 K is the grain of one ``engine.dispatch`` span and of the driver's
 bookkeeping.  Functions are pure (they return new states and never write
-into the tensors they are given); the drop generators advance in place, as
-in the core.  Not ported yet, each raising ``NotImplementedError`` naming
-its ROADMAP item: the mesh transport (``use_mesh``, A.5), the async ring
-and the quantized wires (A.4b), the audit plane and ``profile=True`` (A.7),
-and ``auto_plan=True`` (A.8).
+into the tensors they are given); the drop and delay generators advance in
+place, as in the core, and :meth:`ShardedLSS.run` copies an async state's
+ring once per call and then writes only the published slot each cycle.
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: the mesh transport (``use_mesh``, A.5), the audit plane and
+``profile=True`` (A.7), and ``auto_plan=True`` (A.8).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -47,7 +57,8 @@ from ..kernels import ops as kernel_ops
 from ..kernels import suite as kernel_suite
 from . import exchange, partition
 
-__all__ = ["DeviceTopo", "EngineConfig", "ShardedState", "ShardedLSS"]
+__all__ = ["DeviceTopo", "EngineConfig", "ShardedState", "AsyncShardedState",
+           "ShardedLSS"]
 
 
 def _unported(what: str, item: str):
@@ -109,16 +120,21 @@ class EngineConfig(NamedTuple):
     use_kernels: Union[bool, str, None] = None
     halo_slack: float = 1.0  # >1 pads halo width for membership headroom
     profile: bool = False  # not ported (ROADMAP A.7)
-    async_mode: bool = False  # not ported (ROADMAP A.4b)
-    staleness: int = 0  # the async ring's bound (ROADMAP A.4b)
-    wire: str = "exact"  # "exact" | "compact" ("int8"/"bf16": A.4b)
+    async_mode: bool = False  # per-shard clocks + the bounded-stale ring
+    staleness: int = 0  # halo reads may lag the sender by <= this many cycles
+    wire: str = "exact"  # "exact" | "compact" | "int8" | "bf16"
     auto_plan: bool = False  # not ported (ROADMAP A.8)
 
 
 class ShardedState(NamedTuple):
     """:class:`repro_torch.core.lss.LSSState`, blocked ``(S, B, ...)`` per
-    shard.  (The JAX twin's ``wire_err_*`` fields belong to the quantized
-    wires, ROADMAP A.4b.)"""
+    shard.
+
+    The two trailing ``wire_err_*`` fields exist only under a stateful
+    (quantized) wire: per-out-slot error-feedback buffers in
+    membership-stable ``(S, B, D, ...)`` coordinates, independent of the
+    halo width.  ``None`` everywhere else.
+    """
 
     out_m: torch.Tensor  # (S, B, D, d)
     out_c: torch.Tensor  # (S, B, D)
@@ -132,6 +148,35 @@ class ShardedState(NamedTuple):
     t: torch.Tensor  # ()  current cycle
     msgs: torch.Tensor  # (S,) per-shard cumulative sends (int64)
     rng: tuple  # S torch.Generators: per-shard drop streams
+    wire_err_m: Optional[torch.Tensor] = None  # (S, B, D, d) quant error
+    wire_err_c: Optional[torch.Tensor] = None  # (S, B, D)
+
+
+class AsyncShardedState(NamedTuple):
+    """Async-mode engine state: the sync per-shard state plus the
+    bounded-staleness transport books.
+
+    ``clock`` is per shard.  In this single-dispatcher engine all shards
+    step together, so the clocks stay equal, but every timer, ring and
+    sequence computation reads the per-shard value.  ``R = staleness + 1``
+    ring slots of the wire's halo width keep a publication for exactly
+    the read window that may still target it.  ``delay_rng`` (not in the
+    JAX twin, whose delay keys split off ``rng``) holds the per-shard
+    generators of the receivers' delay draws.
+    """
+
+    sync: ShardedState  # the paper state, (S, B, ...)
+    clock: torch.Tensor  # (S,) int32 per-shard local clocks
+    out_seq: torch.Tensor  # (S, B, D) int32 — seq of the newest posting
+    last_seq: torch.Tensor  # (S, B, D) int32 — newest applied seq
+    ring_m: torch.Tensor  # (R, S, S, H, d) published halo payloads
+    ring_c: torch.Tensor  # (R, S, S, H)
+    ring_flag: torch.Tensor  # (R, S, S, H) bool
+    ring_seq: torch.Tensor  # (R, S, S, H) int32
+    stale_drops: torch.Tensor  # (S,) seq-guarded (reordered) drops
+    applied: torch.Tensor  # (S,) cross-shard messages applied
+    delay_sum: torch.Tensor  # (S,) total realized delay of applied messages
+    delay_rng: tuple  # S torch.Generators: per-shard delay streams
 
 
 def _copy_generator(g: torch.Generator) -> torch.Generator:
@@ -144,6 +189,26 @@ def _shard_generators(device, seed: int, num: int) -> tuple:
     """``num`` drop streams derived from one seed."""
     seeds = np.random.SeedSequence(int(seed)).generate_state(num)
     return tuple(lss._generator(device, s) for s in seeds)
+
+
+def _delay_generators(rng: tuple) -> tuple:
+    """One delay stream per shard, seeded from a draw of a COPY of that
+    shard's drop generator (the drop streams themselves do not move)."""
+    out = []
+    for g in rng:
+        seed = torch.randint(0, 2 ** 62, (1,), generator=_copy_generator(g),
+                             device=g.device)
+        out.append(lss._generator(g.device, int(seed)))
+    return tuple(out)
+
+
+def _sync_only(state, what: str) -> None:
+    """The dynamic-data hooks take a :class:`ShardedState`, as in JAX."""
+    if isinstance(state, AsyncShardedState):
+        raise TypeError(
+            f"ShardedLSS.{what} takes a ShardedState, not an "
+            "AsyncShardedState: edit `astate.sync` and re-wrap it with "
+            "wrap_async")
 
 
 class ShardedLSS:
@@ -172,9 +237,6 @@ class ShardedLSS:
                  region=None, tracker=None, device=None):
         from ..obs import NoopTracker  # local: keep the engine import light
 
-        if ecfg.async_mode:
-            raise _unported("async_mode=True (the bounded-staleness ring)",
-                            "A.4b")
         if ecfg.profile:
             raise _unported("profile=True (ProfiledDispatch)", "A.7")
         if ecfg.auto_plan:
@@ -251,29 +313,27 @@ class ShardedLSS:
         raise _unported("use_mesh (the collective all_to_all transport)",
                         "A.5")
 
-    def init_async(self, inputs: wvs.WV, seed: int = 0, alive=None):
-        raise _unported("init_async (the bounded-staleness ring)", "A.4b")
-
-    def wrap_async(self, base: ShardedState):
-        raise _unported("wrap_async (the bounded-staleness ring)", "A.4b")
-
     def audit(self, state, eps: float = 1e-9, sample_mod: int = 1,
               sample_phase: int = 0):
         raise _unported("ShardedLSS.audit (the audit plane)", "A.7")
 
     # -- state -------------------------------------------------------------
-    def init(self, inputs: wvs.WV, seed: int = 0, alive=None) -> ShardedState:
+    def init(self, inputs: wvs.WV, seed: int = 0, alive=None):
         """Build sharded state from inputs in ORIGINAL peer order.
 
         ``alive`` (optional bool (n,), original order) seeds the churn mask
         — a capacity-padded DynTopology passes its ``present`` mask so spare
-        rows start dead.
+        rows start dead.  With ``EngineConfig.async_mode`` the result is an
+        :class:`AsyncShardedState` (:meth:`init_sync` gives the bare sync
+        state).
         """
+        if self.ecfg.async_mode:
+            return self.init_async(inputs, seed=seed, alive=alive)
         return self.init_sync(inputs, seed=seed, alive=alive)
 
     def init_sync(self, inputs: wvs.WV, seed: int = 0,
                   alive=None) -> ShardedState:
-        """:meth:`init` (the engine has only the sync mode)."""
+        """:meth:`init`'s sync-state half, mode flag ignored."""
         S, B, D = self.S, self.B, self.D
         dev = self.device
         x_in = inputs.m.to(dev)
@@ -288,7 +348,7 @@ class ShardedLSS:
                                device=dev))
         alive_flat = torch.zeros((S * B,), dtype=torch.bool, device=dev)
         alive_flat[self._pos] = alive0
-        return ShardedState(
+        state = ShardedState(
             out_m=torch.zeros((S, B, D, d), dtype=dt, device=dev),
             out_c=torch.zeros((S, B, D), dtype=dt, device=dev),
             in_m=torch.zeros((S, B, D, d), dtype=dt, device=dev),
@@ -303,6 +363,49 @@ class ShardedLSS:
             msgs=torch.zeros((S,), dtype=lss.counter_dtype(), device=dev),
             rng=_shard_generators(dev, seed, S),
         )
+        if self._wire.stateful:
+            # Quantization error feedback, per out-slot.
+            state = state._replace(
+                wire_err_m=torch.zeros((S, B, D, d), dtype=torch.float32,
+                                       device=dev),
+                wire_err_c=torch.zeros((S, B, D), dtype=torch.float32,
+                                       device=dev))
+        return state
+
+    def init_async(self, inputs: wvs.WV, seed: int = 0,
+                   alive=None) -> AsyncShardedState:
+        """Async-mode init: the sync state wrapped with cold transport
+        books (empty ring, zero clocks and sequence counters)."""
+        return self.wrap_async(self.init_sync(inputs, seed=seed, alive=alive))
+
+    def wrap_async(self, base: ShardedState) -> AsyncShardedState:
+        """Wrap a sync state for async execution.  The ring starts empty,
+        so the first async cycle is the sync cycle from the same state.
+        The delay generators are seeded from the drop generators (which
+        stay where they are)."""
+        S, B, D = self.S, self.B, self.D
+        dev = self.device
+        # Ring slots follow the WIRE width (trimmed tables): the ring holds
+        # what the transport ships.
+        H = int(self._tables.halo.send_ok.shape[-1])
+        R = max(1, int(self.ecfg.staleness) + 1)
+        d = base.x_m.shape[-1]
+        dt = base.x_m.dtype
+        i32, cnt = torch.int32, lss.counter_dtype()
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return AsyncShardedState(
+            sync=base,
+            clock=base.t.to(i32).expand(S).clone(),
+            out_seq=zeros((S, B, D), i32), last_seq=zeros((S, B, D), i32),
+            ring_m=zeros((R, S, S, H, d), dt), ring_c=zeros((R, S, S, H), dt),
+            ring_flag=zeros((R, S, S, H), torch.bool),
+            ring_seq=zeros((R, S, S, H), i32),
+            stale_drops=zeros((S,), cnt), applied=zeros((S,), cnt),
+            delay_sum=zeros((S,), cnt),
+            delay_rng=_delay_generators(base.rng))
 
     # -- dynamic-data hooks (original peer ids) ------------------------------
     def _positions(self, who) -> torch.Tensor:
@@ -311,6 +414,7 @@ class ShardedLSS:
 
     def set_inputs(self, state: ShardedState, who, new_x) -> ShardedState:
         """Resample inputs: ``x_m[who] = new_x`` (moment form, weight kept)."""
+        _sync_only(state, "set_inputs")
         flat = state.x_m.reshape(self.S * self.B, -1).clone()
         flat[self._positions(who)] = torch.as_tensor(
             new_x, dtype=flat.dtype, device=self.device)
@@ -323,6 +427,7 @@ class ShardedLSS:
     def set_alive(self, state: ShardedState, who, value: bool
                   ) -> ShardedState:
         """Set the churn mask of original ids ``who`` (True = join)."""
+        _sync_only(state, "set_alive")
         flat = state.alive.reshape(self.S * self.B).clone()
         flat[self._positions(who)] = bool(value)
         return state._replace(alive=flat.reshape(state.alive.shape))
@@ -330,7 +435,9 @@ class ShardedLSS:
     def clear_slots(self, state: ShardedState, rows, slots) -> ShardedState:
         """Scrub the messaging state of ``(peer, slot)`` coordinates in
         ORIGINAL ids — the engine-layout counterpart of
-        :func:`repro_torch.core.lss.clear_slots`."""
+        :func:`repro_torch.core.lss.clear_slots`; a slot's quantization
+        debt dies with its message."""
+        _sync_only(state, "clear_slots")
         pos = self._positions(rows)
         s_idx, b_idx = pos // self.B, pos % self.B
         k = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
@@ -340,10 +447,14 @@ class ShardedLSS:
             a[s_idx, b_idx, k] = value
             return a
 
-        return state._replace(
+        upd = dict(
             out_m=scrub(state.out_m, 0.0), out_c=scrub(state.out_c, 0.0),
             in_m=scrub(state.in_m, 0.0), in_c=scrub(state.in_c, 0.0),
             pending=scrub(state.pending, False))
+        if state.wire_err_m is not None:
+            upd.update(wire_err_m=scrub(state.wire_err_m, 0.0),
+                       wire_err_c=scrub(state.wire_err_c, 0.0))
+        return state._replace(**upd)
 
     # -- dynamic membership ------------------------------------------------
     def apply_membership(self, dyn, rows=None) -> bool:
@@ -432,6 +543,60 @@ class ShardedLSS:
         return out_m, out_c, pending, new_last, corr_iters
 
     # -- one cycle, gather fallback (full arrays, one device) ---------------
+    def _deliver_local(self, state: ShardedState, tables: DeviceTopo):
+        """A cycle's start, the same in both modes: live slots, the drop
+        draw and the shard-local deliveries (the core's receive-side
+        gather: in-slot (j, r) reads its unique source slot through
+        ``src``).  Returns ``(live, delivered, sent, in_m, in_c)``."""
+        S, B, D = self.S, self.B, self.D
+        d = state.x_m.shape[-1]
+        nbr_alive = state.alive.reshape(S * B)[tables.tgt_pos]
+        live = tables.mask & state.alive[..., None] & nbr_alive
+        send = state.pending & live
+        if self.cfg.drop_rate > 0.0:
+            keep = lss._uniform(state.rng, send.shape, send.device)
+            delivered = send & (keep >= self.cfg.drop_rate)
+        else:
+            delivered = send
+        sent = torch.sum(send, dim=(1, 2))
+        got = delivered.reshape(S * B * D)[tables.src] & tables.intra
+        in_m = torch.where(got[..., None],
+                           state.out_m.reshape(S * B * D, d)[tables.src],
+                           state.in_m)
+        in_c = torch.where(got, state.out_c.reshape(S * B * D)[tables.src],
+                           state.in_c)
+        return live, delivered, sent, in_m, in_c
+
+    def _encode_halo(self, state: ShardedState, tables: DeviceTopo,
+                     delivered):
+        """Gather the boundary sends and encode them in the active wire;
+        a stateful wire reads and updates the per-out-slot error feedback.
+        Returns ``(payload, wire_err_m, wire_err_c)``."""
+        wire = self._wire
+        bufs = exchange.gather_halo(state.out_m, state.out_c, delivered,
+                                    tables.halo)
+        if not wire.stateful:
+            payload, _, _ = wire.encode(*bufs)
+            return payload, state.wire_err_m, state.wire_err_c
+        payload, n_em, n_ec = wire.encode(*bufs, *exchange.gather_err(
+            state.wire_err_m, state.wire_err_c, tables.halo))
+        return (payload, *exchange.scatter_err(
+            state.wire_err_m, state.wire_err_c, n_em, n_ec, tables.halo))
+
+    def _update(self, state: ShardedState, live, in_m, in_c, t):
+        """The peer-local update on the flattened rows, reshaped back to
+        ``(S, B, ...)``: ``(out_m, out_c, pending, last_send, corr_iters)``.
+        ``t`` is the scalar cycle or one clock per row."""
+        S, B = self.S, self.B
+        fl = lambda a: a.reshape(S * B, *a.shape[2:])  # noqa: E731
+        flat = lss.LSSState(
+            out_m=fl(state.out_m), out_c=fl(state.out_c), in_m=fl(in_m),
+            in_c=fl(in_c), x_m=fl(state.x_m), x_c=fl(state.x_c),
+            pending=fl(live), last_send=fl(state.last_send),
+            alive=fl(state.alive), t=t, msgs=state.msgs, rng=None)
+        *out, corr_iters = self._peer_update(flat, fl(live))
+        return (*(a.reshape(S, B, *a.shape[1:]) for a in out), corr_iters)
+
     def _cycle_full(self, state: ShardedState, tables: DeviceTopo,
                     with_stats=False):
         """One engine cycle on full ``(S, B, ...)`` arrays.
@@ -440,75 +605,181 @@ class ShardedLSS:
         correction do-while's iteration count, as ``lss.cycle_impl(
         with_stats=True)`` reports it.
         """
-        cfg = self.cfg
-        S, B, D = self.S, self.B, self.D
-        d = state.x_m.shape[-1]
-        nbr_alive = state.alive.reshape(S * B)[tables.tgt_pos]
-        live = tables.mask & state.alive[..., None] & nbr_alive
-        send = state.pending & live
-        if cfg.drop_rate > 0.0:
-            keep = lss._uniform(state.rng, send.shape, send.device)
-            delivered = send & (keep >= cfg.drop_rate)
-        else:
-            delivered = send
-        sent = torch.sum(send, dim=(1, 2))
-
-        # Shard-local edges: the core's receive-side gather (in-slot (j, r)
-        # reads its unique source slot through ``src``).
-        got = delivered.reshape(S * B * D)[tables.src] & tables.intra
-        in_m = torch.where(got[..., None],
-                           state.out_m.reshape(S * B * D, d)[tables.src],
-                           state.in_m)
-        in_c = torch.where(got, state.out_c.reshape(S * B * D)[tables.src],
-                           state.in_c)
-
+        live, delivered, sent, in_m, in_c = self._deliver_local(state,
+                                                                tables)
         # Cross-shard edges: halo gather -> wire encode -> transpose ->
         # wire decode -> scatter.
-        wire = self._wire
-        payload = wire.encode(*exchange.gather_halo(
-            state.out_m, state.out_c, delivered, tables.halo))
+        payload, err_m, err_c = self._encode_halo(state, tables, delivered)
         payload = tuple(exchange.transpose_all_to_all(p) for p in payload)
-        buf_m, buf_c, flag = wire.decode(payload)
+        buf_m, buf_c, flag = self._wire.decode(payload)
         in_m, in_c = exchange.scatter_halo(in_m, in_c, buf_m, buf_c, flag,
                                            tables.halo)
-
-        # Peer-local update on flattened rows.
-        fl = lambda a: a.reshape(S * B, *a.shape[2:])  # noqa: E731
-        flat = lss.LSSState(
-            out_m=fl(state.out_m), out_c=fl(state.out_c), in_m=fl(in_m),
-            in_c=fl(in_c), x_m=fl(state.x_m), x_c=fl(state.x_c),
-            pending=fl(live), last_send=fl(state.last_send),
-            alive=fl(state.alive), t=state.t, msgs=state.msgs, rng=None)
-        out_m, out_c, pending, last_send, corr_iters = self._peer_update(
-            flat, fl(live))
-        sh = lambda a: a.reshape(S, B, *a.shape[1:])  # noqa: E731
+        out_m, out_c, pending, last_send, corr_iters = self._update(
+            state, live, in_m, in_c, state.t)
         state = state._replace(
-            out_m=sh(out_m), out_c=sh(out_c), in_m=in_m, in_c=in_c,
-            pending=sh(pending), last_send=sh(last_send), t=state.t + 1,
-            msgs=state.msgs + sent.to(state.msgs.dtype))
+            out_m=out_m, out_c=out_c, in_m=in_m, in_c=in_c,
+            pending=pending, last_send=last_send, t=state.t + 1,
+            msgs=state.msgs + sent.to(state.msgs.dtype),
+            wire_err_m=err_m, wire_err_c=err_c)
         if with_stats:
             return state, corr_iters
         return state
 
+    # -- one cycle, asynchronous gossip mode -------------------------------
+    def _cycle_async(self, astate: AsyncShardedState,
+                     tables: DeviceTopo) -> AsyncShardedState:
+        """One async-mode cycle: the sync cycle's shard-local delivery and
+        peer update, but cross-shard messages go through the
+        bounded-staleness ring with per-message sequence guards.
+
+        At ``staleness=0`` it is the sync cycle bitwise: the same drop
+        draws (the delay generators are drawn only when ``staleness > 0``),
+        the ring write and read collapse to the transpose, and the seq
+        guard passes every flagged message (sequence numbers are monotone
+        per out-slot).  WRITES the published slot of ``astate``'s ring in
+        place (:meth:`run` hands it a copy it owns).
+        """
+        state = astate.sync
+        S, B = self.S, self.B
+        staleness = int(self.ecfg.staleness)
+        R = max(1, staleness + 1)
+        halo = tables.halo
+        live, delivered, sent, in_m, in_c = self._deliver_local(state,
+                                                                tables)
+
+        # Publish this cycle's boundary sends (+ their seq stamps) into each
+        # shard's ring slot at its own clock.  A lossy wire quantizes at the
+        # sender (encode -> decode before the ring), so the ring holds what
+        # a quantized transport ships; its error feedback moves on publish.
+        if self._wire.lossy:
+            payload, err_m, err_c = self._encode_halo(state, tables,
+                                                      delivered)
+            buf_m, buf_c, flag = self._wire.decode(payload)
+            state = state._replace(wire_err_m=err_m, wire_err_c=err_c)
+        else:
+            buf_m, buf_c, flag = exchange.gather_halo(
+                state.out_m, state.out_c, delivered, halo)
+        buf_seq, = exchange.gather_rows(halo.send_row, halo.send_slot,
+                                        astate.out_seq)
+        clock = astate.clock
+        ring = exchange.ring_publish(
+            astate.ring_m, astate.ring_c, astate.ring_flag, astate.ring_seq,
+            clock % R, buf_m, buf_c, flag, buf_seq)
+
+        # Read every (dst, src) pair at a bounded-stale sender clock: delay
+        # in [0, staleness], capped by the sender's clock so early cycles
+        # never reach before time 0.
+        if staleness > 0:
+            delay = torch.stack([
+                torch.randint(0, staleness + 1, (S,), generator=g,
+                              device=g.device, dtype=torch.int32)
+                for g in astate.delay_rng])  # (S_dst, S_src)
+            delay = torch.minimum(delay, clock[None, :])
+        else:
+            delay = torch.zeros((S, S), dtype=torch.int32,
+                                device=clock.device)
+        got_m, got_c, got_flag, got_seq = exchange.ring_read(
+            *ring, (clock[None, :] - delay) % R)
+
+        # Alg. 1's per-message guard: a delivery whose seq lags what its
+        # in-slot already applied is a reordered stale message — drop it
+        # (an equal seq re-applies the identical payload).
+        cur, = exchange.gather_rows(halo.recv_row, halo.recv_slot,
+                                    astate.last_seq)
+        ok = got_flag & (got_seq >= cur)
+        in_m, in_c = exchange.scatter_halo(in_m, in_c, got_m, got_c, ok, halo)
+        last_seq = exchange.scatter_seq(astate.last_seq, got_seq, ok,
+                                        halo.recv_row, halo.recv_slot)
+        cnt = astate.applied.dtype
+        stale = torch.sum(got_flag & ~ok, dim=(1, 2)).to(cnt)
+        applied = torch.sum(ok, dim=(1, 2)).to(cnt)
+        lag = torch.sum(torch.where(ok, delay[:, :, None], 0),
+                        dim=(1, 2)).to(cnt)
+
+        # Peer-local update against the per-shard clock, one per row.
+        out_m, out_c, pending, last_send, _ = self._update(
+            state, live, in_m, in_c, clock.repeat_interleave(B))
+        state = state._replace(
+            out_m=out_m, out_c=out_c, in_m=in_m, in_c=in_c,
+            pending=pending, last_send=last_send, t=state.t + 1,
+            msgs=state.msgs + sent.to(state.msgs.dtype))
+        return astate._replace(
+            sync=state, clock=clock + 1,
+            # Fresh postings advance their out-slot's sequence number.
+            out_seq=torch.where(pending, astate.out_seq + 1, astate.out_seq),
+            last_seq=last_seq, ring_m=ring[0], ring_c=ring[1],
+            ring_flag=ring[2], ring_seq=ring[3],
+            stale_drops=astate.stale_drops + stale,
+            applied=astate.applied + applied,
+            delay_sum=astate.delay_sum + lag)
+
+    def async_in_flight(self, astate: AsyncShardedState) -> torch.Tensor:
+        """Conservative device-side bool: could a ring publication still be
+        delivered by a future bounded-stale read?
+
+        As the JAX twin: of the R ring slots, the one at index
+        ``(clock + 1) % R`` counts as aged out; at staleness 0 nothing
+        lingers.  (That slot holds the publication of ``clock + 1 - R``,
+        which the next cycle may still read at delay ``staleness``, while
+        the aged-out one sits at ``clock % R``: ROADMAP C lists this as a
+        fault of the reference, kept here for parity.)
+        """
+        R = astate.ring_flag.shape[0]
+        if R == 1:
+            return torch.zeros((), dtype=torch.bool,
+                               device=astate.ring_flag.device)
+        oldest = (astate.clock + 1) % R  # (S,) per src shard
+        live = (torch.arange(R, device=oldest.device)[:, None]
+                != oldest[None, :])  # (R, S_src)
+        return torch.any(astate.ring_flag & live[:, :, None, None])
+
+    def async_lag_stats(self, astate: AsyncShardedState) -> dict:
+        """Host-side staleness summary (one device sync): applied
+        cross-shard messages, their mean realized delay in cycles, and the
+        cumulative seq-guarded stale-drop count."""
+        applied = int(torch.sum(astate.applied))
+        return {
+            "applied": applied,
+            "stale_drops": int(torch.sum(astate.stale_drops)),
+            "mean_delay": (float(torch.sum(astate.delay_sum)) / applied
+                           if applied else 0.0),
+        }
+
     # -- driver ------------------------------------------------------------
-    def run(self, state: ShardedState, cycles: int) -> ShardedState:
+    def run(self, state, cycles: int):
         """Advance ``cycles`` cycles, ``cycles_per_dispatch`` (K) per
         dispatch.
 
-        Each dispatch is an ``engine.dispatch`` span in the tracker with
-        the JAX attributes ``k``, ``suite``, ``mode``, ``transport``
+        Accepts a :class:`ShardedState` (sync cycles) or an
+        :class:`AsyncShardedState` (bounded-staleness cycles) and returns
+        the same kind; an async state's ring is copied once here, so the
+        caller's state is never written.  Each dispatch is an
+        ``engine.dispatch`` span in the tracker with the JAX attributes
+        ``k``, ``suite``, ``mode`` ("sync" / "async"), ``transport``
         ("gather"), ``fused``, ``wire``, ``halo_bytes`` (the active wire's
         modeled bytes over the dispatch) and ``cut_edges``; a non-noop
         tracker also gets per-shard ``engine_shard_halo_bytes_total``
         counters, ``engine_shard_cut_edges`` gauges and per-pair
-        ``engine_halo_padding_frac`` gauges.  There is no ``recompiled``
-        attribute: the port compiles nothing per dispatch.
+        ``engine_halo_padding_frac`` gauges, and after an async run the
+        ``engine_async_staleness_mean``, ``engine_async_stale_drops_total``
+        and ``engine_async_applied_total`` gauges (one host sync).  There
+        is no ``recompiled`` attribute: the port compiles nothing per
+        dispatch.
         """
         from ..obs import NoopTracker
 
+        is_async = isinstance(state, AsyncShardedState)
+        if is_async:
+            state = state._replace(ring_m=state.ring_m.clone(),
+                                   ring_c=state.ring_c.clone(),
+                                   ring_flag=state.ring_flag.clone(),
+                                   ring_seq=state.ring_seq.clone())
+            cycle = self._cycle_async
+        else:
+            cycle = self._cycle_full
         k = max(1, self.ecfg.cycles_per_dispatch)
         transport = "gather"
-        pair = self.wire_pair_bytes(state.x_m.shape[-1])  # (S, S) per cycle
+        pair = self.wire_pair_bytes(self._base(state).x_m.shape[-1])
         shard_bytes = pair.sum(axis=1)  # per src shard
         total_bytes = int(pair.sum())
         cut_edges = int(self._cuts.sum()) // 2
@@ -517,10 +788,11 @@ class ShardedLSS:
         while done < cycles:
             step = min(k, cycles - done)
             with self.tracker.span("engine.dispatch", k=step,
-                                   suite=self.suite.name, mode="sync",
+                                   suite=self.suite.name,
+                                   mode="async" if is_async else "sync",
                                    transport=transport) as sp:
                 for _ in range(step):
-                    state = self._cycle_full(state, self._tables)
+                    state = cycle(state, self._tables)
                 sp.set("fused", self.dispatch_info["fused"])
                 sp.set("wire", self._wire.name)
                 sp.set("halo_bytes", total_bytes * step)
@@ -528,6 +800,23 @@ class ShardedLSS:
                 if publish:
                     self._publish_halo(step, transport, shard_bytes, pair)
             done += step
+        if is_async and publish:
+            # Cumulative totals live in the state, so a fresh tracker
+            # still sees them.
+            lag = self.async_lag_stats(state)
+            self.tracker.gauge(
+                "engine_async_staleness_mean",
+                "mean realized halo delay (cycles) of applied cross-shard "
+                "messages, cumulative").set(lag["mean_delay"])
+            self.tracker.gauge(
+                "engine_async_stale_drops_total",
+                "cross-shard deliveries dropped by the per-message seq "
+                "guard (reordered/superseded), cumulative").set(
+                    lag["stale_drops"])
+            self.tracker.gauge(
+                "engine_async_applied_total",
+                "cross-shard messages applied, cumulative").set(
+                    lag["applied"])
         return state
 
     def _publish_halo(self, step, transport, shard_bytes, pair) -> None:
@@ -553,16 +842,26 @@ class ShardedLSS:
                     pad_g.set(1.0 - self._pair_counts[s, tdst] / wire_w,
                               src=str(s), dst=str(tdst))
 
-    def drain_msgs(self, state: ShardedState):
-        """Read-and-reset the device send counter: (state', exact int)."""
-        total = int(torch.sum(state.msgs))
-        return state._replace(msgs=torch.zeros_like(state.msgs)), total
+    @staticmethod
+    def _base(state) -> ShardedState:
+        """The sync :class:`ShardedState` under either state kind."""
+        return state.sync if isinstance(state, AsyncShardedState) else state
 
-    def total_msgs(self, state: ShardedState) -> torch.Tensor:
-        return torch.sum(state.msgs)
+    def drain_msgs(self, state):
+        """Read-and-reset the device send counter: (state', exact int)."""
+        base = self._base(state)
+        total = int(torch.sum(base.msgs))
+        base = base._replace(msgs=torch.zeros_like(base.msgs))
+        if isinstance(state, AsyncShardedState):
+            return state._replace(sync=base), total
+        return base, total
+
+    def total_msgs(self, state) -> torch.Tensor:
+        return torch.sum(self._base(state).msgs)
 
     # -- observers ---------------------------------------------------------
-    def _flat_state(self, state: ShardedState) -> lss.LSSState:
+    def _flat_state(self, state) -> lss.LSSState:
+        state = self._base(state)
         fl = lambda a: a.reshape(self.S * self.B, *a.shape[2:])  # noqa: E731
         return lss.LSSState(
             out_m=fl(state.out_m), out_c=fl(state.out_c),
@@ -572,13 +871,15 @@ class ShardedLSS:
             alive=fl(state.alive), t=state.t, msgs=torch.sum(state.msgs),
             rng=state.rng[0])
 
-    def metrics(self, state: ShardedState, eps: float = OBSERVE_EPS):
+    def metrics(self, state, eps: float = OBSERVE_EPS):
         """(accuracy, quiescent, correct-mask in original order) — the same
         numbers :func:`repro_torch.core.lss.metrics` reports.
 
         :func:`repro_torch.core.lss.metrics_impl` on the flat ``S*B``-row
         view: with the fused suite one ``lss_state`` launch and one global
-        decision launch (padding rows are dead).
+        decision launch (padding rows are dead).  For an async state the
+        quiescence bit also requires :meth:`async_in_flight` to be False: a
+        message still deliverable by a bounded-stale read could wake a peer.
         """
         flat = self._flat_state(state)
         if self.suite.fused and self.region_slot is not None:
@@ -588,11 +889,15 @@ class ShardedLSS:
         else:
             acc, quiescent, correct, _ = lss.metrics_impl(
                 flat, self._flat_topo, self.decide, eps)
+        if isinstance(state, AsyncShardedState):
+            quiescent = quiescent & ~self.async_in_flight(state)
         return acc, quiescent, correct[self._pos]
 
-    def to_lss_state(self, state: ShardedState) -> lss.LSSState:
+    def to_lss_state(self, state) -> lss.LSSState:
         """Unpermute into a core :class:`LSSState` (parity tests, debug);
-        ``rng`` is shard 0's generator."""
+        ``rng`` is shard 0's generator.  Accepts either state kind (the
+        async books and the error feedback are dropped)."""
+        state = self._base(state)
         take = lambda a: a.reshape(  # noqa: E731
             self.S * self.B, *a.shape[2:])[self._pos]
         return lss.LSSState(
@@ -640,6 +945,7 @@ class ShardedLSS:
                               device=g.device).tolist()
         msgs = torch.zeros((S,), dtype=lss.counter_dtype(), device=dev)
         msgs[0] = torch.as_tensor(snap.msgs, device=dev)
+        stateful = self._wire.stateful  # its debt restarts at zero
         return ShardedState(
             out_m=place(snap.out_m, (D, d), 0.0, dt, True),
             out_c=place(snap.out_c, (D,), 0.0, dt, True),
@@ -654,6 +960,10 @@ class ShardedLSS:
             t=torch.as_tensor(snap.t, dtype=torch.int32, device=dev).clone(),
             msgs=msgs,
             rng=tuple(lss._generator(dev, s) for s in seeds),
+            wire_err_m=(torch.zeros((S, B, D, d), dtype=torch.float32,
+                                    device=dev) if stateful else None),
+            wire_err_c=(torch.zeros((S, B, D), dtype=torch.float32,
+                                    device=dev) if stateful else None),
         )
 
     def migrate_from(self, old: "ShardedLSS",
@@ -663,7 +973,9 @@ class ShardedLSS:
         Gather across :func:`repro_torch.engine.partition.migrate_rows`,
         then :meth:`place_lss_state`'s scatter.  With an equal shard count
         the per-shard drop generators carry over verbatim (copied), so a
-        regrow / rebalance epoch does not touch the drop sequence.
+        regrow / rebalance epoch does not touch the drop sequence.  Under
+        a stateful wire the quantization debt rides along row for row: a
+        peer's unshipped error must survive the epoch.
         """
         src, _ = partition.migrate_rows(old.part, self.part)
         src = torch.as_tensor(src, device=old.device)
@@ -679,6 +991,14 @@ class ShardedLSS:
             alive=move(state.alive), t=state.t,
             msgs=torch.sum(state.msgs), rng=state.rng[0])
         placed = self.place_lss_state(snap)
+        if self._wire.stateful and state.wire_err_m is not None:
+            # Into the fresh zero buffers place_lss_state made.
+            pos = self._pos[:snap.alive.shape[0]]
+            D1 = state.wire_err_c.shape[-1]
+            for new, a in ((placed.wire_err_m, state.wire_err_m),
+                           (placed.wire_err_c, state.wire_err_c)):
+                new.reshape(self.S * self.B, *new.shape[2:])[pos, :D1] = \
+                    move(a).to(new.device)
         if old.S == self.S:
             placed = placed._replace(
                 rng=tuple(_copy_generator(g) for g in state.rng))

@@ -1,6 +1,6 @@
 """Halo exchange of boundary out-messages between shards (port of
-``repro/engine/exchange.py``: the single-device gather fallback and the two
-lossless wire formats).
+``repro/engine/exchange.py``: the single-device gather fallback, the
+bounded-staleness ring of the async mode and the four wire formats).
 
 The sender gathers its boundary slots into a dense ``(S, S, H)`` buffer
 (src-major: ``buf[s, t, h]`` = h-th message from shard ``s`` to shard
@@ -10,13 +10,20 @@ receiver scatters ``buf[t, s, h]`` into its in-slots via the dst-major
 pending, dead endpoint, dropped in flight, or table padding) are
 discarded.  JAX discards them with an out-of-bounds ``mode="drop"``
 scatter; torch has no such mode, so they are written to one extra dummy
-row appended to the flattened in-slots and sliced off.  A real in-slot
-has a unique source out-slot, so at most one message targets it per
-cycle: only the dummy row sees duplicate indices, and no write races.
+row appended to the flattened target and sliced off (:func:`_scatter_flat`).
+A real in-slot has a unique source out-slot, so at most one message
+targets it per cycle: only the dummy row sees duplicate indices, and no
+write races.  The error-feedback and sequence scatters do the same.
 
 :func:`transpose_all_to_all` is the single-device transport: the whole
 buffer lives on one device and the "exchange" is a transpose.  The
 collective transport over several devices is ROADMAP A.5.
+
+Async mode publishes each cycle's send buffers into a ring of
+``R = staleness + 1`` slots per sender (:func:`ring_publish`) and each
+receiver reads every sender at a bounded-stale slot of its choosing
+(:func:`ring_read`); :func:`scatter_seq` records the sequence numbers the
+receiver applied, which Alg. 1's guard compares against.
 
 Wire formats
 ------------
@@ -24,23 +31,32 @@ Wire formats
 What crosses the transport is pluggable (:func:`get_wire`,
 ``EngineConfig(wire=...)``): the gathered ``(buf_m, buf_c, flag)`` triple is
 ``encode``-d into a payload tuple, each payload tensor is transposed, and
-the receiver ``decode``-s it back before the scatter.
+the receiver ``decode``-s it back before the scatter.  ``encode`` also
+takes and returns the sender's error-feedback buffers (in halo
+coordinates; :func:`gather_err` / :func:`scatter_err` move them to and from
+the per-out-slot state), which only the stateful wires update.
 
 ===========  ==============================================================
 ``exact``    the triple itself — f32 values, bool flags.  The default.
 ``compact``  lossless: the ``delivered`` flags bit-pack 8-to-a-byte
              (:func:`pack_bits`) and the engine trims the halo tables to
              the occupied width.  Message values are bitwise unchanged.
+``int8``     per-link symmetric int8 quantization of the value buffers
+             with error feedback in per-out-slot state
+             (:func:`repro_torch.distributed.compression.quantize_halo`);
+             round-trip error at most ``scale / 2`` per component.
+``bf16``     like ``int8`` but a bfloat16 cast (no scales): relative
+             error at most ``2^-8`` per component, same error feedback.
 ===========  ==============================================================
 
-``int8`` and ``bf16`` (quantized, with error feedback) are ROADMAP A.4b and
-raise ``NotImplementedError``.  ``pair_bytes`` is each format's host-side
-traffic model: modeled wire bytes per cycle for every ordered shard pair.
+``pair_bytes`` is each format's host-side traffic model: modeled wire
+bytes per cycle for every ordered shard pair.
 
-On one device the transport is a transpose in device memory, so ``compact``
-saves no bytes there: its pack and unpack are extra launches, and what it
-changes is the trimmed tables and the modeled ``pair_bytes``.  Its saving
-is real only once a transport moves the payload between devices (A.5).
+On one device the transport is a transpose in device memory, so the
+compact and quantized wires save no bytes there: their encode and decode
+are extra launches, and what they change is the trimmed tables and the
+modeled ``pair_bytes``.  The saving is real only once a transport moves
+the payload between devices (A.5).
 """
 
 from __future__ import annotations
@@ -48,19 +64,60 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..distributed.compression import dequantize_halo, quantize_halo
 from .partition import HaloTables
 
 __all__ = [
     "gather_halo",
+    "gather_rows",
     "scatter_halo",
     "transpose_all_to_all",
     "gather_block",
     "scatter_block",
+    "ring_publish",
+    "ring_read",
+    "scatter_seq",
     "pack_bits",
     "unpack_bits",
+    "gather_err",
+    "scatter_err",
+    "scatter_err_block",
     "get_wire",
     "WIRE_FORMATS",
 ]
+
+
+def _scatter_flat(flat, idx, vals):
+    """``flat[idx] = vals`` on a copy with one dummy row appended; ``idx``
+    sends discarded entries to that row, which is dropped.  ``flat`` is
+    ``(N,)`` or ``(N, d)``; ``vals`` holds ``idx.numel()`` rows."""
+    new = torch.cat([flat, flat.new_zeros((1, *flat.shape[1:]))])
+    new[idx] = vals.reshape(idx.shape[0], *flat.shape[1:])
+    return new[:-1]
+
+
+def _scatter_pair(a_m, a_c, idx, val_m, val_c):
+    """:func:`_scatter_flat` of a ``(..., D, d)`` / ``(..., D)`` pair
+    through their flattened slots."""
+    n = a_c.numel()
+    new_m = _scatter_flat(a_m.reshape(n, -1), idx, val_m)
+    new_c = _scatter_flat(a_c.reshape(n), idx, val_c)
+    return new_m.reshape(a_m.shape), new_c.reshape(a_c.shape)
+
+
+def _block_index(flag, row, slot, B, D):
+    """Flat ``(B*D)`` target index of one shard's ``(S, H)`` table entries;
+    entries with ``flag`` False go to the dummy row ``B*D``."""
+    return torch.where(flag, row.to(torch.int64) * D + slot,
+                       B * D).reshape(-1)
+
+
+def _full_index(flag, row, slot, S, B, D):
+    """:func:`_block_index` of every shard's ``(S, S, H)`` tables into the
+    flat ``(S*B*D)`` layout; the dummy row is ``S*B*D``."""
+    shard = torch.arange(S, device=row.device)[:, None, None]
+    return torch.where(flag, (shard * B + row) * D + slot,
+                       S * B * D).reshape(-1)
 
 
 # -- per-shard (block-local) halves ----------------------------------------
@@ -76,54 +133,139 @@ def gather_block(out_m, out_c, delivered, send_row, send_slot, send_ok):
     return buf_m, buf_c, flag
 
 
-def _scatter_rows(flat_m, flat_c, idx, buf_m, buf_c):
-    """``flat_*[idx] = buf_*`` on copies with one dummy row appended;
-    ``idx`` sends discarded entries to that row, which is dropped."""
-    d = flat_m.shape[-1]
-    new_m = torch.cat([flat_m, flat_m.new_zeros((1, d))])
-    new_c = torch.cat([flat_c, flat_c.new_zeros((1,))])
-    new_m[idx] = buf_m.reshape(-1, d)
-    new_c[idx] = buf_c.reshape(-1)
-    return new_m[:-1], new_c[:-1]
-
-
 def scatter_block(in_m, in_c, buf_m, buf_c, flag, recv_row, recv_slot):
     """Received (S, H) buffers -> in-slots of ONE shard (B, D, ...)."""
     B, D = in_c.shape
-    idx = torch.where(flag, recv_row.to(torch.int64) * D + recv_slot,
-                      B * D).reshape(-1)
-    new_m, new_c = _scatter_rows(in_m.reshape(B * D, -1),
-                                 in_c.reshape(B * D), idx, buf_m, buf_c)
-    return new_m.reshape(in_m.shape), new_c.reshape(in_c.shape)
+    return _scatter_pair(in_m, in_c,
+                         _block_index(flag, recv_row, recv_slot, B, D),
+                         buf_m, buf_c)
 
 
 # -- full-array wrappers: every shard at once ------------------------------
 
+def gather_rows(row, slot, *arrays):
+    """``a[s, row[s], slot[s]]`` of every shard for each of ``arrays``:
+    ``(S, B, D, ...)`` -> ``(S, S, H, ...)`` through ``(S, S, H)`` tables
+    (one shard index for all of them)."""
+    shard = torch.arange(row.shape[0], device=row.device)[:, None, None]
+    return tuple(a[shard, row, slot] for a in arrays)
+
+
 def gather_halo(out_m, out_c, delivered, halo: HaloTables):
     """:func:`gather_block` of every shard, by advanced indexing over the
     leading shard axis: ``(S, B, D, ...)`` -> src-major ``(S, S, H, ...)``."""
-    shard = torch.arange(out_c.shape[0], device=out_c.device)[:, None, None]
-    buf_m = out_m[shard, halo.send_row, halo.send_slot]
-    buf_c = out_c[shard, halo.send_row, halo.send_slot]
-    flag = delivered[shard, halo.send_row, halo.send_slot] & halo.send_ok
-    return buf_m, buf_c, flag
+    buf_m, buf_c, sent = gather_rows(halo.send_row, halo.send_slot, out_m,
+                                     out_c, delivered)
+    return buf_m, buf_c, sent & halo.send_ok
 
 
 def scatter_halo(in_m, in_c, buf_m, buf_c, flag, halo: HaloTables):
     """:func:`scatter_block` of every shard; buffers must already be
     dst-major ``(S_dst, S_src, H, ...)``.  Returns new tensors."""
     S, B, D = in_c.shape
-    shard = torch.arange(S, device=in_c.device)[:, None, None]
-    idx = torch.where(flag, (shard * B + halo.recv_row) * D + halo.recv_slot,
-                      S * B * D).reshape(-1)
-    new_m, new_c = _scatter_rows(in_m.reshape(S * B * D, -1),
-                                 in_c.reshape(S * B * D), idx, buf_m, buf_c)
-    return new_m.reshape(in_m.shape), new_c.reshape(in_c.shape)
+    return _scatter_pair(in_m, in_c,
+                         _full_index(flag, halo.recv_row, halo.recv_slot,
+                                     S, B, D),
+                         buf_m, buf_c)
 
 
 def transpose_all_to_all(buf):
     """Single-device transport: (src, dst, ...) -> (dst, src, ...)."""
     return buf.transpose(0, 1)
+
+
+# -- bounded-staleness ring (async engine mode) ----------------------------
+#
+# Every shard publishes its send buffers into a ring of R = staleness + 1
+# slots keyed by its own clock, and each receiver reads every sender's
+# ring at a bounded-stale clock of its choosing.  A slot written at sender
+# time c is overwritten at time c + R, so any read with delay <= staleness
+# lands on an intact publication; skipped publications age out, and the
+# sequence guard (scatter_seq + the seq-vs-last test) drops reordered ones.
+
+def ring_publish(ring_m, ring_c, ring_flag, ring_seq, slot,
+                 buf_m, buf_c, flag, seq):
+    """Write each shard's (S, H) send buffers into its own ring slot.
+
+    ``ring_*``: ``(R, S_src, S_dst, H[, d])``; ``slot``: (S,) per-shard
+    write index (``clock % R``).  The whole row is overwritten, flags of
+    the aged-out publication included.
+
+    Unlike the rest of the engine this writes IN PLACE into the rings it
+    is given (only the written slot moves) and returns them: the engine
+    hands it rings it owns (:meth:`~repro_torch.engine.ShardedLSS.run`
+    copies the caller's once per call).
+    """
+    src = torch.arange(slot.shape[0], device=slot.device)
+    slot = slot.to(torch.int64)
+    for ring, buf in ((ring_m, buf_m), (ring_c, buf_c),
+                      (ring_flag, flag), (ring_seq, seq)):
+        ring[slot, src] = buf
+    return ring_m, ring_c, ring_flag, ring_seq
+
+
+def ring_read(ring_m, ring_c, ring_flag, ring_seq, slot):
+    """Read, for every (dst, src) pair, src's publication at
+    ``slot[dst, src]`` — the receiver-chosen, bounded-stale sender time.
+
+    Returns dst-major ``(S_dst, S_src, H[, d])`` buffers, the layout
+    :func:`scatter_halo` consumes (at delay 0 this is exactly
+    :func:`transpose_all_to_all` of the just-published buffers).
+    """
+    S = slot.shape[0]
+    ar = torch.arange(S, device=slot.device)
+    dst, src = torch.meshgrid(ar, ar, indexing="ij")
+    slot = slot.to(torch.int64)
+    return (ring_m[slot, src, dst], ring_c[slot, src, dst],
+            ring_flag[slot, src, dst], ring_seq[slot, src, dst])
+
+
+def scatter_seq(last_seq, seq, flag, recv_row, recv_slot):
+    """Record applied sequence numbers per in-slot, every shard at once.
+
+    ``last_seq (S, B, D)`` holds the newest seq applied into each in-slot;
+    accepted messages (``flag``, dst-major ``(S, S, H)``) write their seq.
+    Each in-slot has a unique source out-slot, so at most one message
+    targets it per cycle.  Returns a new tensor.
+    """
+    S, B, D = last_seq.shape
+    idx = _full_index(flag, recv_row, recv_slot, S, B, D)
+    return _scatter_flat(last_seq.reshape(-1), idx, seq).reshape(S, B, D)
+
+
+# -- error feedback in out-slot coordinates --------------------------------
+
+def gather_err(err_m, err_c, halo: HaloTables):
+    """Per-out-slot error-feedback buffers -> src-major halo coordinates.
+
+    ``err_m (S, B, D, d)`` / ``err_c (S, B, D)`` live in out-slot
+    coordinates (independent of the halo width); each halo table entry
+    reads its sending out-slot's running error, as :func:`gather_halo`
+    reads ``out_m``.
+    """
+    return gather_rows(halo.send_row, halo.send_slot, err_m, err_c)
+
+
+def scatter_err_block(err_m, err_c, new_m, new_c, send_row, send_slot,
+                      send_ok):
+    """Write ONE shard's updated error feedback back to out-slot coords.
+
+    Entries beyond the real table (``~send_ok``) go to the dummy row; an
+    out-slot appears in at most one table entry, so writes never race.
+    """
+    B, D = err_c.shape
+    return _scatter_pair(err_m, err_c,
+                         _block_index(send_ok, send_row, send_slot, B, D),
+                         new_m, new_c)
+
+
+def scatter_err(err_m, err_c, new_m, new_c, halo: HaloTables):
+    """:func:`scatter_err_block` of every shard (src-major tables)."""
+    S, B, D = err_c.shape
+    return _scatter_pair(err_m, err_c,
+                         _full_index(halo.send_ok, halo.send_row,
+                                     halo.send_slot, S, B, D),
+                         new_m, new_c)
 
 
 # -- wire formats ----------------------------------------------------------
@@ -159,7 +301,10 @@ class _ExactWire:
     whole (padding and ``halo_slack`` headroom as real bytes)."""
 
     name = "exact"
+    lossy = False  # message values survive the wire bitwise
+    stateful = False  # no error-feedback state
     trims = False  # tables stay at the full padded halo width
+    quant_eps = 0.0  # per-component relative round-trip error bound
 
     #: serialized bytes per message slot for d-vector payloads:
     #: f32 moment vector + f32 weight + 1-byte flag.
@@ -167,8 +312,8 @@ class _ExactWire:
     def _slot_bytes(d: int) -> int:
         return 4 * d + 4 + 1
 
-    def encode(self, buf_m, buf_c, flag):
-        return buf_m, buf_c, flag
+    def encode(self, buf_m, buf_c, flag, err_m=None, err_c=None):
+        return (buf_m, buf_c, flag), err_m, err_c
 
     def decode(self, payload):
         return payload
@@ -179,7 +324,7 @@ class _ExactWire:
 
         The dense row ships whole for every off-diagonal pair — occupancy
         (``counts``) does not matter, which is exactly the waste the
-        compact format removes.
+        other formats remove.
         """
         S = counts.shape[0]
         out = np.full((S, S), width * self._slot_bytes(d), np.int64)
@@ -195,8 +340,8 @@ class _CompactWire(_ExactWire):
     name = "compact"
     trims = True
 
-    def encode(self, buf_m, buf_c, flag):
-        return buf_m, buf_c, pack_bits(flag)
+    def encode(self, buf_m, buf_c, flag, err_m=None, err_c=None):
+        return (buf_m, buf_c, pack_bits(flag)), err_m, err_c
 
     def decode(self, payload):
         buf_m, buf_c, packed = payload
@@ -211,22 +356,82 @@ class _CompactWire(_ExactWire):
         return out
 
 
-WIRE_FORMATS = {w.name: w for w in (_ExactWire(), _CompactWire())}
+class _Int8Wire(_CompactWire):
+    """Per-link symmetric int8 quantization with error feedback.
 
-# The quantized wires with their error-feedback state: not ported yet.
-_UNPORTED_WIRES = ("int8", "bf16")
+    Each (src, dst) link quantizes its value buffers against its own scale
+    (``max|x + err| / 127``); the per-component round-trip error is at
+    most ``scale / 2`` and is carried forward in the sender's error
+    feedback, so it perturbs mass and never loses it.  ``quant_eps`` is
+    the relative form of that bound.
+    """
+
+    name = "int8"
+    lossy = True
+    stateful = True
+    quant_eps = 1.0 / 254.0  # scale/2 with scale = max|x + err| / 127
+
+    def encode(self, buf_m, buf_c, flag, err_m=None, err_c=None):
+        pack, new_err_m, new_err_c = quantize_halo(buf_m, buf_c, flag,
+                                                   err_m, err_c)
+        return (*pack, pack_bits(flag)), new_err_m, new_err_c
+
+    def decode(self, payload):
+        q_m, q_c, scale_m, scale_c, packed = payload
+        buf_m, buf_c = dequantize_halo(q_m, q_c, scale_m, scale_c)
+        return buf_m, buf_c, unpack_bits(packed, q_c.shape[-1])
+
+    def pair_bytes(self, counts, width, d):
+        """int8 payloads + two f32 per-link scales + packed flags."""
+        c = counts.astype(np.int64)
+        out = np.where(c > 0, c * (d + 1) + 8 + (c + 7) // 8 + 4, 0)
+        np.fill_diagonal(out, 0)
+        return out
+
+
+class _Bf16Wire(_CompactWire):
+    """bfloat16 cast with error feedback: 2x value bytes, no scales;
+    relative per-component error at most ``2^-8`` (8-bit significand,
+    round to nearest even)."""
+
+    name = "bf16"
+    lossy = True
+    stateful = True
+    quant_eps = 2.0 ** -8
+
+    def encode(self, buf_m, buf_c, flag, err_m=None, err_c=None):
+        f32 = torch.float32
+        xm = buf_m.to(f32) if err_m is None else buf_m.to(f32) + err_m
+        xc = buf_c.to(f32) if err_c is None else buf_c.to(f32) + err_c
+        bm, bc = xm.to(torch.bfloat16), xc.to(torch.bfloat16)
+        new_err_m = torch.where(flag[..., None], xm - bm.to(f32),
+                                0.0 if err_m is None else err_m)
+        new_err_c = torch.where(flag, xc - bc.to(f32),
+                                0.0 if err_c is None else err_c)
+        return (bm, bc, pack_bits(flag)), new_err_m, new_err_c
+
+    def decode(self, payload):
+        bm, bc, packed = payload
+        return (bm.to(torch.float32), bc.to(torch.float32),
+                unpack_bits(packed, bc.shape[-1]))
+
+    def pair_bytes(self, counts, width, d):
+        c = counts.astype(np.int64)
+        out = np.where(c > 0, c * (2 * d + 2) + (c + 7) // 8 + 4, 0)
+        np.fill_diagonal(out, 0)
+        return out
+
+
+WIRE_FORMATS = {w.name: w for w in
+                (_ExactWire(), _CompactWire(), _Int8Wire(), _Bf16Wire())}
 
 
 def get_wire(name: str):
     """Resolve a wire-format name (``EngineConfig.wire``) to its
     singleton wire object."""
-    if name in _UNPORTED_WIRES:
-        raise NotImplementedError(
-            f"wire={name!r} (quantized halo with error feedback) is not "
-            "ported yet (ROADMAP A.4b); use 'exact' or 'compact'")
     try:
         return WIRE_FORMATS[name]
     except KeyError:
         raise ValueError(
-            f"unknown wire format {name!r}; expected one of "
-            f"{sorted(WIRE_FORMATS) + list(_UNPORTED_WIRES)}") from None
+            f"unknown wire format {name!r}; "
+            f"expected one of {sorted(WIRE_FORMATS)}") from None

@@ -614,3 +614,51 @@ def test_engine_opaque_decide_on_the_card_needs_the_plain_suite(dev):
     assert eng.suite.name == "reference" and not eng.use_kernels
     st = eng.run(eng.init(inputs), 8)
     assert int(eng.total_msgs(st)) > 0
+
+
+@pytest.mark.parametrize("kw", [dict(async_mode=True, staleness=2),
+                                dict(wire="int8")], ids=["async2", "int8"])
+@pytest.mark.parametrize("make", [lambda: topology.grid(4096),
+                                  lambda: topology.barabasi_albert(
+                                      4096, m=2, seed=1)],
+                         ids=["grid", "ba"])
+def test_async_and_int8_engines_fused_match_reference(dev, make, kw):
+    """The bounded-staleness (staleness 2) and int8 engines through the
+    kernels equal the same engines through the reference formulas on
+    every field (books, ring and error feedback included) and the
+    metrics, dispatch by dispatch: the delay draws come from the same
+    seeded generators in both."""
+    from repro_torch import convert
+    from repro_torch.engine import EngineConfig, ShardedLSS
+
+    topo = make()
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    runs = {}
+    for use_kernels in (None, False):
+        kernels.reset_counts()
+        eng = ShardedLSS(topo, centers, lss.LSSConfig(),
+                         EngineConfig(num_shards=4, cycles_per_dispatch=5,
+                                      use_kernels=use_kernels, **kw),
+                         device=dev)
+        st = eng.init(inputs, seed=0)
+        runs[use_kernels] = []
+        for _ in range(6):
+            st = eng.run(st, 5)
+            runs[use_kernels].append((convert.state_to_numpy(st),
+                                      eng.metrics(st)))
+        counts = kernels.counts()
+        keys = ("lss_state", "correction", "region_decide")
+        if use_kernels is None:
+            assert eng.suite.name == "fused"
+            assert min(counts[k] for k in keys) > 0
+            assert not any(counts[f"{k}_ref"] for k in keys)
+        else:
+            assert not any(counts[k] for k in keys)
+    for i, ((f_st, f_m), (p_st, p_m)) in enumerate(zip(runs[None],
+                                                       runs[False])):
+        f_st, p_st = ({**f.pop("sync", {}), **f} for f in (f_st, p_st))
+        assert f_st.keys() == p_st.keys()
+        for name, a in f_st.items():
+            assert np.array_equal(a, p_st[name]), f"dispatch {i}: {name}"
+        for a, b in zip(f_m, p_m):
+            assert torch.equal(a, b), f"dispatch {i}"

@@ -484,16 +484,14 @@ def test_dynamic_hooks_use_original_ids():
     assert float(un.out_c[3, 1]) == 0.0 and not bool(un.pending[20, 0])
 
 
-@pytest.mark.parametrize("what", [
-    "use_mesh", "async_mode", "init_async", "wrap_async", "audit",
-    "profile", "auto_plan", "int8", "bf16"])
+@pytest.mark.parametrize("what", ["use_mesh", "audit", "profile",
+                                  "auto_plan"])
 def test_unported_options_raise(what):
     topo = t_top.grid(16)
     item = {"use_mesh": "A.5", "audit": "A.7", "profile": "A.7",
-            "auto_plan": "A.8"}.get(what, "A.4b")
-    ecfg = {"async_mode": dict(async_mode=True), "profile": dict(profile=True),
-            "auto_plan": dict(auto_plan=True), "int8": dict(wire="int8"),
-            "bf16": dict(wire="bf16")}.get(what)
+            "auto_plan": "A.8"}[what]
+    ecfg = {"profile": dict(profile=True),
+            "auto_plan": dict(auto_plan=True)}.get(what)
     centers = torch.zeros((3, 2))
     with pytest.raises(NotImplementedError, match=item):
         if ecfg is not None:
@@ -503,12 +501,8 @@ def test_unported_options_raise(what):
             eng = ShardedLSS(topo, centers, device="cpu")
             if what == "use_mesh":
                 eng.use_mesh(None, "shards")
-            elif what == "audit":
-                eng.audit(None)
-            elif what == "init_async":
-                eng.init_async(None)
             else:
-                eng.wrap_async(None)
+                eng.audit(None)
     with pytest.raises(ValueError, match="unknown wire"):
         t_ex.get_wire("fp4")
 

@@ -109,16 +109,16 @@ def test_default_device_is_cuda_or_raises():
 
 
 def test_engine_unported_options_raise():
-    """The engine route runs, and what of the engine is not ported yet
-    raises naming its ROADMAP item."""
+    """The engine route runs (async and quantized too), and what of the
+    engine is not ported yet raises naming its ROADMAP item."""
     from repro_torch.engine import EngineConfig
 
     topo, spec = t_top.grid(16), t_sim.ProblemSpec(n=16)
-    res = t_sim.run_static(topo, spec, engine=2, device="cpu")
-    assert res["engine_shards"] == 2 and res["quiescent"]
-    for ecfg, item in ((EngineConfig(async_mode=True), "A.4b"),
-                       (EngineConfig(wire="int8"), "A.4b"),
-                       (EngineConfig(profile=True), "A.7"),
+    for ecfg in (2, EngineConfig(async_mode=True, staleness=1),
+                 EngineConfig(wire="int8"), EngineConfig(wire="bf16")):
+        res = t_sim.run_static(topo, spec, engine=ecfg, device="cpu")
+        assert res["engine_shards"] == 2 and res["quiescent"]
+    for ecfg, item in ((EngineConfig(profile=True), "A.7"),
                        (EngineConfig(auto_plan=True), "A.8")):
         with pytest.raises(NotImplementedError, match=item):
             t_sim.run_static(topo, spec, engine=ecfg, device="cpu")
