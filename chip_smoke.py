@@ -91,12 +91,29 @@ Phases, in order; any failure exits nonzero:
    (e) the three kernels are held bitwise to their plain versions on the
    async-2 and int8 engines' own state.  The async-2 and int8 loops are
    timed and profiled as phase 8's, and printed beside the exact sync
-   engine's numbers from this run.
+   engine's numbers from this run;
+10. the service under membership churn
+   (``benchmarks/membership_churn.py::_bench_serve`` at the paper's size):
+   a ``DynTopology`` with a fifth of its rows spare and ``deg_cap`` = max
+   degree + 2 over grid (80,089 peers, n_cap 96,106) and Chord (80,000,
+   n_cap 96,000), 16 Voronoi tenants, K = 8, one untimed and 12 timed
+   dispatches at 0, 8 and 128 seeded join+link / leave / rewire events a
+   dispatch, counters zeroed before each run and read after it; prints
+   µs per cycle (median, min, max), the ``membership_drain`` span's ms a
+   dispatch, the events queued and applied, launches a dispatch, peak
+   memory, and one more dispatch under ``torch.profiler`` (device events
+   a dispatch, idle share), then the table refresh alone.  A grid service
+   whose joins hit ``n_cap`` mid-serve (an auto-regrow epoch) must give,
+   dispatch by dispatch, the records of a service provisioned large
+   (msgs and quiescent exact, accuracy within 1e-7), and at grid 4,096
+   the fused-suite and reference-suite services must give identical
+   records under churn through a regrow of the rows and of the degree
+   slots.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
-``run_static``, service, engine, sweep, async-engine and
-quantized-engine runs, each path's in ``launches_by_path``;
+``run_static``, service, engine, sweep, async-engine, quantized-engine and
+churned-service runs, each path's in ``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -901,6 +918,17 @@ def _serve(topo, specs, dev, use_kernels=None, dispatches=SERVICE_DISPATCHES,
     return svc, records, walls, updates
 
 
+def _check_records(label, records, q):
+    """Every tick gave ``q`` records of plausible values."""
+    for recs in records:
+        if len(recs) != q:
+            raise AssertionError(f"{label}: {len(recs)} records")
+        for r in recs:
+            if (not 0.0 <= r["accuracy"] <= 1.0 or r["msgs"] < 0
+                    or r["region"] not in (0, 1, 2)):
+                raise AssertionError(f"{label}: implausible record {r}")
+
+
 def phase_service(topos, dev):
     """The service at the paper's peer count: 64 heterogeneous tenants,
     K = 16, 4 dispatches with the update stream, on grid and Chord; the
@@ -929,13 +957,7 @@ def phase_service(topos, dev):
                 raise AssertionError(f"{name}: the service launched no "
                                      f"{key}")
             totals[key] += counts[key]
-        for recs in records:
-            if len(recs) != Q_SERVICE:
-                raise AssertionError(f"{name}: {len(recs)} records")
-            for r in recs:
-                if (not 0.0 <= r["accuracy"] <= 1.0 or r["msgs"] < 0
-                        or r["region"] not in (0, 1, 2)):
-                    raise AssertionError(f"{name}: implausible record {r}")
+        _check_records(name, records, Q_SERVICE)
         steady = walls[1:]
         med = float(np.median(steady))
         vor = [r["accuracy"] for r in records[-1] if r["slot"] % 2 == 0]
@@ -1583,6 +1605,325 @@ def phase_async_quantized(topos, dev, sync_results, sync_timings):
     return totals
 
 
+# --- phase 10: the service under membership churn ------------------------
+
+
+CHURN_Q = 16  # benchmarks/membership_churn.py::_bench_serve at full size
+CHURN_K = 8
+CHURN_DISPATCHES = 12  # timed, after one untimed dispatch
+CHURN_RATES = (0, 8, 128)  # membership events queued a dispatch
+CHURN_SPARE = 0.2  # _bench_serve's spare rows
+REGROW_SPARE = 150  # rows past the grid, so joins hit the wall mid-serve
+
+
+class _EventGen:
+    """``benchmarks/membership_churn.py::_EventGen`` on the port's service:
+    seeded join+link / leave / rewire events, with books of the present
+    peers and edges kept incrementally (no topology scan per event).  It
+    reads the service's current topology, which a regrow epoch replaces.
+    ``ops`` is the mix it draws from: 0 join+link, 1 leave, 2 unlink
+    (the benchmark's three), 3 link two present peers."""
+
+    def __init__(self, svc, seed, ops=(0, 1, 2)):
+        dyn = svc.topo
+        self.rng = np.random.default_rng(seed)
+        self.ops = ops
+        self.present = [int(p) for p in np.flatnonzero(dyn.present)]
+        self.pos = {p: i for i, p in enumerate(self.present)}
+        ii, kk = np.nonzero(dyn.mask)
+        jj = dyn.nbr[ii, kk]
+        keep = ii < jj
+        self.edges = list(zip(ii[keep].tolist(), jj[keep].tolist()))
+        self.eidx = {e: i for i, e in enumerate(self.edges)}
+
+    def _drop_present(self, p):
+        i = self.pos.pop(p)
+        last = self.present.pop()
+        if last != p:
+            self.present[i] = last
+            self.pos[last] = i
+
+    def _drop_edge(self, key):
+        i = self.eidx.pop(key)
+        last = self.edges.pop()
+        if last != key:
+            self.edges[i] = last
+            self.eidx[last] = i
+
+    def _add_edge(self, i, j):
+        key = (min(i, j), max(i, j))
+        if key not in self.eidx:
+            self.eidx[key] = len(self.edges)
+            self.edges.append(key)
+
+    def _pick(self):
+        return self.present[self.rng.integers(len(self.present))]
+
+    def emit(self, svc) -> bool:
+        """Queue one event through the service; True when it was taken."""
+        op = self.ops[self.rng.integers(len(self.ops))]
+        try:
+            if op == 0:
+                p = int(svc.join_peer())
+                partner = self._pick()
+                svc.link_peers(p, partner)
+                self.present.append(p)
+                self.pos[p] = len(self.present) - 1
+                self._add_edge(p, partner)
+            elif op == 1:
+                p = self._pick()
+                dyn = svc.topo
+                nbrs = [int(j) for j in dyn.nbr[p][dyn.mask[p]]]
+                svc.leave_peer(p)
+                self._drop_present(p)
+                for j in nbrs:
+                    key = (min(p, j), max(p, j))
+                    if key in self.eidx:
+                        self._drop_edge(key)
+            elif op == 2:
+                if not self.edges:
+                    return False
+                key = self.edges[self.rng.integers(len(self.edges))]
+                svc.unlink_peers(*key)
+                self._drop_edge(key)
+            else:
+                i, j = self._pick(), self._pick()
+                svc.link_peers(i, j)
+                self._add_edge(i, j)
+        except (ValueError, RuntimeError):
+            return False
+        return True
+
+
+def _churn_specs(n_rows, n_pad, q):
+    """``_bench_serve``'s Q Voronoi tenants (the Sec.-VI problem, tenant i
+    seeded i) over ``n_rows`` peers, padded with zero-weight rows up to
+    ``n_pad`` (what a service provisioned large holds for the same
+    tenants)."""
+    centers, sample, _, _ = sim.make_problem(sim.ProblemSpec(n=n_rows,
+                                                             seed=0))
+    rng = np.random.default_rng(1)
+    specs = []
+    for i in range(q):
+        x = np.zeros((n_pad, 2), np.float32)
+        x[:n_rows] = sample(rng, n_rows)
+        w = np.zeros((n_pad,), np.float32)
+        w[:n_rows] = 1.0
+        specs.append(service.QuerySpec(
+            region=regions.VoronoiRegions(centers),
+            inputs=x, weights=w, seed=i))
+    return specs
+
+
+def _churn_service(base, n_cap, specs, dev, use_kernels=None,
+                   auto_regrow=False):
+    dyn = topology.DynTopology.from_topology(base, n_cap=n_cap,
+                                             deg_cap=base.max_deg + 2)
+    svc = service.Service(dyn, service.ServiceConfig(
+        capacity=len(specs), k_max=3, d=2, cycles_per_dispatch=CHURN_K,
+        use_kernels=use_kernels,
+        control=service.ControlPlaneConfig(auto_regrow=auto_regrow)),
+        device=dev)
+    for spec in specs:
+        svc.admit(spec)
+    return svc
+
+
+def _churn_run(svc, rate, dispatches, seed=2, ops=(0, 1, 2), timed=False,
+               hook=None):
+    """One untimed dispatch, then ``dispatches`` ticks with ``rate``
+    events queued before each (``hook(svc, i)`` runs before the events of
+    dispatch i).  Returns (records per tick, wall s per tick, events the
+    generator queued)."""
+    svc.tick()
+    gen = _EventGen(svc, seed, ops)
+    records, walls, queued = [], [], 0
+    for i in range(dispatches):
+        if hook is not None:
+            hook(svc, i)
+        for _ in range(rate):
+            queued += gen.emit(svc)
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records.append(svc.tick())
+        if timed:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return records, walls, queued, gen
+
+
+def _spans(svc, name):
+    return [r["seconds"] for r in svc.tracker.records
+            if r.get("kind") == "span" and r["name"] == name]
+
+
+def phase_churn(topos, dev, gpu):
+    """The service on a ``DynTopology`` at the paper's size under 0, 8 and
+    128 membership events a dispatch (``_bench_serve``'s workload), the
+    launch counters zeroed just before each run and read just after; the
+    regrow run against a service provisioned large; the fused suite
+    against the reference suite on the same churn at 4,096 peers.
+    Returns the launch totals of the churn runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    totals = {key: 0 for key in KERNELS}
+    for name in SERVICE_TOPOS:
+        base = topos[name]
+        n_cap = base.n + max(4, int(base.n * CHURN_SPARE))
+        specs = _churn_specs(n_cap, n_cap, CHURN_Q)
+        for rate in CHURN_RATES:
+            label = f"{name} rate={rate}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counts()
+            svc = _churn_service(base, n_cap, specs, dev)
+            records, walls, queued, gen = _churn_run(
+                svc, rate, CHURN_DISPATCHES, timed=True)
+            for _ in range(rate):
+                gen.emit(svc)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                svc.tick()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if any(counts[f"{k}_ref"] for k in totals):
+                raise AssertionError(f"{label}: a plain version ran")
+            for key in totals:
+                if counts[key] <= 0:
+                    raise AssertionError(f"{label}: launched no {key}")
+                totals[key] += counts[key]
+            _check_records(label, records, CHURN_Q)
+            us = [w / CHURN_K * 1e6 for w in walls]
+            drain = _spans(svc, "membership_drain")[-CHURN_DISPATCHES - 1:-1]
+            applied = [c.get("boundary", {}).get("membership_events", 0)
+                       for c in svc.telemetry.controls()]
+            if rate and not (svc.topo_version > 0 and sum(applied) > 0):
+                raise AssertionError(f"{label}: no membership event applied")
+            ticks = CHURN_DISPATCHES + 2
+            print(f"[churn] {label} n_cap={n_cap} D={svc.topo.max_deg} "
+                  f"Q={CHURN_Q} K={CHURN_K}: us_per_cycle median "
+                  f"{np.median(us):.1f} (min {min(us):.1f} max "
+                  f"{max(us):.1f}) over {len(us)} dispatches; "
+                  f"membership_drain ms per dispatch median "
+                  f"{np.median(drain) * 1e3:.3f} (max "
+                  f"{max(drain) * 1e3:.3f}); events queued "
+                  f"{queued / CHURN_DISPATCHES:.2f} and topology events "
+                  f"applied {sum(applied) / (CHURN_DISPATCHES + 1):.2f} a "
+                  f"dispatch (version {svc.topo_version}, "
+                  f"{svc.topo.num_present} present); launches per dispatch "
+                  f"{ {k: counts[k] / ticks for k in totals} }; peak "
+                  f"memory {peak:.3f} GiB; last dispatch accuracy min "
+                  f"{min(r['accuracy'] for r in records[-1]):.4f}; {gpu}",
+                  flush=True)
+            stats = _print_profile(f"churn {label}", prof, wall * 1e3,
+                                   float(np.median(walls)) * 1e3, 1,
+                                   "dispatch")
+            if stats is not None:
+                print(f"[churn] {label}: device events per dispatch "
+                      f"{stats['events']:.1f}, idle share "
+                      f"{stats['idle']:.3f}", flush=True)
+            del svc, prof
+            torch.cuda.empty_cache()
+        _time_refresh(name, base, n_cap, dev)
+    _check_churn_regrow(topos["grid"], dev)
+    _check_churn_suites(dev)
+    return totals
+
+
+def _time_refresh(name, base, n_cap, dev, reps=5):
+    """The boundary's table refresh alone: the three topology tables
+    copied to the card anew (``refresh_topology``), synchronized, host
+    clock, median of ``reps``."""
+    dyn = topology.DynTopology.from_topology(base, n_cap=n_cap,
+                                             deg_cap=base.max_deg + 2)
+    mb = (dyn.nbr.nbytes + dyn.mask.nbytes + dyn.rev.nbytes) / 1e6
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lss.TopoArrays.from_topology(dyn, dev)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[churn] {name}: table refresh ({mb:.1f} MB of nbr, mask and "
+          f"rev to the card) median {np.median(ms):.3f} ms (min "
+          f"{min(ms):.3f} max {max(ms):.3f}) over {reps}", flush=True)
+
+
+def _check_churn_regrow(base, dev):
+    """tests/test_controlplane.py::test_auto_regrow_midserve_cycle_exact
+    at the card's size: joins past ``n_cap`` mid-serve (an auto-regrow
+    epoch) give, dispatch by dispatch, the records of a service
+    provisioned large from the start: msgs and quiescent exact, accuracy
+    within 1e-7."""
+    n1 = base.n + REGROW_SPARE
+    n2 = base.n + int(base.n * CHURN_SPARE)
+    runs = []
+    for n_cap in (n1, n2):
+        svc = _churn_service(base, n_cap, _churn_specs(n1, n_cap, CHURN_Q),
+                             dev, auto_regrow=True)
+        records = _churn_run(svc, 64, 6, ops=(0,))[0]
+        runs.append((records, svc.topo.n_cap,
+                     [e["kind"] for e in svc.capman.epochs]))
+        del svc
+    (small, cap1, epochs1), (large, cap2, epochs2) = runs
+    if "regrow" not in epochs1 or cap1 <= n1 or cap2 != n2:
+        raise AssertionError(f"regrow run: epochs {epochs1} / {epochs2}, "
+                             f"n_cap {cap1} / {cap2}")
+    for i, (ra, rb) in enumerate(zip(small, large)):
+        for a, b in zip(ra, rb):
+            if (a["msgs"], a["quiescent"]) != (b["msgs"], b["quiescent"]) \
+                    or abs(a["accuracy"] - b["accuracy"]) > 1e-7:
+                raise AssertionError(f"regrow run dispatch {i}: {a} != {b}")
+    print(f"[churn-regrow] grid n={base.n}: n_cap {n1} grew to {cap1} "
+          f"mid-serve (64 joins a dispatch; epochs {epochs1}, the large "
+          f"service's {epochs2}); its records equal those of a "
+          f"service provisioned at {n2} over {len(small)} dispatches "
+          f"({sum(len(r) for r in small)} records; msgs and quiescent "
+          f"exact, accuracy within 1e-7)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def _check_churn_suites(dev):
+    """The fused suite against the reference suite at phase 7's size
+    (grid 4,096, Q = 8), on the same seeded churn of all four event kinds,
+    through an auto-regrow of the rows and a ``grow_capacity`` of the
+    degree slots: identical records."""
+    side = int(round(N_SMALL ** 0.5))
+    base = topology.grid(side * side)
+    n_cap = base.n + 8
+    specs = _churn_specs(n_cap, n_cap, 8)
+
+    def grow(svc, i):
+        if i == 3:
+            svc.grow_capacity(deg_cap=svc.topo.deg_cap + 4)
+
+    runs = []
+    for use_kernels in (True, False):
+        svc = _churn_service(base, n_cap, specs, dev, use_kernels,
+                             auto_regrow=True)
+        records = _churn_run(svc, 16, 6, ops=(0, 0, 1, 2, 3), hook=grow)[0]
+        runs.append((records, [e["kind"] for e in svc.capman.epochs],
+                     svc.topo.n_cap, svc.topo.deg_cap))
+    (fused, epochs, cap, deg), plain = runs
+    if "regrow" not in epochs[1:] or len(epochs) < 3:
+        raise AssertionError(f"suite parity: epochs {epochs}")
+    if runs[0] != plain:
+        diff = [(i, a, b) for i, (ra, rb) in enumerate(zip(fused, plain[0]))
+                for a, b in zip(ra, rb) if a != b]
+        raise AssertionError(f"churn: fused != reference: {diff[:4]}")
+    print(f"[churn-parity] grid n={base.n} Q=8: fused-suite and "
+          f"reference-suite services gave identical records over "
+          f"{len(fused)} churned dispatches ({sum(len(r) for r in fused)} "
+          f"records; epochs {epochs}, n_cap {n_cap} -> {cap}, deg_cap "
+          f"{base.max_deg + 2} -> {deg})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1632,6 +1973,7 @@ def main() -> int:
     sweep_totals = phase("phase 8 sweep", phase_sweep, dev, topos["chord"])
     aq_totals = phase("phase 9", phase_async_quantized, topos, dev,
                       eng_results, eng_timings)
+    churn_totals = phase("phase 10", phase_churn, topos, dev, gpu)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -1692,13 +2034,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (totals[name] + svc_totals[name] + eng_totals[name]
                          + sweep_totals[name]
-                         + sum(t[name] for t in aq_totals.values())),
+                         + sum(t[name] for t in aq_totals.values())
+                         + churn_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
                                  "sweep": sweep_totals[name],
                                  **{path: t[name]
-                                    for path, t in aq_totals.items()}},
+                                    for path, t in aq_totals.items()},
+                                 "service_churn": churn_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Port of ``repro/service/service.py``: the core backend in synchronous
 mode.  Execution model::
 
     admit (or queue) / retire --+                +--> telemetry (JSONL)
-    stream updates -------------+--> [boundary] -+
+    membership joins/leaves ----+--> [boundary] -+
+    stream updates -------------+
                                          |   ^
                                          v   |
                         one dispatch: a host loop of K cycles, each one
@@ -21,16 +22,28 @@ decisions and violations) and one Q-batched ``region_decide`` launch over
 the Q global averages; its numbers reach the host in one transfer.
 
 The service owns its stacked state and edits slots in place between
-dispatches (admit, retire, preempt, resume, ingest); snapshots are copies.
+dispatches (admit, retire, preempt, resume, ingest, membership);
+snapshots are copies.
+
+Built on a :class:`~repro_torch.core.topology.DynTopology`, the service
+applies queued membership events
+(:class:`~repro_torch.service.membership.MembershipQueue`) at dispatch
+boundaries: the topology tables are copied to the device anew (same
+shapes within capacity), the message slots that a link or unlink touched
+are scrubbed in every tenant, and joining peers start from the paper's
+knowledge-init state while in-flight tenants keep converging.  A regrow
+epoch (:meth:`Service.grow_capacity`, or ``control.auto_regrow`` at a
+capacity wall) pads every slot's state to the grown capacity.
 
 The control plane (:mod:`repro_torch.service.controlplane`) runs as in
 the JAX package: per-tenant SLOs folded into every record, the
 admission/preemption scheduler (preempted queries are snapshotted and
-resume bitwise where they stopped), SLO-driven queue eviction.
+resume bitwise where they stopped, reconciled when membership moved
+while they held no slot), SLO-driven queue eviction, the regrow epoch.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: ``backend="engine"``, ``overlap=True`` and a ``DynTopology``
-with its membership events and regrow/rebalance epochs (A.6),
+item: ``backend="engine"`` (with its rebalance epochs) and
+``overlap=True`` (A.6), on a static topology or a ``DynTopology``;
 ``profile_dispatch``/``profiler_dir``, ``alerts`` and ``audit_every > 0``
 (A.7).
 """
@@ -55,6 +68,7 @@ from .controlplane import (ActiveView, CapacityManager, ControlPlaneConfig,
                            SLOEvictionPolicy, SLOTracker, WaitingView,
                            make_scheduler)
 from .ingest import StreamIngest, UpdateBatch
+from .membership import MembershipQueue
 from .overlap import DoubleBuffer, PendingWindow
 from .registry import QueryRegistry
 from .telemetry import TelemetrySink
@@ -113,18 +127,15 @@ class ServiceConfig(NamedTuple):
     audit_every: int = 0
 
 
-def _unported(scfg: ServiceConfig, topo) -> Optional[str]:
-    """What of ``scfg``/``topo`` the port cannot serve yet, with its
-    ROADMAP item, or None."""
+def _unported(scfg: ServiceConfig) -> Optional[str]:
+    """What of ``scfg`` the port cannot serve yet, with its ROADMAP item,
+    or None (a static topology and a ``DynTopology`` alike)."""
     if scfg.backend == "engine":
         return "backend='engine' (the service's engine backend, ROADMAP A.6)"
     if scfg.backend != "core":
         raise ValueError(f"unknown backend {scfg.backend!r}")
     if scfg.overlap:
         return "overlap=True (the overlapped host boundary, ROADMAP A.6)"
-    if isinstance(topo, topology.DynTopology):
-        return ("a DynTopology (membership events and regrow/rebalance "
-                "epochs, ROADMAP A.6)")
     if scfg.profile_dispatch or scfg.profiler_dir is not None:
         return "profile_dispatch/profiler_dir (ROADMAP A.7)"
     if scfg.alerts:
@@ -135,11 +146,13 @@ def _unported(scfg: ServiceConfig, topo) -> Optional[str]:
 
 
 class _Preempted(NamedTuple):
-    """A suspended tenant: its spec, its state snapshot, and the
-    bookkeeping the scheduler ages it by."""
+    """A suspended tenant: its spec, its state snapshot, the topology
+    version it was suspended at, and the bookkeeping the scheduler ages
+    it by."""
 
     spec: qmod.QuerySpec
     state: lss.LSSState
+    topo_version: int  # applied topology version at suspension
     enqueued_dispatch: int  # when it re-entered the waiting pool
 
 
@@ -147,6 +160,39 @@ def _copy_generator(g: torch.Generator) -> torch.Generator:
     out = torch.Generator(device=g.device)
     out.set_state(g.get_state())
     return out
+
+
+def _grow_core_states(states: lss.LSSState, n2: int,
+                      D2: int) -> lss.LSSState:
+    """Pad core-layout states (leading slot axis or none) to a grown
+    capacity.
+
+    New rows and slots start at init values (dead, empty, cold timer),
+    which is what a fresh init over the grown topology gives them; the
+    counters and each slot's generator carry over.
+    """
+    n1 = states.alive.shape[-1]
+    D1 = states.out_c.shape[-1]
+    if (n1, D1) == (n2, D2):
+        return states
+    lead = tuple(states.alive.shape[:-1])
+    d = states.x_m.shape[-1]
+
+    def pad(a, tail, fill):
+        out = a.new_full(lead + tail, fill)
+        out[tuple(slice(0, s) for s in a.shape)] = a
+        return out
+
+    return states._replace(
+        out_m=pad(states.out_m, (n2, D2, d), 0.0),
+        out_c=pad(states.out_c, (n2, D2), 0.0),
+        in_m=pad(states.in_m, (n2, D2, d), 0.0),
+        in_c=pad(states.in_c, (n2, D2), 0.0),
+        x_m=pad(states.x_m, (n2, d), 0.0),
+        x_c=pad(states.x_c, (n2,), 0.0),
+        pending=pad(states.pending, (n2, D2), False),
+        last_send=pad(states.last_send, (n2,), lss.COLD_TIMER),
+        alive=pad(states.alive, (n2,), False))
 
 
 class _CoreBackend:
@@ -165,16 +211,24 @@ class _CoreBackend:
     def topo_args(self):
         return self.ta
 
-    def init_states(self, q: int, d: int) -> lss.LSSState:
-        """Q padding slots: zero inputs, seed 0, every peer alive."""
+    def refresh_topology(self, dyn) -> bool:
+        """Copy the mutated topology's tables to the device (same shapes).
+        Returns True if a shape changed (never, on this backend)."""
+        self.ta = lss.TopoArrays.from_topology(dyn, self.device)
+        return False
+
+    def init_states(self, q: int, d: int, alive=None) -> lss.LSSState:
+        """Q padding slots: zero inputs, seed 0, the peers of ``alive``
+        (default: every peer) alive."""
         n = self.topo.n
         zeros = wvs.WV(
             torch.zeros((q, n, d), dtype=torch.float32, device=self.device),
             torch.zeros((q, n), dtype=torch.float32, device=self.device))
-        return lss.init_state(self.ta, zeros, seed=0)
+        return lss.init_state(self.ta, zeros, seed=0, alive=alive)
 
-    def init_slot(self, inputs: wvs.WV, seed: int) -> lss.LSSState:
-        return lss.init_state(self.ta, inputs, seed=seed)
+    def init_slot(self, inputs: wvs.WV, seed: int,
+                  alive=None) -> lss.LSSState:
+        return lss.init_state(self.ta, inputs, seed=seed, alive=alive)
 
     def tables(self, params: qmod.QueryParams) -> kernel_ops.SlotTables:
         """The Q packed families with their kernel tables, prepared once
@@ -202,6 +256,14 @@ class _CoreBackend:
             params.eps, suite=self.suite, regions=tables)
         return acc, quiescent, want
 
+    def capacity_slots(self) -> int:
+        """n * D message slots: the per-cycle send bound of one slot."""
+        return int(self.ta.nbr.shape[0] * self.ta.nbr.shape[1])
+
+    def msgs_device(self, states):
+        """Per-slot send counts, still on the device: (Q,)."""
+        return states.msgs
+
     def reset_msgs(self, states):
         return states._replace(msgs=torch.zeros_like(states.msgs))
 
@@ -210,6 +272,37 @@ class _CoreBackend:
 
     def with_x(self, states, x_m, x_c):
         return states._replace(x_m=x_m, x_c=x_c)
+
+    def _index(self, who) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(who), dtype=torch.long,
+                               device=self.device)
+
+    def apply_leaves(self, states, who):
+        """Mark rows ``who`` dead in every slot, in place."""
+        states.alive[:, self._index(who)] = False
+        return states
+
+    def apply_joins(self, states, who, m, c):
+        """Knowledge-init rows ``who`` in every slot, in place: alive,
+        local input ``<m, c>`` ((k, d) and (k,)), cold send timer."""
+        idx = self._index(who)
+        states.alive[:, idx] = True
+        states.x_m[:, idx] = torch.as_tensor(m, dtype=states.x_m.dtype,
+                                             device=self.device)
+        states.x_c[:, idx] = torch.as_tensor(c, dtype=states.x_c.dtype,
+                                             device=self.device)
+        states.last_send[:, idx] = lss.COLD_TIMER
+        return states
+
+    def clear_slots(self, states, rows, slots):
+        """Scrub the ``(row, slot)`` message slots of every tenant in
+        place: out/in moments to zero, nothing pending
+        (:func:`lss.clear_slots` is the pure form, for one state)."""
+        rows, slots = self._index(rows), self._index(slots)
+        for f in ("out_m", "out_c", "in_m", "in_c"):
+            getattr(states, f)[:, rows, slots] = 0.0
+        states.pending[:, rows, slots] = False
+        return states
 
     def snapshot(self, states, slot: int) -> lss.LSSState:
         """A copy of one slot's state (later edits leave it alone)."""
@@ -231,12 +324,25 @@ class _CoreBackend:
     def cut_frac(self) -> Optional[float]:
         return None  # one device, no partition to drift
 
+    def halo_bytes_per_cycle(self) -> int:
+        return 0  # one device, nothing crosses a shard boundary
+
+    def regrow(self, dyn, states):
+        """Adopt a grown topology and pad every slot's state to it."""
+        self.topo = dyn
+        self.ta = lss.TopoArrays.from_topology(dyn, self.device)
+        return _grow_core_states(states, dyn.n, dyn.max_deg)
+
 
 class Service:
     """Long-running multi-tenant monitor over one network graph.
 
     Args:
-      topo: the shared :class:`~repro_torch.core.topology.Topology`.
+      topo: the shared :class:`~repro_torch.core.topology.Topology`, or a
+        :class:`~repro_torch.core.topology.DynTopology` to serve a network
+        whose membership changes while queries are in flight
+        (:meth:`join_peer` / :meth:`leave_peer` / :meth:`link_peers` /
+        :meth:`unlink_peers`).
       scfg: :class:`ServiceConfig` (slot capacity, dispatch fusion, knobs).
       telemetry: optional :class:`TelemetrySink` (legacy spelling of
         ``tracker``; a sink IS a tracker).
@@ -264,7 +370,7 @@ class Service:
         if telemetry is not None and tracker is not None:
             raise ValueError(
                 "pass either telemetry= (legacy) or tracker=, not both")
-        missing = _unported(scfg, topo)
+        missing = _unported(scfg)
         if missing is not None:
             raise NotImplementedError(
                 f"the port's Service does not support {missing} yet")
@@ -312,7 +418,13 @@ class Service:
         self._enqueued_at: Dict[str, int] = {}  # qid -> dispatch queued
         self._activated_at: Dict[str, int] = {}  # qid -> dispatch activated
         self._ctrl_events: list = []  # boundary activity -> control record
-        self._applied_version = 0  # a static topology never changes
+        self._dyn = topo if isinstance(topo, topology.DynTopology) else None
+        self.membership = (MembershipQueue(self._dyn)
+                           if self._dyn is not None else None)
+        self._applied_version = (self._dyn.version
+                                 if self._dyn is not None else 0)
+        self._present = (self._dyn.present.copy()
+                         if self._dyn is not None else None)
         self.dispatches = 0
         self.cycles = 0
         self._edges = max(topo.num_edges, 1)
@@ -325,13 +437,15 @@ class Service:
         self._total_msgs = {}  # query_id -> host-side exact total
         self._retired: dict = {}  # insertion-ordered set
 
-        self.states = self.backend.init_states(scfg.capacity, scfg.d)
+        self.states = self.backend.init_states(scfg.capacity, scfg.d,
+                                               alive=self._present)
         self._buffers = DoubleBuffer()
         self.capman.note_epoch("init", self.backend.cut_frac())
 
     @property
     def topo_version(self) -> int:
-        """Version of the topology the tables reflect (0: static)."""
+        """Version of the topology the device tables reflect (0 for a
+        static topology)."""
         return self._applied_version
 
     @property
@@ -505,22 +619,28 @@ class Service:
             snap = self.backend.snapshot(self.states, slot)
             self.registry.retire(query_id)
             self._reset_slot(slot, None)
-        self._preempted[query_id] = _Preempted(spec, snap, self.dispatches)
+        self._preempted[query_id] = _Preempted(
+            spec, snap, self._applied_version, self.dispatches)
         self._ctrl_events.append(("preempted", query_id))
 
     def _resume(self, query_id: str) -> None:
         """Reactivate a preempted query in a free slot, restoring its
-        snapshot exactly (the topology is static, so the suspension was a
-        pause), then replay the updates parked while it held no slot."""
+        snapshot.  With an unchanged topology the restore is exact (the
+        suspension was a pause); if membership moved on, the snapshot is
+        padded and reconciled first (:meth:`_reconcile_snapshot`).  Then
+        replay the updates parked while it held no slot."""
         e = self._preempted.pop(query_id)
         self.registry.admit(e.spec, query_id)
         slot = self.registry.slot_of(query_id)
         tid = self._trace_ids.get(query_id)
+        moved = e.topo_version != self._applied_version
         with self._obs.span("resume", trace=(tid,) if tid else (),
                             query=query_id, slot=slot,
-                            reconciled=False) as sp:
-            self.states = self.backend.restore_slot(self.states, slot,
-                                                    e.state)
+                            reconciled=moved) as sp:
+            snap = self._pad_snapshot(e.state)
+            if moved:
+                snap = self._reconcile_snapshot(snap)
+            self.states = self.backend.restore_slot(self.states, slot, snap)
             parked = self.ingest.take_parked(query_id)
             if parked:
                 x_m, x_c, pos = self.backend.x_moments(self.states)
@@ -532,6 +652,33 @@ class Service:
                 sp.set("replayed_batches", len(parked))
         self._activated_at[query_id] = self.dispatches
         self._ctrl_events.append(("resumed", query_id))
+
+    def _pad_snapshot(self, snap: lss.LSSState) -> lss.LSSState:
+        """Pad a snapshot taken before a regrow epoch to the current
+        capacity (the one init-value recipe of :func:`_grow_core_states`)."""
+        return _grow_core_states(snap, self.topo.n, self.topo.max_deg)
+
+    def _reconcile_snapshot(self, snap: lss.LSSState) -> lss.LSSState:
+        """Catch a suspended query up with membership that changed while
+        it held no slot.  Its link agreements are stale (edges may have
+        been rewired through reused slots), so the messaging state is
+        scrubbed wholesale and knowledge restarts from the current local
+        statistics: Alg. 1 re-converges from ``S_i = X_ii``.  The alive
+        mask snaps to the current present set; peers that joined during
+        the suspension get the no-value knowledge-init (zero vector,
+        weight 1), what :meth:`join_peer` gives an active slot."""
+        present = torch.tensor(self._present, device=snap.alive.device)
+        newly = present & ~snap.alive
+        return snap._replace(
+            out_m=torch.zeros_like(snap.out_m),
+            out_c=torch.zeros_like(snap.out_c),
+            in_m=torch.zeros_like(snap.in_m),
+            in_c=torch.zeros_like(snap.in_c),
+            pending=torch.zeros_like(snap.pending),
+            last_send=torch.full_like(snap.last_send, lss.COLD_TIMER),
+            alive=present,
+            x_m=torch.where(newly[:, None], 0.0, snap.x_m),
+            x_c=torch.where(newly, 1.0, snap.x_c))
 
     def retire(self, query_id: str) -> None:
         """Retire a query; its slot becomes a masked no-op padding slot
@@ -571,15 +718,179 @@ class Service:
         self._reset_slot(self.registry.slot_of(query_id), spec)
 
     def _reset_slot(self, slot: int, spec: Optional[qmod.QuerySpec]):
+        n = self.topo.n
         if spec is None:
-            n, d = self.topo.n, self.scfg.d
-            inputs = wvs.WV(torch.zeros((n, d), device=self.device),
+            inputs = wvs.WV(torch.zeros((n, self.scfg.d), device=self.device),
                             torch.zeros((n,), device=self.device))
             seed = 0
         else:
             inputs, seed = spec.input_wv(self.device), spec.seed
+            pad = n - inputs.m.shape[0]
+            if pad:
+                # A spec admitted before a regrow epoch: the rows beyond it
+                # start as zero-weight inputs (absent peers; a later join
+                # knowledge-inits them anyway).
+                inputs = wvs.WV(
+                    torch.cat([inputs.m, inputs.m.new_zeros(
+                        (pad, inputs.m.shape[-1]))]),
+                    torch.cat([inputs.c, inputs.c.new_zeros((pad,))]))
         self.states = self.backend.restore_slot(
-            self.states, slot, self.backend.init_slot(inputs, seed))
+            self.states, slot,
+            self.backend.init_slot(inputs, seed, alive=self._present))
+
+    # -- membership (between dispatches) -----------------------------------
+    def _require_dyn(self) -> MembershipQueue:
+        if self.membership is None:
+            raise RuntimeError(
+                "membership events need a DynTopology-backed service "
+                "(construct with topology.DynTopology.from_topology(...))")
+        return self.membership
+
+    def join_peer(self, peer: Optional[int] = None, value=None,
+                  weight: float = 1.0) -> int:
+        """Queue a peer join (applied at the next dispatch boundary).
+
+        The joining peer starts from the paper's knowledge-init state in
+        every query slot: local input ``<weight * value, weight>`` (zeros
+        if no value is given), empty message slots, send timer cold.
+        Returns the peer row the join will claim.
+        """
+        if value is not None:
+            value = np.asarray(value, np.float32).reshape(-1)
+            if value.shape[0] != self.scfg.d:
+                raise ValueError(f"join value has d={value.shape[0]}, "
+                                 f"service is configured for d={self.scfg.d}")
+        mq = self._require_dyn()
+        try:
+            return mq.join(peer, value, weight)
+        except topology.CapacityError:
+            if not self.capman.auto_regrow:
+                raise
+            caps = self.capman.grown_caps(self._dyn.n_cap,
+                                          self._dyn.deg_cap, "rows")
+            if peer is not None:  # grow at least far enough for the row
+                caps["n_cap"] = max(caps["n_cap"], int(peer) + 1)
+            self.grow_capacity(**caps)
+            return self.membership.join(peer, value, weight)
+
+    def leave_peer(self, peer: int) -> None:
+        """Queue a peer leave (churn: all its links fail with it)."""
+        self._require_dyn().leave(peer)
+
+    def link_peers(self, i: int, j: int) -> None:
+        """Queue an edge add between two present peers.  With
+        ``auto_regrow``, an endpoint at degree capacity grows ``deg_cap``
+        (one epoch) instead of raising."""
+        mq = self._require_dyn()
+        try:
+            mq.link(i, j)
+        except topology.CapacityError:
+            if not self.capman.auto_regrow:
+                raise
+            self.grow_capacity(**self.capman.grown_caps(
+                self._dyn.n_cap, self._dyn.deg_cap, "slots"))
+            self.membership.link(i, j)
+
+    def unlink_peers(self, i: int, j: int) -> None:
+        """Queue an edge removal (no-op if a leave already tore it down)."""
+        self._require_dyn().unlink(i, j)
+
+    # -- capacity epochs (between dispatches) ------------------------------
+    def grow_capacity(self, n_cap: Optional[int] = None,
+                      deg_cap: Optional[int] = None) -> None:
+        """Regrow epoch: larger membership capacity, in place.
+
+        Drives :meth:`DynTopology.grow`, copies the grown tables to the
+        device and pads every slot's state (new rows start dead at init
+        values); queued membership events and preempted snapshots
+        survive.  With ``control.auto_regrow`` this runs when
+        :meth:`join_peer` / :meth:`link_peers` hit the capacity wall.
+        """
+        dyn = self._dyn
+        if dyn is None:
+            raise RuntimeError(
+                "grow_capacity needs a DynTopology-backed service")
+        new_dyn = dyn.grow(n_cap=n_cap, deg_cap=deg_cap)
+        self.topo = self._dyn = new_dyn
+        self.membership.rebind(new_dyn)
+        with self._obs.span("epoch_regrow", trace=self._active_traces(),
+                            n_cap=new_dyn.n_cap, deg_cap=new_dyn.deg_cap,
+                            staged=False) as sp:
+            self.states = self.backend.regrow(new_dyn, self.states)
+        self._buffers.invalidate()  # the declared shape change
+        self._boundary_spans["epoch_regrow"] = sp.seconds
+        self._boundary_counts["epochs"] = (
+            self._boundary_counts.get("epochs", 0) + 1)
+        self._present = new_dyn.present.copy()
+        self._applied_version = new_dyn.version
+        self._edges = max(new_dyn.num_edges, 1)
+        ev = self.capman.note_epoch(
+            "regrow", self.backend.cut_frac(),
+            n_cap=new_dyn.n_cap, deg_cap=new_dyn.deg_cap, staged=False)
+        self._ctrl_events.append(("epoch", ev))
+
+    def rebalance_now(self) -> Optional[dict]:
+        """Explicit re-partition epoch of the engine backend: ``None`` on
+        the partitionless core backend, the one ported (the engine
+        backend is ROADMAP A.6)."""
+        return None
+
+    def drift(self) -> float:
+        """Current partition drift (cut-fraction increase since the last
+        epoch); 0.0 on the core backend."""
+        return self.capman.drift(self.backend.cut_frac())
+
+    def _apply_membership(self) -> int:
+        """Drain queued events into the DynTopology and catch every
+        execution surface up: the device tables, then the per-slot state
+        edits.  Returns the topology events applied."""
+        if self._dyn is None:
+            return 0
+        if (not self.membership.has_pending()
+                and self._dyn.version == self._applied_version):
+            return 0  # quiet tick: skip the drain machinery entirely
+        join_inits = self.membership.drain_into(self._dyn)
+        events = self._dyn.events_since(self._applied_version)
+        if not events:
+            return 0
+        self.backend.refresh_topology(self._dyn)
+
+        # 1. Scrub the messaging state of every touched (peer, slot),
+        #    freed and claimed alike (idempotent; order-free).
+        rows, slots = [], []
+        for ev in events:
+            if ev.kind in ("link", "unlink"):
+                rows += [ev.a, ev.b]
+                slots += [ev.slot_a, ev.slot_b]
+        if rows:
+            self.states = self.backend.clear_slots(self.states, rows, slots)
+
+        # 2. Alive transitions: the LAST join/leave per peer wins.
+        final = {}
+        for ev in events:
+            if ev.kind in ("join", "leave"):
+                final[ev.a] = ev.kind
+        joins = [p for p, k in final.items() if k == "join"]
+        leaves = [p for p, k in final.items() if k == "leave"]
+        if leaves:
+            self.states = self.backend.apply_leaves(self.states, leaves)
+        if joins:
+            # Knowledge-init: X_ii = <w*v, w>, empty slots, cold timer.
+            vals = np.zeros((len(joins), self.scfg.d), np.float32)
+            wts = np.ones((len(joins),), np.float32)
+            for idx, p in enumerate(joins):
+                v, w = join_inits.get(int(p), (None, 1.0))
+                if v is not None:
+                    vals[idx] = v
+                wts[idx] = w
+            self.states = self.backend.apply_joins(
+                self.states, joins, vals * wts[:, None], wts)
+
+        self._present = self._dyn.present.copy()
+        self._edges = max(self._dyn.num_edges, 1)
+        self._applied_version = self._dyn.version
+        self._dyn.compact(self._applied_version)
+        return len(events)
 
     # -- streaming ingest --------------------------------------------------
     def push_updates(self, who, values, weights=None, mode: str = "set",
@@ -611,15 +922,17 @@ class Service:
 
     # -- the serving loop --------------------------------------------------
     def tick(self, cycles: Optional[int] = None) -> list:
-        """One dispatch: drain the admission queue, apply queued updates,
-        run K batched cycles over all Q slots, observe, emit per-tenant
-        telemetry.  Returns this dispatch's records (active slots only).
+        """One dispatch: apply queued membership events, drain the
+        admission queue, apply queued updates, run K batched cycles over
+        all Q slots, observe, emit per-tenant telemetry.  Returns this
+        dispatch's records (active slots only).
 
         The boundary runs inside one ``tick`` root span with the
-        ``admission_drain`` / ``ingest_apply`` / ``dispatch`` /
-        ``observe`` spans under it.  An exception escaping the tick dumps
-        the flight recorder (when ``flight_dump_dir`` is set) before
-        propagating.
+        ``membership_drain`` / ``admission_drain`` / ``ingest_apply`` /
+        ``dispatch`` / ``observe`` spans under it (and ``epoch_regrow``
+        when a regrow epoch ran since the last tick).  An exception
+        escaping the tick dumps the flight recorder (when
+        ``flight_dump_dir`` is set) before propagating.
         """
         try:
             with self._obs.span("tick", dispatch=self.dispatches + 1):
@@ -632,9 +945,16 @@ class Service:
             raise
 
     def _host_boundary(self) -> None:
-        """Everything the host does between dispatches: SLO eviction,
-        admission, ingest."""
+        """Everything the host does between dispatches: membership drain,
+        SLO eviction, admission, ingest."""
         tr = self._obs
+        with tr.span("membership_drain") as sp:
+            n_events = self._apply_membership()
+            if n_events:
+                for key, v in self.membership.last_drain_stats.items():
+                    sp.set(key, v)
+        self._boundary_spans["membership_drain"] = sp.seconds
+        self._boundary_counts["membership_events"] = n_events
         self._evict_unrecoverable()
         with tr.span("admission_drain") as sp:
             n_act = self._drain_admission()
@@ -666,7 +986,7 @@ class Service:
         self._last_k = k
         acc, quiescent, want = self.backend.metrics(self.states, params,
                                                     tables)
-        msgs = self.states.msgs
+        msgs = self.backend.msgs_device(self.states)
         self.states = self.backend.reset_msgs(self.states)
         events, self._ctrl_events = self._ctrl_events, []
         spans, self._boundary_spans = self._boundary_spans, {}

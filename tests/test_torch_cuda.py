@@ -34,7 +34,8 @@ from repro_torch.kernels import get_suite
 from repro_torch.kernels import lss_state as k_state
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import region_decide as k_dec
-from repro_torch.service import QuerySpec, Service, ServiceConfig
+from repro_torch.service import (ControlPlaneConfig, QuerySpec, Service,
+                                  ServiceConfig)
 
 pytestmark = pytest.mark.cuda
 TIE = 1e-5
@@ -538,6 +539,67 @@ def test_service_on_card_matches_cpu(dev):
             assert counts["region_decide"] == 4  # one per observe
             assert counts["lss_state_ref"] == counts["correction_ref"] == 0
     assert runs[0] == runs[1]
+
+
+def _churn_records(device, use_kernels, specs, dispatches=8):
+    """A service on a DynTopology (grid 1,024, 8 spare rows, auto-regrow)
+    under six seeded events a dispatch (joins with a link, leaves, unlinks
+    of live edges, links) and a ``grow_capacity`` of the degree slots at
+    dispatch 4.  Returns (records, epochs, launch counts)."""
+    dyn = topology.DynTopology.from_topology(topology.grid(1024),
+                                             n_cap=1032, deg_cap=6)
+    cfg = ServiceConfig(capacity=4, k_max=3, d=2, cycles_per_dispatch=4,
+                        use_kernels=use_kernels,
+                        control=ControlPlaneConfig(auto_regrow=True))
+    with Service(dyn, cfg, device=device) as svc:
+        for spec in specs:
+            svc.admit(spec)
+        rng = np.random.default_rng(7)
+        kernels.reset_counts()
+        records = []
+        for i in range(dispatches):
+            if i == 4:
+                svc.grow_capacity(deg_cap=svc.topo.deg_cap + 3)
+            for _ in range(6):
+                op = rng.choice([0, 0, 0, 1, 2, 3])
+                topo = svc.topo
+                a, b = (int(p) for p in rng.choice(
+                    np.flatnonzero(topo.present), 2, replace=False))
+                try:
+                    if op == 0:
+                        p = svc.join_peer(value=rng.normal(size=2))
+                        svc.link_peers(p, a)
+                    elif op == 1:
+                        svc.leave_peer(a)
+                    elif op == 2:
+                        live = topo.nbr[a][topo.mask[a]]
+                        if live.size:
+                            svc.unlink_peers(a, int(live[0]))
+                    else:
+                        svc.link_peers(a, b)
+                except ValueError:
+                    pass
+            records.append(svc.tick())
+        return (records, [e["kind"] for e in svc.capman.epochs],
+                kernels.counts())
+
+
+def test_service_churn_fused_matches_reference(dev):
+    """Membership churn with a regrow of the rows and of the degree slots:
+    the kernels on the card give the reference suite's records on the
+    card, and the CPU's plain versions of the kernels give them too."""
+    centers, sample, _, _ = sim.make_problem(sim.ProblemSpec(n=1032, seed=0))
+    rng = np.random.default_rng(1)
+    specs = [QuerySpec(region=regions.VoronoiRegions(centers),
+                       inputs=sample(rng, 1032), seed=i) for i in range(4)]
+    fused, epochs, counts = _churn_records(dev, True, specs)
+    assert epochs.count("regrow") >= 2  # the rows' wall and the slots'
+    assert counts["lss_state"] > 0 and counts["correction"] > 0
+    assert counts["region_decide"] == len(fused)  # one per observe
+    assert counts["lss_state_ref"] == counts["correction_ref"] == 0
+    plain = _churn_records(dev, False, specs)
+    assert plain[0] == fused and plain[1] == epochs
+    assert _churn_records("cpu", True, specs)[0] == fused
 
 
 def _engine_runs(dev, topo, use_kernels, cycles=30):

@@ -319,9 +319,15 @@ def test_unported_parts_raise_and_cpu_needs_asking():
                      ({"audit_every": 1}, "A.7")):
         with pytest.raises(NotImplementedError, match=item):
             TService(topo, TConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TService(t_top.DynTopology.from_topology(topo), TConfig(),
-                 device="cpu")
+    # A DynTopology is served on the core backend in synchronous mode;
+    # with the overlapped boundary or the engine backend it still raises.
+    dyn = t_top.DynTopology.from_topology(topo, n_cap=20)
+    for kw in ({"backend": "engine"}, {"overlap": True}):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            TService(dyn, TConfig(**kw), device="cpu")
+    with TService(dyn, TConfig(), device="cpu") as svc:
+        assert svc.membership is not None and svc.topo_version == 0
+        assert svc.rebalance_now() is None and svc.drift() == 0.0
     with pytest.raises(ValueError, match="backend"):
         TService(topo, TConfig(backend="nope"), device="cpu")
     if not torch.cuda.is_available():
