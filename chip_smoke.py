@@ -102,7 +102,12 @@ Phases, in order; any failure exits nonzero:
    µs per cycle (median, min, max), the ``membership_drain`` span's ms a
    dispatch, the events queued and applied, launches a dispatch, peak
    memory, and one more dispatch under ``torch.profiler`` (device events
-   a dispatch, idle share), then the table refresh alone.  A grid service
+   a dispatch, idle share), then the table refresh alone.  After each
+   run the three kernels' wrappers are held bitwise to their plain
+   versions on that service's own (Q, n_cap, D) state (dead spare rows,
+   masks with holes), and timed beside their bounds after the 128-event
+   runs; the same hold runs on the regrow run's and the grown
+   suite-parity service's state.  A grid service
    whose joins hit ``n_cap`` mid-serve (an auto-regrow epoch) must give,
    dispatch by dispatch, the records of a service provisioned large
    (msgs and quiescent exact, accuracy within 1e-7), and at grid 4,096
@@ -1758,6 +1763,64 @@ def _spans(svc, name):
             if r.get("kind") == "span" and r["name"] == name]
 
 
+def _check_service_kernels(label, svc, timed=False):
+    """The three kernels' wrappers on the churned service's own stacked
+    (Q, n_cap, D) state (dead spare rows, masks with holes, D after any
+    regrow), bitwise against their plain versions: ``lss_state`` and
+    ``correction`` (V = every live slot) with the dispatch's slot tables
+    and per-slot eps and beta, the global decision as the observe calls
+    it.  With ``timed``, each wrapper and plain version is timed by CUDA
+    events beside its bound."""
+    params = svc.registry.params
+    tables = svc.backend.tables(params)
+    st, eps, beta = svc.states, params.eps, params.beta
+    live = lss._live_mask(svc.backend.ta, st.alive)
+    args = (st.x_m, st.x_c, st.out_m, st.out_c, st.in_m, st.in_c, live)
+    state = ops.lss_state(*args, tables, eps=eps)
+    s_m, s_c, _, _ = state
+    cargs = (s_m, s_c, st.out_m + st.in_m, st.out_c + st.in_c, st.in_m,
+             st.in_c, live)
+    gargs = (st.x_m, st.x_c, st.alive)
+    calls = {
+        "lss_state": (lambda: ops.lss_state(*args, tables, eps=eps),
+                      lambda: ref.lss_state_ref(*args, tables.regions, eps)),
+        "correction": (lambda: ops.correction(*cargs, beta=beta, eps=eps),
+                       lambda: ref.correction_ref(*cargs, beta, eps)),
+        "region_decide": (
+            lambda: ops.global_decision(*gargs, tables, eps),
+            lambda: ref.global_decision_ref(*gargs, tables.regions, eps))}
+    checks = [(k, state if k == "lss_state" else fused(), plain())
+              for k, (fused, plain) in calls.items()]
+    torch.cuda.synchronize()
+    for kname, got, want in checks:
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{label}: {kname} differs from its plain version on "
+                    f"the churned service's state in "
+                    f"{int((g != w).sum())} values")
+    q, n, D = live.shape
+    print(f"[churn-kernels] {label}: lss_state, correction and the global "
+          f"decision bitwise equal to their plain versions on the "
+          f"service's state Q={q} n_cap={n} D={D} ({int(st.alive.sum())} "
+          f"of {q * n} rows alive; V: all {int(live.sum())} live slots)",
+          flush=True)
+    if not timed:
+        return
+    k = tables.cn.shape[-1]
+    bounds = {"lss_state": _bound_ms(*_lss_state_cost(args, k)),
+              "correction": _bound_ms(*_correction_cost(cargs, live)),
+              "region_decide": _bound_ms(*_global_cost(q, n, s_m.shape[-1],
+                                                       k),
+                                         ops_per_s=F64_OPS_PER_S)}
+    for kname, (fused, plain) in calls.items():
+        ms = _time_ms(fused, 10)
+        print(f"[churn-kernels] {label} {kname}: {ms:.4f} ms a call by "
+              f"events (plain {_time_ms(plain, 3):.4f} ms; bound "
+              f"{bounds[kname][0]:.4f} ms by {bounds[kname][1]}; share "
+              f"{_fmt_share(bounds[kname], ms)})", flush=True)
+
+
 def phase_churn(topos, dev, gpu):
     """The service on a ``DynTopology`` at the paper's size under 0, 8 and
     128 membership events a dispatch (``_bench_serve``'s workload), the
@@ -1828,6 +1891,7 @@ def phase_churn(topos, dev, gpu):
                 print(f"[churn] {label}: device events per dispatch "
                       f"{stats['events']:.1f}, idle share "
                       f"{stats['idle']:.3f}", flush=True)
+            _check_service_kernels(label, svc, timed=rate == CHURN_RATES[-1])
             del svc, prof
             torch.cuda.empty_cache()
         _time_refresh(name, base, n_cap, dev)
@@ -1868,6 +1932,8 @@ def _check_churn_regrow(base, dev):
         svc = _churn_service(base, n_cap, _churn_specs(n1, n_cap, CHURN_Q),
                              dev, auto_regrow=True)
         records = _churn_run(svc, 64, 6, ops=(0,))[0]
+        _check_service_kernels(f"regrow run n_cap={n_cap}->"
+                               f"{svc.topo.n_cap}", svc)
         runs.append((records, svc.topo.n_cap,
                      [e["kind"] for e in svc.capman.epochs]))
         del svc
@@ -1908,6 +1974,8 @@ def _check_churn_suites(dev):
         svc = _churn_service(base, n_cap, specs, dev, use_kernels,
                              auto_regrow=True)
         records = _churn_run(svc, 16, 6, ops=(0, 0, 1, 2, 3), hook=grow)[0]
+        if use_kernels:
+            _check_service_kernels("suite parity, grown", svc)
         runs.append((records, [e["kind"] for e in svc.capman.epochs],
                      svc.topo.n_cap, svc.topo.deg_cap))
     (fused, epochs, cap, deg), plain = runs

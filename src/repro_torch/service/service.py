@@ -211,11 +211,9 @@ class _CoreBackend:
     def topo_args(self):
         return self.ta
 
-    def refresh_topology(self, dyn) -> bool:
-        """Copy the mutated topology's tables to the device (same shapes).
-        Returns True if a shape changed (never, on this backend)."""
+    def refresh_topology(self, dyn) -> None:
+        """Copy the mutated topology's tables to the device (same shapes)."""
         self.ta = lss.TopoArrays.from_topology(dyn, self.device)
-        return False
 
     def init_states(self, q: int, d: int, alive=None) -> lss.LSSState:
         """Q padding slots: zero inputs, seed 0, the peers of ``alive``
@@ -255,14 +253,6 @@ class _CoreBackend:
             states, self.ta, lambda v: self.suite.decide(v, tables),
             params.eps, suite=self.suite, regions=tables)
         return acc, quiescent, want
-
-    def capacity_slots(self) -> int:
-        """n * D message slots: the per-cycle send bound of one slot."""
-        return int(self.ta.nbr.shape[0] * self.ta.nbr.shape[1])
-
-    def msgs_device(self, states):
-        """Per-slot send counts, still on the device: (Q,)."""
-        return states.msgs
 
     def reset_msgs(self, states):
         return states._replace(msgs=torch.zeros_like(states.msgs))
@@ -323,9 +313,6 @@ class _CoreBackend:
 
     def cut_frac(self) -> Optional[float]:
         return None  # one device, no partition to drift
-
-    def halo_bytes_per_cycle(self) -> int:
-        return 0  # one device, nothing crosses a shard boundary
 
     def regrow(self, dyn, states):
         """Adopt a grown topology and pad every slot's state to it."""
@@ -986,7 +973,7 @@ class Service:
         self._last_k = k
         acc, quiescent, want = self.backend.metrics(self.states, params,
                                                     tables)
-        msgs = self.backend.msgs_device(self.states)
+        msgs = self.states.msgs
         self.states = self.backend.reset_msgs(self.states)
         events, self._ctrl_events = self._ctrl_events, []
         spans, self._boundary_spans = self._boundary_spans, {}

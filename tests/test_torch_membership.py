@@ -629,8 +629,8 @@ def test_regrow_pads_state_and_carries_generators():
         assert not st.x_c[:, 18:].any() and not st.in_c[:, :, 4:].any()
         assert all(torch.equal(g.get_state(), s)
                    for g, s in zip(st.rng, gens))
-        assert svc.backend.capacity_slots() == 22 * 6
+        assert svc.backend.ta.nbr.shape == svc.backend.ta.mask.shape \
+            == (22, 6)
         assert svc.backend.cut_frac() is None
-        assert svc.backend.halo_bytes_per_cycle() == 0
         (rec,) = svc.tick()
         assert rec["topo_version"] == svc.topo_version
