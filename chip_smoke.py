@@ -113,12 +113,31 @@ Phases, in order; any failure exits nonzero:
    (msgs and quiescent exact, accuracy within 1e-7), and at grid 4,096
    the fused-suite and reference-suite services must give identical
    records under churn through a regrow of the rows and of the degree
-   slots.
+   slots;
+11. the service on the sharded engine backend (``backend="engine"``,
+   ``engine_shards=8``, BFS, exact wire: ``benchmarks/engine_scaleup.py``'s
+   S), Q = 16 tenants stacked on the leading axis of the sharded state,
+   on phase 10's workload at 0 and 128 events a dispatch, counters zeroed
+   before each run and read after it: every record equal to phase 10's
+   core-backed run of the same seeds, dispatch by dispatch (msgs,
+   quiescent and region exact, accuracy within 1e-7), and each kernel's
+   launches equal to the core's (one launch a step for all 16 tenants);
+   the 128-event run takes a forced ``rebalance_now`` after its 6th timed
+   dispatch (cut fraction before and after, drift, the epoch's ms) and
+   its records still equal the core's; µs per cycle, ``membership_drain``
+   ms, launches a dispatch, peak memory and a profiled dispatch (device
+   events, idle share) printed beside phase 10's; the three kernels held
+   bitwise to their plain versions on the service's own flat (Q, S·B, D)
+   state after each run and timed beside their bounds after the
+   128-event runs; at grid 4,096 the fused-suite and reference-suite
+   engine-backed services must give identical records under churn
+   through a regrow of the rows and of the degree slots.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
-``run_static``, service, engine, sweep, async-engine, quantized-engine and
-churned-service runs, each path's in ``launches_by_path``;
+``run_static``, service, engine, sweep, async-engine, quantized-engine,
+churned-service and engine-backed-service runs, each path's in
+``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -1721,13 +1740,15 @@ def _churn_specs(n_rows, n_pad, q):
 
 
 def _churn_service(base, n_cap, specs, dev, use_kernels=None,
-                   auto_regrow=False):
+                   auto_regrow=False, **cfg):
+    """The churn workload's service (``cfg``: further ``ServiceConfig``
+    fields, the engine backend's in phase 11)."""
     dyn = topology.DynTopology.from_topology(base, n_cap=n_cap,
                                              deg_cap=base.max_deg + 2)
     svc = service.Service(dyn, service.ServiceConfig(
         capacity=len(specs), k_max=3, d=2, cycles_per_dispatch=CHURN_K,
         use_kernels=use_kernels,
-        control=service.ControlPlaneConfig(auto_regrow=auto_regrow)),
+        control=service.ControlPlaneConfig(auto_regrow=auto_regrow), **cfg),
         device=dev)
     for spec in specs:
         svc.admit(spec)
@@ -1774,7 +1795,11 @@ def _check_service_kernels(label, svc, timed=False):
     params = svc.registry.params
     tables = svc.backend.tables(params)
     st, eps, beta = svc.states, params.eps, params.beta
-    live = lss._live_mask(svc.backend.ta, st.alive)
+    rows, topo = "n_cap", getattr(svc.backend, "ta", None)
+    if topo is None:  # the engine backend: its flat (Q, S*B, D) rows
+        eng = svc.backend.eng
+        st, topo, rows = eng._flat_state(st), eng._flat_topo, "S*B"
+    live = lss._live_mask(topo, st.alive)
     args = (st.x_m, st.x_c, st.out_m, st.out_c, st.in_m, st.in_c, live)
     state = ops.lss_state(*args, tables, eps=eps)
     s_m, s_c, _, _ = state
@@ -1802,7 +1827,7 @@ def _check_service_kernels(label, svc, timed=False):
     q, n, D = live.shape
     print(f"[churn-kernels] {label}: lss_state, correction and the global "
           f"decision bitwise equal to their plain versions on the "
-          f"service's state Q={q} n_cap={n} D={D} ({int(st.alive.sum())} "
+          f"service's state Q={q} {rows}={n} D={D} ({int(st.alive.sum())} "
           f"of {q * n} rows alive; V: all {int(live.sum())} live slots)",
           flush=True)
     if not timed:
@@ -1827,10 +1852,12 @@ def phase_churn(topos, dev, gpu):
     launch counters zeroed just before each run and read just after; the
     regrow run against a service provisioned large; the fused suite
     against the reference suite on the same churn at 4,096 peers.
-    Returns the launch totals of the churn runs."""
+    Returns the launch totals of the churn runs and each run's records and
+    numbers by label (phase 11 holds the engine backend to them)."""
     from torch.profiler import ProfilerActivity, profile
 
     totals = {key: 0 for key in KERNELS}
+    runs = {}
     for name in SERVICE_TOPOS:
         base = topos[name]
         n_cap = base.n + max(4, int(base.n * CHURN_SPARE))
@@ -1892,12 +1919,16 @@ def phase_churn(topos, dev, gpu):
                       f"{stats['events']:.1f}, idle share "
                       f"{stats['idle']:.3f}", flush=True)
             _check_service_kernels(label, svc, timed=rate == CHURN_RATES[-1])
+            runs[label] = {"records": records, "us": float(np.median(us)),
+                           "drain_ms": float(np.median(drain)) * 1e3,
+                           "counts": {k: counts[k] for k in totals},
+                           "peak": peak, "stats": stats}
             del svc, prof
             torch.cuda.empty_cache()
         _time_refresh(name, base, n_cap, dev)
     _check_churn_regrow(topos["grid"], dev)
     _check_churn_suites(dev)
-    return totals
+    return totals, runs
 
 
 def _time_refresh(name, base, n_cap, dev, reps=5):
@@ -1955,11 +1986,12 @@ def _check_churn_regrow(base, dev):
     torch.cuda.empty_cache()
 
 
-def _check_churn_suites(dev):
+def _check_churn_suites(dev, tag="churn-parity", **cfg):
     """The fused suite against the reference suite at phase 7's size
     (grid 4,096, Q = 8), on the same seeded churn of all four event kinds,
     through an auto-regrow of the rows and a ``grow_capacity`` of the
-    degree slots: identical records."""
+    degree slots: identical records (``cfg``: further ``ServiceConfig``
+    fields, the engine backend's in phase 11)."""
     side = int(round(N_SMALL ** 0.5))
     base = topology.grid(side * side)
     n_cap = base.n + 8
@@ -1972,10 +2004,10 @@ def _check_churn_suites(dev):
     runs = []
     for use_kernels in (True, False):
         svc = _churn_service(base, n_cap, specs, dev, use_kernels,
-                             auto_regrow=True)
+                             auto_regrow=True, **cfg)
         records = _churn_run(svc, 16, 6, ops=(0, 0, 1, 2, 3), hook=grow)[0]
         if use_kernels:
-            _check_service_kernels("suite parity, grown", svc)
+            _check_service_kernels(f"{tag}: suite parity, grown", svc)
         runs.append((records, [e["kind"] for e in svc.capman.epochs],
                      svc.topo.n_cap, svc.topo.deg_cap))
     (fused, epochs, cap, deg), plain = runs
@@ -1985,11 +2017,148 @@ def _check_churn_suites(dev):
         diff = [(i, a, b) for i, (ra, rb) in enumerate(zip(fused, plain[0]))
                 for a, b in zip(ra, rb) if a != b]
         raise AssertionError(f"churn: fused != reference: {diff[:4]}")
-    print(f"[churn-parity] grid n={base.n} Q=8: fused-suite and "
+    print(f"[{tag}] grid n={base.n} Q=8: fused-suite and "
           f"reference-suite services gave identical records over "
           f"{len(fused)} churned dispatches ({sum(len(r) for r in fused)} "
           f"records; epochs {epochs}, n_cap {n_cap} -> {cap}, deg_cap "
           f"{base.max_deg + 2} -> {deg})", flush=True)
+
+
+# --- phase 11: the service on the sharded engine backend -----------------
+
+
+ENGINE_SERVICE = dict(backend="engine", engine_shards=ENGINE["num_shards"],
+                      engine_method="bfs", engine_wire="exact")
+ENGINE_RATES = (0, 128)  # phase 10's rates without and with heavy churn
+REBALANCE_AT = 6  # the forced rebalance follows the 6th timed dispatch
+
+
+def _same_records(label, got, want):
+    """Dispatch by dispatch, record by record: msgs, quiescent and region
+    exact, accuracy within 1e-7."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} dispatches != "
+                             f"{len(want)}")
+    for i, (ga, wa) in enumerate(zip(got, want)):
+        if len(ga) != len(wa):
+            raise AssertionError(f"{label} dispatch {i}: {len(ga)} records")
+        for a, b in zip(ga, wa):
+            if ((a["query"], a["msgs"], a["quiescent"], a["region"])
+                    != (b["query"], b["msgs"], b["quiescent"], b["region"])
+                    or abs(a["accuracy"] - b["accuracy"]) > 1e-7):
+                raise AssertionError(f"{label} dispatch {i}: {a} != {b}")
+    return sum(len(r) for r in got)
+
+
+def phase_service_engine(topos, dev, gpu, core_runs):
+    """Phase 10's churn workload on the engine backend (8 shards, BFS,
+    exact wire): the launch counters zeroed just before each run and read
+    just after, records held to phase 10's core-backed runs dispatch by
+    dispatch, one forced rebalance epoch in the 128-event run, one
+    profiled dispatch, the kernels held bitwise on the service's flat
+    state; then fused against reference at 4,096 under churn through a
+    regrow.  Returns the launch totals of the runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    totals = {key: 0 for key in KERNELS}
+    for name in SERVICE_TOPOS:
+        base = topos[name]
+        n_cap = base.n + max(4, int(base.n * CHURN_SPARE))
+        specs = _churn_specs(n_cap, n_cap, CHURN_Q)
+        for rate in ENGINE_RATES:
+            label = f"{name} rate={rate}"
+            core = core_runs[label]
+            epoch = {}
+
+            def rebalance(svc, i, rate=rate, epoch=epoch):
+                if rate and i == REBALANCE_AT:
+                    before = svc.backend.cut_frac()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ev = svc.rebalance_now()
+                    torch.cuda.synchronize()
+                    epoch.update(ev, ms=(time.perf_counter() - t0) * 1e3,
+                                 before=before, after=svc.backend.cut_frac())
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            svc = _churn_service(base, n_cap, specs, dev, **ENGINE_SERVICE)
+            setup = time.perf_counter() - t0
+            kernels.reset_counts()
+            records, walls, queued, gen = _churn_run(
+                svc, rate, CHURN_DISPATCHES, timed=True, hook=rebalance)
+            for _ in range(rate):
+                gen.emit(svc)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                svc.tick()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if any(counts[f"{k}_ref"] for k in totals):
+                raise AssertionError(f"engine {label}: a plain version ran")
+            for key in totals:
+                if counts[key] <= 0:
+                    raise AssertionError(f"engine {label}: launched no {key}")
+                totals[key] += counts[key]
+            _check_records(f"engine {label}", records, CHURN_Q)
+            n_rec = _same_records(f"engine {label} vs phase 10", records,
+                                  core["records"])
+            # One launch a step for all Q tenants: the core's count.
+            if {k: counts[k] for k in totals} != core["counts"]:
+                raise AssertionError(
+                    f"engine {label}: launches {counts} != the core "
+                    f"backend's {core['counts']}")
+            if rate and epoch.get("kind") != "rebalance":
+                raise AssertionError(f"engine {label}: no rebalance epoch")
+            us = [w / CHURN_K * 1e6 for w in walls]
+            drain = _spans(svc, "membership_drain")[-CHURN_DISPATCHES - 1:-1]
+            ticks = CHURN_DISPATCHES + 2
+            eng = svc.backend.eng
+            st = (core["stats"] or {})
+            print(f"[service-engine] {label} n_cap={n_cap} S={eng.S} "
+                  f"B={eng.B} D={eng.D} halo width "
+                  f"{eng.stopo.halo_width} Q={CHURN_Q} K={CHURN_K} (set-up "
+                  f"{setup:.2f} s): us_per_cycle median "
+                  f"{np.median(us):.1f} (min {min(us):.1f} max "
+                  f"{max(us):.1f}; core, phase 10: {core['us']:.1f}); "
+                  f"membership_drain ms per dispatch median "
+                  f"{np.median(drain) * 1e3:.3f} (max "
+                  f"{max(drain) * 1e3:.3f}; core {core['drain_ms']:.3f}); "
+                  f"events queued {queued / CHURN_DISPATCHES:.2f} a "
+                  f"dispatch; launches per dispatch "
+                  f"{ {k: counts[k] / ticks for k in totals} } (equal to "
+                  f"the core's); peak memory {peak:.3f} GiB (core "
+                  f"{core['peak']:.3f}); records equal to phase 10's over "
+                  f"{len(records)} dispatches ({n_rec} records); {gpu}",
+                  flush=True)
+            if rate:
+                print(f"[service-engine] {label}: forced rebalance after "
+                      f"timed dispatch {REBALANCE_AT}: cut fraction "
+                      f"{epoch['before']:.6f} -> {epoch['after']:.6f} "
+                      f"(drift {epoch['drift']:.6f}), epoch "
+                      f"{epoch['ms']:.1f} ms; records still equal to the "
+                      f"core's", flush=True)
+            stats = _print_profile(f"service-engine {label}", prof,
+                                   wall * 1e3, float(np.median(walls)) * 1e3,
+                                   1, "dispatch")
+            if stats is not None:
+                print(f"[service-engine] {label}: device events per "
+                      f"dispatch {stats['events']:.1f} (core "
+                      f"{st.get('events', float('nan')):.1f}), idle share "
+                      f"{stats['idle']:.3f} (core "
+                      f"{st.get('idle', float('nan')):.3f})", flush=True)
+            _check_service_kernels(f"engine {label}", svc,
+                                   timed=rate == ENGINE_RATES[-1])
+            del svc, prof
+            torch.cuda.empty_cache()
+    _check_churn_suites(dev, "service-engine-parity", **ENGINE_SERVICE)
+    return totals
 
 
 def main() -> int:
@@ -2041,7 +2210,10 @@ def main() -> int:
     sweep_totals = phase("phase 8 sweep", phase_sweep, dev, topos["chord"])
     aq_totals = phase("phase 9", phase_async_quantized, topos, dev,
                       eng_results, eng_timings)
-    churn_totals = phase("phase 10", phase_churn, topos, dev, gpu)
+    churn_totals, churn_runs = phase("phase 10", phase_churn, topos, dev,
+                                     gpu)
+    engine_svc_totals = phase("phase 11", phase_service_engine, topos, dev,
+                              gpu, churn_runs)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -2103,14 +2275,15 @@ def main() -> int:
             "launches": (totals[name] + svc_totals[name] + eng_totals[name]
                          + sweep_totals[name]
                          + sum(t[name] for t in aq_totals.values())
-                         + churn_totals[name]),
+                         + churn_totals[name] + engine_svc_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
                                  "sweep": sweep_totals[name],
                                  **{path: t[name]
                                     for path, t in aq_totals.items()},
-                                 "service_churn": churn_totals[name]},
+                                 "service_churn": churn_totals[name],
+                                 "service_engine": engine_svc_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,13 +31,28 @@ drop reordered and superseded deliveries.  At ``staleness=0`` the mode is
 bitwise the sync engine, drop stream included: the delays come from a
 second set of per-shard generators, drawn only when ``staleness > 0``.
 
+**Tenant axis.**  The service's engine backend stacks Q tenants' states on
+a leading axis (``out_m`` (Q, S, B, D, d), ``t`` (Q,), ``msgs`` (Q, S),
+``rng`` Q tuples of S generators), which the JAX service gets from
+``vmap`` over :meth:`ShardedLSS._cycle_full`.  The sync cycle, the
+observe (:meth:`ShardedLSS._metrics_impl`), the slot scrub and the
+layout moves (:meth:`~ShardedLSS.to_lss_state`,
+:meth:`~ShardedLSS.place_lss_state`, :meth:`~ShardedLSS.migrate_from`)
+take it; the per-peer update runs on ``(Q, S*B, ...)`` rows, the core's
+stacked layout, so each kernel launches once for all Q tenants.  The
+cycle's per-call overrides (``cfg`` with per-tenant ``beta``/``ell``/
+``eps``, the active-tenant ``gate``, the tenants' prepared ``regions``
+tables, or an opaque ``decide``) are keyword arguments.
+
 Differences from the JAX twin: a dispatch of ``cycles_per_dispatch`` (K)
 cycles is a host loop, not one compiled ``fori_loop`` with donated buffers:
 K is the grain of one ``engine.dispatch`` span and of the driver's
 bookkeeping.  Functions are pure (they return new states and never write
-into the tensors they are given); the drop and delay generators advance in
-place, as in the core, and :meth:`ShardedLSS.run` copies an async state's
-ring once per call and then writes only the published slot each cycle.
+into the tensors they are given), apart from :meth:`ShardedLSS.scrub_slots`,
+the in-place form of ``clear_slots`` the service's membership edits use;
+the drop and delay generators advance in place, as in the core, and
+:meth:`ShardedLSS.run` copies an async state's ring once per call and then
+writes only the published slot each cycle.
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: the mesh transport (``use_mesh``, A.5), the audit plane and
 ``profile=True`` (A.7), and ``auto_plan=True`` (A.8).
@@ -128,7 +143,8 @@ class EngineConfig(NamedTuple):
 
 class ShardedState(NamedTuple):
     """:class:`repro_torch.core.lss.LSSState`, blocked ``(S, B, ...)`` per
-    shard.
+    shard (with a leading tenant axis Q for the service's stacked state:
+    ``(Q, S, B, ...)``, ``t`` (Q,), ``msgs`` (Q, S), ``rng`` Q tuples).
 
     The two trailing ``wire_err_*`` fields exist only under a stateful
     (quantized) wire: per-out-slot error-feedback buffers in
@@ -202,6 +218,32 @@ def _delay_generators(rng: tuple) -> tuple:
     return tuple(out)
 
 
+def _lead(state) -> tuple:
+    """The leading tenant axes of a sync state: ``()`` or ``(Q,)``."""
+    return tuple(state.x_c.shape[:-2])
+
+
+def _at(nl: int, *idx) -> tuple:
+    """An index tuple that skips ``nl`` leading axes."""
+    return (slice(None),) * nl + idx
+
+
+def _uniform(rng, shape, device) -> torch.Tensor:
+    """Drop draws, one ``shape[-2:]`` block per shard generator; for Q
+    tenants' states (Q tuples of S generators) stacked per tenant."""
+    if isinstance(rng[0], torch.Generator):
+        return lss._uniform(rng, shape, device)
+    return torch.stack([lss._uniform(r, shape[1:], device) for r in rng])
+
+
+def _opaque_decide_error() -> ValueError:
+    return ValueError(
+        "the fused suite routes decisions through the packed CUDA "
+        "kernels and cannot honor an opaque `decide` callable — "
+        "pass `region=` (a region family) instead, or "
+        "use_kernels=False for the reference formulas")
+
+
 def _sync_only(state, what: str) -> None:
     """The dynamic-data hooks take a :class:`ShardedState`, as in JAX."""
     if isinstance(state, AsyncShardedState):
@@ -263,11 +305,7 @@ class ShardedLSS:
             # An opaque decide cannot feed the packed kernels, and on a CUDA
             # device the auto choice is the fused suite: the plain formulas
             # run only when the caller asks for them (use_kernels=False).
-            raise ValueError(
-                "the fused suite routes decisions through the packed CUDA "
-                "kernels and cannot honor an opaque `decide` callable — "
-                "pass `region=` (a region family) instead, or "
-                "use_kernels=False for the reference formulas")
+            raise _opaque_decide_error()
         self.use_kernels = self.suite.fused
         self.dispatch_info = {"suite": self.suite.name,
                               "fused": self.suite.fused}
@@ -432,29 +470,35 @@ class ShardedLSS:
         flat[self._positions(who)] = bool(value)
         return state._replace(alive=flat.reshape(state.alive.shape))
 
+    @staticmethod
+    def _slot_fields(state: ShardedState) -> tuple:
+        """The per-slot messaging fields a scrub resets (the error
+        feedback too under a stateful wire)."""
+        fields = ("out_m", "out_c", "in_m", "in_c", "pending")
+        if state.wire_err_m is not None:
+            fields += ("wire_err_m", "wire_err_c")
+        return fields
+
     def clear_slots(self, state: ShardedState, rows, slots) -> ShardedState:
         """Scrub the messaging state of ``(peer, slot)`` coordinates in
         ORIGINAL ids — the engine-layout counterpart of
         :func:`repro_torch.core.lss.clear_slots`; a slot's quantization
-        debt dies with its message."""
+        debt dies with its message.  Every tenant of a stacked state is
+        scrubbed.  Pure: :meth:`scrub_slots` is the in-place form."""
         _sync_only(state, "clear_slots")
+        return self.scrub_slots(state._replace(**{
+            f: getattr(state, f).clone() for f in self._slot_fields(state)}),
+            rows, slots)
+
+    def scrub_slots(self, state: ShardedState, rows, slots) -> ShardedState:
+        """:meth:`clear_slots` written into ``state``'s own tensors."""
         pos = self._positions(rows)
-        s_idx, b_idx = pos // self.B, pos % self.B
-        k = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
-
-        def scrub(a, value):
-            a = a.clone()
-            a[s_idx, b_idx, k] = value
-            return a
-
-        upd = dict(
-            out_m=scrub(state.out_m, 0.0), out_c=scrub(state.out_c, 0.0),
-            in_m=scrub(state.in_m, 0.0), in_c=scrub(state.in_c, 0.0),
-            pending=scrub(state.pending, False))
-        if state.wire_err_m is not None:
-            upd.update(wire_err_m=scrub(state.wire_err_m, 0.0),
-                       wire_err_c=scrub(state.wire_err_c, 0.0))
-        return state._replace(**upd)
+        at = _at(len(_lead(state)), pos // self.B, pos % self.B,
+                 torch.as_tensor(slots, dtype=torch.int64,
+                                 device=self.device))
+        for f in self._slot_fields(state):
+            getattr(state, f)[at] = False if f == "pending" else 0.0
+        return state
 
     # -- dynamic membership ------------------------------------------------
     def apply_membership(self, dyn, rows=None) -> bool:
@@ -514,57 +558,78 @@ class ShardedLSS:
         return self._wire.pair_bytes(self._pair_counts, self._wire_w, int(d))
 
     # -- per-peer update (flattened rows) ----------------------------------
-    def _peer_update(self, flat: lss.LSSState, live):
+    def _peer_update(self, flat: lss.LSSState, live, cfg=None, decide=None,
+                     gate=None, regions=None):
         """Violation test + selective correction on flattened (S*B, ...)
-        rows: the post-delivery half of :func:`repro_torch.core.lss.
-        cycle_impl`, through the same hooks and do-while.
+        rows, or (Q, S*B, ...) for stacked tenants: the post-delivery half
+        of :func:`repro_torch.core.lss.cycle_impl`, through the same hooks
+        and do-while.  ``flat.t`` broadcasts against ``last_send``.
 
-        Returns ``(out_m, out_c, pending, last_send, corr_iters)``.
+        ``cfg``/``decide``/``gate``/``regions`` override the engine's own
+        (the service passes per-tenant knobs, the active-tenant gate and
+        the tenants' prepared tables; see :meth:`_cycle_full`).  Returns
+        ``(out_m, out_c, pending, last_send, corr_iters)``.
         """
-        cfg = self.cfg
+        cfg = self.cfg if cfg is None else cfg
+        if regions is None and decide is None:
+            decide = self.decide
+            if self.region_slot is not None:
+                regions = self._tables_for(cfg.eps)
         status_viol = corrected = None
-        if self.region_slot is not None:
+        if regions is not None:
             status_viol, corrected, entry = lss.suite_hooks(
-                self.suite, flat, live, self._tables_for(cfg.eps), cfg)
+                self.suite, flat, live, regions, cfg)
         else:
+            if self.suite.fused:
+                raise _opaque_decide_error()
             s = stopping.status(flat.x_m, flat.x_c, flat.out_m, flat.out_c,
                                 flat.in_m, flat.in_c, live)
             a = stopping.agreements(flat.out_m, flat.out_c, flat.in_m,
                                     flat.in_c)
-            entry = (s, a, stopping.violations_alg1(self.decide, s, a, live,
+            entry = (s, a, stopping.violations_alg1(decide, s, a, live,
                                                     cfg.eps))
-        timer_ok = (flat.t - flat.last_send) >= cfg.ell
+        timer_ok = ((flat.t - flat.last_send)
+                    >= wvs.lead(cfg.ell, flat.last_send))
         active = flat.alive & timer_ok & torch.any(entry[2], dim=-1)
+        if gate is not None:
+            active = active & wvs.lead(gate, active)
         out_m, out_c, v, did_send, corr_iters = lss.correction_loop(
-            self.decide, flat, self._flat_topo, live, active, cfg,
+            decide, flat, self._flat_topo, live, active, cfg,
             status_viol=status_viol, corrected=corrected, entry=entry)
-        pending = v & did_send[:, None]
+        pending = v & did_send[..., None]
         new_last = torch.where(did_send, flat.t, flat.last_send)
         return out_m, out_c, pending, new_last, corr_iters
 
     # -- one cycle, gather fallback (full arrays, one device) ---------------
-    def _deliver_local(self, state: ShardedState, tables: DeviceTopo):
+    def _deliver_local(self, state: ShardedState, tables: DeviceTopo,
+                       drop_rate=None):
         """A cycle's start, the same in both modes: live slots, the drop
         draw and the shard-local deliveries (the core's receive-side
         gather: in-slot (j, r) reads its unique source slot through
-        ``src``).  Returns ``(live, delivered, sent, in_m, in_c)``."""
+        ``src``), every tenant of a stacked state through the same
+        tables.  Returns ``(live, delivered, sent, in_m, in_c)``."""
         S, B, D = self.S, self.B, self.D
+        lead = _lead(state)
         d = state.x_m.shape[-1]
-        nbr_alive = state.alive.reshape(S * B)[tables.tgt_pos]
+        drop_rate = self.cfg.drop_rate if drop_rate is None else drop_rate
+        nbr_alive = state.alive.reshape(*lead, S * B)[..., tables.tgt_pos]
         live = tables.mask & state.alive[..., None] & nbr_alive
         send = state.pending & live
-        if self.cfg.drop_rate > 0.0:
-            keep = lss._uniform(state.rng, send.shape, send.device)
-            delivered = send & (keep >= self.cfg.drop_rate)
+        if drop_rate > 0.0:
+            keep = _uniform(state.rng, send.shape, send.device)
+            delivered = send & (keep >= drop_rate)
         else:
             delivered = send
-        sent = torch.sum(send, dim=(1, 2))
-        got = delivered.reshape(S * B * D)[tables.src] & tables.intra
-        in_m = torch.where(got[..., None],
-                           state.out_m.reshape(S * B * D, d)[tables.src],
-                           state.in_m)
-        in_c = torch.where(got, state.out_c.reshape(S * B * D)[tables.src],
-                           state.in_c)
+        sent = torch.sum(send, dim=(-2, -1))
+        got = (delivered.reshape(*lead, S * B * D)[..., tables.src]
+               & tables.intra)
+        in_m = torch.where(
+            got[..., None],
+            state.out_m.reshape(*lead, S * B * D, d)[..., tables.src, :],
+            state.in_m)
+        in_c = torch.where(
+            got, state.out_c.reshape(*lead, S * B * D)[..., tables.src],
+            state.in_c)
         return live, delivered, sent, in_m, in_c
 
     def _encode_halo(self, state: ShardedState, tables: DeviceTopo,
@@ -573,49 +638,69 @@ class ShardedLSS:
         a stateful wire reads and updates the per-out-slot error feedback.
         Returns ``(payload, wire_err_m, wire_err_c)``."""
         wire = self._wire
+        nl = len(_lead(state))
         bufs = exchange.gather_halo(state.out_m, state.out_c, delivered,
-                                    tables.halo)
+                                    tables.halo, batch=nl)
         if not wire.stateful:
             payload, _, _ = wire.encode(*bufs)
             return payload, state.wire_err_m, state.wire_err_c
         payload, n_em, n_ec = wire.encode(*bufs, *exchange.gather_err(
-            state.wire_err_m, state.wire_err_c, tables.halo))
+            state.wire_err_m, state.wire_err_c, tables.halo, batch=nl))
         return (payload, *exchange.scatter_err(
-            state.wire_err_m, state.wire_err_c, n_em, n_ec, tables.halo))
+            state.wire_err_m, state.wire_err_c, n_em, n_ec, tables.halo,
+            batch=nl))
 
-    def _update(self, state: ShardedState, live, in_m, in_c, t):
+    def _update(self, state: ShardedState, live, in_m, in_c, t, **over):
         """The peer-local update on the flattened rows, reshaped back to
-        ``(S, B, ...)``: ``(out_m, out_c, pending, last_send, corr_iters)``.
-        ``t`` is the scalar cycle or one clock per row."""
+        ``(S, B, ...)`` (``(Q, S, B, ...)`` for stacked tenants):
+        ``(out_m, out_c, pending, last_send, corr_iters)``.  ``t`` is the
+        scalar cycle, one clock per row, or one cycle per tenant shaped
+        (Q, 1); ``over`` are :meth:`_peer_update`'s overrides."""
         S, B = self.S, self.B
-        fl = lambda a: a.reshape(S * B, *a.shape[2:])  # noqa: E731
+        lead = _lead(state)
+        nl = len(lead)
+        fl = lambda a: a.reshape(*lead, S * B, *a.shape[nl + 2:])  # noqa: E731
         flat = lss.LSSState(
             out_m=fl(state.out_m), out_c=fl(state.out_c), in_m=fl(in_m),
             in_c=fl(in_c), x_m=fl(state.x_m), x_c=fl(state.x_c),
             pending=fl(live), last_send=fl(state.last_send),
             alive=fl(state.alive), t=t, msgs=state.msgs, rng=None)
-        *out, corr_iters = self._peer_update(flat, fl(live))
-        return (*(a.reshape(S, B, *a.shape[1:]) for a in out), corr_iters)
+        *out, corr_iters = self._peer_update(flat, fl(live), **over)
+        return (*(a.reshape(*lead, S, B, *a.shape[nl + 1:]) for a in out),
+                corr_iters)
 
     def _cycle_full(self, state: ShardedState, tables: DeviceTopo,
-                    with_stats=False):
-        """One engine cycle on full ``(S, B, ...)`` arrays.
+                    with_stats=False, *, cfg=None, decide=None, gate=None,
+                    regions=None):
+        """One engine cycle on full ``(S, B, ...)`` arrays, or on Q
+        tenants' stacked ``(Q, S, B, ...)`` state.
 
-        ``with_stats=True`` returns ``(state', corr_iters)`` — the
-        correction do-while's iteration count, as ``lss.cycle_impl(
-        with_stats=True)`` reports it.
+        ``cfg`` (an :class:`~repro_torch.core.lss.LSSConfig` whose
+        ``beta``/``ell``/``eps`` may be (Q,) tensors), ``gate`` (bool
+        (Q,): a False tenant initiates no sends), ``regions`` (the Q
+        tenants' :class:`~repro_torch.kernels.ops.SlotTables`, prepared
+        with the same ``eps``/``beta``) and ``decide`` (an opaque decision
+        for the reference formulas) override the engine's own: the JAX
+        twin's per-call overrides, which its service ``vmap``s over the
+        tenant axis.  ``with_stats=True`` returns ``(state', corr_iters)``
+        — the correction do-while's iteration count (per tenant when
+        stacked), as ``lss.cycle_impl(with_stats=True)`` reports it.
         """
-        live, delivered, sent, in_m, in_c = self._deliver_local(state,
-                                                                tables)
+        drop_rate = None if cfg is None else cfg.drop_rate
+        live, delivered, sent, in_m, in_c = self._deliver_local(
+            state, tables, drop_rate)
         # Cross-shard edges: halo gather -> wire encode -> transpose ->
-        # wire decode -> scatter.
+        # wire decode -> scatter, each over the tenants' leading axis.
+        nl = len(_lead(state))
         payload, err_m, err_c = self._encode_halo(state, tables, delivered)
-        payload = tuple(exchange.transpose_all_to_all(p) for p in payload)
+        payload = tuple(exchange.transpose_all_to_all(p, batch=nl)
+                        for p in payload)
         buf_m, buf_c, flag = self._wire.decode(payload)
         in_m, in_c = exchange.scatter_halo(in_m, in_c, buf_m, buf_c, flag,
-                                           tables.halo)
+                                           tables.halo, batch=nl)
         out_m, out_c, pending, last_send, corr_iters = self._update(
-            state, live, in_m, in_c, state.t)
+            state, live, in_m, in_c, state.t[..., None] if nl else state.t,
+            cfg=cfg, decide=decide, gate=gate, regions=regions)
         state = state._replace(
             out_m=out_m, out_c=out_c, in_m=in_m, in_c=in_c,
             pending=pending, last_send=last_send, t=state.t + 1,
@@ -860,60 +945,96 @@ class ShardedLSS:
         return torch.sum(self._base(state).msgs)
 
     # -- observers ---------------------------------------------------------
+    @staticmethod
+    def _shard0(rng):
+        """Shard 0's generator (one per tenant for a stacked state)."""
+        if isinstance(rng[0], torch.Generator):
+            return rng[0]
+        return tuple(r[0] for r in rng)
+
     def _flat_state(self, state) -> lss.LSSState:
+        """The core's view of a sync state: ``(S*B, ...)`` rows, or
+        ``(Q, S*B, ...)`` for stacked tenants; ``msgs`` summed over the
+        shards."""
         state = self._base(state)
-        fl = lambda a: a.reshape(self.S * self.B, *a.shape[2:])  # noqa: E731
+        lead = _lead(state)
+        nl = len(lead)
+        fl = lambda a: a.reshape(  # noqa: E731
+            *lead, self.S * self.B, *a.shape[nl + 2:])
         return lss.LSSState(
             out_m=fl(state.out_m), out_c=fl(state.out_c),
             in_m=fl(state.in_m), in_c=fl(state.in_c),
             x_m=fl(state.x_m), x_c=fl(state.x_c),
             pending=fl(state.pending), last_send=fl(state.last_send),
-            alive=fl(state.alive), t=state.t, msgs=torch.sum(state.msgs),
-            rng=state.rng[0])
+            alive=fl(state.alive), t=state.t,
+            msgs=torch.sum(state.msgs, dim=-1), rng=self._shard0(state.rng))
+
+    def _metrics_impl(self, state: ShardedState, eps=OBSERVE_EPS,
+                      decide=None, regions=None):
+        """The observe on a sync state, single or Q tenants stacked:
+        :func:`repro_torch.core.lss.metrics_impl` on the flat ``S*B``-row
+        view (padding rows are dead).  ``eps`` (one or (Q,)), ``regions``
+        (prepared tables: the fused suite launches one ``lss_state`` and
+        one global decision for all tenants) and ``decide`` (an opaque
+        decision, reference formulas only) override the engine's own, as
+        in the JAX twin.  Returns ``(acc, quiescent, correct-mask in
+        original order, want)``, per tenant when stacked."""
+        if regions is None and decide is None:
+            if self.suite.fused and self.region_slot is not None:
+                regions = self._tables_for(eps)
+            else:
+                decide = self.decide
+        if regions is not None:
+            decide = lambda v: self.suite.decide(v, regions)  # noqa: E731
+        elif self.suite.fused:
+            raise _opaque_decide_error()
+        acc, quiescent, correct, want = lss.metrics_impl(
+            self._flat_state(state), self._flat_topo, decide, eps,
+            suite=self.suite if regions is not None else None,
+            regions=regions)
+        return acc, quiescent, correct[..., self._pos], want
 
     def metrics(self, state, eps: float = OBSERVE_EPS):
         """(accuracy, quiescent, correct-mask in original order) — the same
         numbers :func:`repro_torch.core.lss.metrics` reports.
 
-        :func:`repro_torch.core.lss.metrics_impl` on the flat ``S*B``-row
-        view: with the fused suite one ``lss_state`` launch and one global
-        decision launch (padding rows are dead).  For an async state the
-        quiescence bit also requires :meth:`async_in_flight` to be False: a
-        message still deliverable by a bounded-stale read could wake a peer.
+        :meth:`_metrics_impl` with the engine's own family: with the fused
+        suite one ``lss_state`` launch and one global decision launch.
+        For an async state the quiescence bit also requires
+        :meth:`async_in_flight` to be False: a message still deliverable by
+        a bounded-stale read could wake a peer.
         """
-        flat = self._flat_state(state)
-        if self.suite.fused and self.region_slot is not None:
-            acc, quiescent, correct, _ = lss.metrics_impl(
-                flat, self._flat_topo, None, eps, suite=self.suite,
-                regions=self._tables_for(eps))
-        else:
-            acc, quiescent, correct, _ = lss.metrics_impl(
-                flat, self._flat_topo, self.decide, eps)
+        acc, quiescent, correct, _ = self._metrics_impl(self._base(state),
+                                                        eps)
         if isinstance(state, AsyncShardedState):
             quiescent = quiescent & ~self.async_in_flight(state)
-        return acc, quiescent, correct[self._pos]
+        return acc, quiescent, correct
 
     def to_lss_state(self, state) -> lss.LSSState:
         """Unpermute into a core :class:`LSSState` (parity tests, debug);
         ``rng`` is shard 0's generator.  Accepts either state kind (the
-        async books and the error feedback are dropped)."""
+        async books and the error feedback are dropped), and Q tenants'
+        stacked state (a stacked core state)."""
         state = self._base(state)
+        lead = _lead(state)
+        nl = len(lead)
         take = lambda a: a.reshape(  # noqa: E731
-            self.S * self.B, *a.shape[2:])[self._pos]
+            *lead, self.S * self.B, *a.shape[nl + 2:])[_at(nl, self._pos)]
         return lss.LSSState(
             out_m=take(state.out_m), out_c=take(state.out_c),
             in_m=take(state.in_m), in_c=take(state.in_c),
             x_m=take(state.x_m), x_c=take(state.x_c),
             pending=take(state.pending), last_send=take(state.last_send),
             alive=take(state.alive), t=state.t,
-            msgs=torch.sum(state.msgs), rng=state.rng[0])
+            msgs=torch.sum(state.msgs, dim=-1), rng=self._shard0(state.rng))
 
     def place_lss_state(self, snap: lss.LSSState) -> ShardedState:
         """Inverse of :meth:`to_lss_state`: place a core-layout state into
         this engine's shard layout (init values everywhere, then the logical
         rows through ``new_of_old``).  ``snap`` may cover fewer rows /
         degree slots than this engine's capacity; missing ones stay at
-        init values.
+        init values.  A stacked core state (a leading tenant axis, ``rng``
+        one generator per tenant) places every tenant.
 
         Not carried row-for-row: the aggregate send counter lands on shard
         0, and the per-shard drop generators are seeded from draws of a
@@ -922,7 +1043,9 @@ class ShardedLSS:
         """
         S, B, D = self.S, self.B, self.D
         dev = self.device
-        n1 = snap.alive.shape[0]
+        lead = tuple(snap.alive.shape[:-1])
+        nl = len(lead)
+        n1 = snap.alive.shape[-1]
         if n1 > self.n:
             raise ValueError(f"snapshot covers {n1} rows > capacity {self.n}")
         D1 = snap.out_c.shape[-1]
@@ -933,18 +1056,20 @@ class ShardedLSS:
         dt = snap.x_m.dtype
 
         def place(src, shape, fill, dtype, slots):
-            out = torch.full((S * B,) + shape, fill, dtype=dtype, device=dev)
-            if slots:
-                out[pos, :D1] = src.to(device=dev, dtype=dtype)
-            else:
-                out[pos] = src.to(device=dev, dtype=dtype)
-            return out.reshape((S, B) + shape)
+            out = torch.full(lead + (S * B,) + shape, fill, dtype=dtype,
+                             device=dev)
+            at = _at(nl, pos, slice(0, D1)) if slots else _at(nl, pos)
+            out[at] = src.to(device=dev, dtype=dtype)
+            return out.reshape(lead + (S, B) + shape)
 
-        g = _copy_generator(snap.rng)
-        seeds = torch.randint(0, 2 ** 62, (S,), generator=g,
-                              device=g.device).tolist()
-        msgs = torch.zeros((S,), dtype=lss.counter_dtype(), device=dev)
-        msgs[0] = torch.as_tensor(snap.msgs, device=dev)
+        def generators(rng):
+            g = _copy_generator(rng)
+            seeds = torch.randint(0, 2 ** 62, (S,), generator=g,
+                                  device=g.device).tolist()
+            return tuple(lss._generator(dev, s) for s in seeds)
+
+        msgs = torch.zeros(lead + (S,), dtype=lss.counter_dtype(), device=dev)
+        msgs[..., 0] = torch.as_tensor(snap.msgs, device=dev)
         stateful = self._wire.stateful  # its debt restarts at zero
         return ShardedState(
             out_m=place(snap.out_m, (D, d), 0.0, dt, True),
@@ -959,10 +1084,11 @@ class ShardedLSS:
             alive=place(snap.alive, (), False, torch.bool, False),
             t=torch.as_tensor(snap.t, dtype=torch.int32, device=dev).clone(),
             msgs=msgs,
-            rng=tuple(lss._generator(dev, s) for s in seeds),
-            wire_err_m=(torch.zeros((S, B, D, d), dtype=torch.float32,
+            rng=(tuple(generators(g) for g in snap.rng) if nl
+                 else generators(snap.rng)),
+            wire_err_m=(torch.zeros(lead + (S, B, D, d), dtype=torch.float32,
                                     device=dev) if stateful else None),
-            wire_err_c=(torch.zeros((S, B, D), dtype=torch.float32,
+            wire_err_c=(torch.zeros(lead + (S, B, D), dtype=torch.float32,
                                     device=dev) if stateful else None),
         )
 
@@ -975,13 +1101,17 @@ class ShardedLSS:
         the per-shard drop generators carry over verbatim (copied), so a
         regrow / rebalance epoch does not touch the drop sequence.  Under
         a stateful wire the quantization debt rides along row for row: a
-        peer's unshipped error must survive the epoch.
+        peer's unshipped error must survive the epoch.  Every tenant of a
+        stacked state moves (the service's regrow and rebalance epochs).
         """
         src, _ = partition.migrate_rows(old.part, self.part)
         src = torch.as_tensor(src, device=old.device)
+        lead = _lead(state)
+        nl = len(lead)
 
         def move(a):
-            return a.reshape(old.S * old.B, *a.shape[2:])[src]
+            return a.reshape(*lead, old.S * old.B,
+                             *a.shape[nl + 2:])[_at(nl, src)]
 
         snap = lss.LSSState(
             out_m=move(state.out_m), out_c=move(state.out_c),
@@ -989,17 +1119,20 @@ class ShardedLSS:
             x_m=move(state.x_m), x_c=move(state.x_c),
             pending=move(state.pending), last_send=move(state.last_send),
             alive=move(state.alive), t=state.t,
-            msgs=torch.sum(state.msgs), rng=state.rng[0])
+            msgs=torch.sum(state.msgs, dim=-1), rng=self._shard0(state.rng))
         placed = self.place_lss_state(snap)
         if self._wire.stateful and state.wire_err_m is not None:
             # Into the fresh zero buffers place_lss_state made.
-            pos = self._pos[:snap.alive.shape[0]]
-            D1 = state.wire_err_c.shape[-1]
+            at = _at(nl, self._pos[:snap.alive.shape[-1]],
+                     slice(0, state.wire_err_c.shape[-1]))
             for new, a in ((placed.wire_err_m, state.wire_err_m),
                            (placed.wire_err_c, state.wire_err_c)):
-                new.reshape(self.S * self.B, *new.shape[2:])[pos, :D1] = \
-                    move(a).to(new.device)
+                new.reshape(*lead, self.S * self.B,
+                            *new.shape[nl + 2:])[at] = move(a).to(new.device)
         if old.S == self.S:
+            copy = lambda gs: tuple(_copy_generator(g)  # noqa: E731
+                                    for g in gs)
             placed = placed._replace(
-                rng=tuple(_copy_generator(g) for g in state.rng))
+                rng=tuple(copy(r) for r in state.rng) if nl
+                else copy(state.rng))
         return placed

@@ -15,6 +15,15 @@ A real in-slot has a unique source out-slot, so at most one message
 targets it per cycle: only the dummy row sees duplicate indices, and no
 write races.  The error-feedback and sequence scatters do the same.
 
+The sync exchange also takes Q tenants' stacked buffers (``batch=1``: a
+leading tenant axis on every state array and buffer, one set of tables
+for all of them), which the JAX service gets from ``vmap``.  The shard
+axes are then axes 1 and 2 (:func:`transpose_all_to_all` swaps those,
+never the tenant axis), the flags and so the scatter targets differ per
+tenant, and the flattened ``(Q*S*B*D)`` target keeps ONE dummy row: every
+tenant's discarded entries go there (:func:`_tenant_rows`), none lands in
+another tenant's rows.
+
 :func:`transpose_all_to_all` is the single-device transport: the whole
 buffer lives on one device and the "exchange" is a transpose.  The
 collective transport over several devices is ROADMAP A.5.
@@ -96,10 +105,24 @@ def _scatter_flat(flat, idx, vals):
     return new[:-1]
 
 
-def _scatter_pair(a_m, a_c, idx, val_m, val_c):
+def _tenant_rows(idx, q: int, n: int):
+    """Per-tenant flat indices into ``n`` slots (``n`` = the dummy),
+    ``(M,)`` shared or ``(q, M)`` -> indices into the ``q*n`` slots of all
+    tenants, every dummy mapped to the one dummy row ``q*n`` (an offset
+    dummy ``n + q*t`` would be tenant ``t + 1``'s first slot)."""
+    idx = idx.expand(q, -1) if idx.ndim == 1 else idx.reshape(q, -1)
+    off = torch.arange(q, device=idx.device)[:, None] * n
+    return torch.where(idx == n, q * n, idx + off).reshape(-1)
+
+
+def _scatter_pair(a_m, a_c, idx, val_m, val_c, batch=0):
     """:func:`_scatter_flat` of a ``(..., D, d)`` / ``(..., D)`` pair
-    through their flattened slots."""
+    through their flattened slots; with ``batch=1`` the leading axis is
+    the tenants' and ``idx`` holds per-tenant indices (see
+    :func:`_tenant_rows`)."""
     n = a_c.numel()
+    if batch:
+        idx = _tenant_rows(idx, a_c.shape[0], n // a_c.shape[0])
     new_m = _scatter_flat(a_m.reshape(n, -1), idx, val_m)
     new_c = _scatter_flat(a_c.reshape(n), idx, val_c)
     return new_m.reshape(a_m.shape), new_c.reshape(a_c.shape)
@@ -114,10 +137,11 @@ def _block_index(flag, row, slot, B, D):
 
 def _full_index(flag, row, slot, S, B, D):
     """:func:`_block_index` of every shard's ``(S, S, H)`` tables into the
-    flat ``(S*B*D)`` layout; the dummy row is ``S*B*D``."""
+    flat ``(S*B*D)`` layout; the dummy row is ``S*B*D``.  Flags with a
+    leading tenant axis give one index row per tenant."""
     shard = torch.arange(S, device=row.device)[:, None, None]
     return torch.where(flag, (shard * B + row) * D + slot,
-                       S * B * D).reshape(-1)
+                       S * B * D).reshape(*flag.shape[:-3], -1)
 
 
 # -- per-shard (block-local) halves ----------------------------------------
@@ -143,35 +167,41 @@ def scatter_block(in_m, in_c, buf_m, buf_c, flag, recv_row, recv_slot):
 
 # -- full-array wrappers: every shard at once ------------------------------
 
-def gather_rows(row, slot, *arrays):
+def gather_rows(row, slot, *arrays, batch=0):
     """``a[s, row[s], slot[s]]`` of every shard for each of ``arrays``:
     ``(S, B, D, ...)`` -> ``(S, S, H, ...)`` through ``(S, S, H)`` tables
-    (one shard index for all of them)."""
+    (one shard index for all of them); ``(Q, S, B, D, ...)`` -> ``(Q, S,
+    S, H, ...)`` with ``batch=1``."""
     shard = torch.arange(row.shape[0], device=row.device)[:, None, None]
-    return tuple(a[shard, row, slot] for a in arrays)
+    at = (slice(None),) * batch + (shard, row, slot)
+    return tuple(a[at] for a in arrays)
 
 
-def gather_halo(out_m, out_c, delivered, halo: HaloTables):
+def gather_halo(out_m, out_c, delivered, halo: HaloTables, batch=0):
     """:func:`gather_block` of every shard, by advanced indexing over the
-    leading shard axis: ``(S, B, D, ...)`` -> src-major ``(S, S, H, ...)``."""
+    shard axis: ``(S, B, D, ...)`` -> src-major ``(S, S, H, ...)`` (each
+    with ``batch`` leading tenant axes)."""
     buf_m, buf_c, sent = gather_rows(halo.send_row, halo.send_slot, out_m,
-                                     out_c, delivered)
+                                     out_c, delivered, batch=batch)
     return buf_m, buf_c, sent & halo.send_ok
 
 
-def scatter_halo(in_m, in_c, buf_m, buf_c, flag, halo: HaloTables):
+def scatter_halo(in_m, in_c, buf_m, buf_c, flag, halo: HaloTables,
+                 batch=0):
     """:func:`scatter_block` of every shard; buffers must already be
-    dst-major ``(S_dst, S_src, H, ...)``.  Returns new tensors."""
-    S, B, D = in_c.shape
+    dst-major ``(S_dst, S_src, H, ...)`` (each with ``batch`` leading
+    tenant axes).  Returns new tensors."""
+    S, B, D = in_c.shape[batch:]
     return _scatter_pair(in_m, in_c,
                          _full_index(flag, halo.recv_row, halo.recv_slot,
                                      S, B, D),
-                         buf_m, buf_c)
+                         buf_m, buf_c, batch)
 
 
-def transpose_all_to_all(buf):
-    """Single-device transport: (src, dst, ...) -> (dst, src, ...)."""
-    return buf.transpose(0, 1)
+def transpose_all_to_all(buf, batch=0):
+    """Single-device transport: (src, dst, ...) -> (dst, src, ...), after
+    ``batch`` leading tenant axes."""
+    return buf.transpose(batch, batch + 1)
 
 
 # -- bounded-staleness ring (async engine mode) ----------------------------
@@ -235,15 +265,16 @@ def scatter_seq(last_seq, seq, flag, recv_row, recv_slot):
 
 # -- error feedback in out-slot coordinates --------------------------------
 
-def gather_err(err_m, err_c, halo: HaloTables):
+def gather_err(err_m, err_c, halo: HaloTables, batch=0):
     """Per-out-slot error-feedback buffers -> src-major halo coordinates.
 
-    ``err_m (S, B, D, d)`` / ``err_c (S, B, D)`` live in out-slot
-    coordinates (independent of the halo width); each halo table entry
-    reads its sending out-slot's running error, as :func:`gather_halo`
-    reads ``out_m``.
+    ``err_m (S, B, D, d)`` / ``err_c (S, B, D)`` (after ``batch`` leading
+    tenant axes) live in out-slot coordinates (independent of the halo
+    width); each halo table entry reads its sending out-slot's running
+    error, as :func:`gather_halo` reads ``out_m``.
     """
-    return gather_rows(halo.send_row, halo.send_slot, err_m, err_c)
+    return gather_rows(halo.send_row, halo.send_slot, err_m, err_c,
+                       batch=batch)
 
 
 def scatter_err_block(err_m, err_c, new_m, new_c, send_row, send_slot,
@@ -259,13 +290,14 @@ def scatter_err_block(err_m, err_c, new_m, new_c, send_row, send_slot,
                          new_m, new_c)
 
 
-def scatter_err(err_m, err_c, new_m, new_c, halo: HaloTables):
-    """:func:`scatter_err_block` of every shard (src-major tables)."""
-    S, B, D = err_c.shape
+def scatter_err(err_m, err_c, new_m, new_c, halo: HaloTables, batch=0):
+    """:func:`scatter_err_block` of every shard (src-major tables), after
+    ``batch`` leading tenant axes."""
+    S, B, D = err_c.shape[batch:]
     return _scatter_pair(err_m, err_c,
                          _full_index(halo.send_ok, halo.send_row,
                                      halo.send_slot, S, B, D),
-                         new_m, new_c)
+                         new_m, new_c, batch)
 
 
 # -- wire formats ----------------------------------------------------------

@@ -1,7 +1,7 @@
 """The service driver: Q query slots, one batched pass per cycle.
 
-Port of ``repro/service/service.py``: the core backend in synchronous
-mode.  Execution model::
+Port of ``repro/service/service.py`` in synchronous mode, on both
+backends.  Execution model::
 
     admit (or queue) / retire --+                +--> telemetry (JSONL)
     membership joins/leaves ----+--> [boundary] -+
@@ -10,16 +10,22 @@ mode.  Execution model::
                                          v   |
                         one dispatch: a host loop of K cycles, each one
                         batched lss.cycle_impl over the Q query slots
+                        (core backend), or one ShardedLSS cycle over the
+                        Q x S stacked shard state (engine backend)
 
 All Q queries advance in lockstep.  The JAX service ``vmap``s
-``lss.cycle_impl`` over its slots; here the slots are the leading axis of
-one stacked :class:`~repro_torch.core.lss.LSSState`, with per-slot region
+``lss.cycle_impl`` (or ``ShardedLSS._cycle_full``) over its slots; here
+the slots are the leading axis of one stacked state, with per-slot region
 families, ``beta``/``ell``/``eps`` tensors and the active-slot gate, so
-every step of a cycle launches its kernel once for all Q tenants.  Free
-slots ride along as masked no-ops that send zero messages.  The observe
-pass, on the fused suite, is one Q-batched ``lss_state`` launch (per-peer
-decisions and violations) and one Q-batched ``region_decide`` launch over
-the Q global averages; its numbers reach the host in one transfer.
+every step of a cycle launches its kernel once for all Q tenants.  On the
+engine backend (``backend="engine"``) the state is
+:class:`~repro_torch.engine.ShardedState` with a leading tenant axis,
+``(Q, S, B, ...)``; its per-peer update runs on ``(Q, S*B, ...)`` rows,
+the core backend's stacked layout.  Free slots ride along as masked
+no-ops that send zero messages.  The observe pass, on the fused suite, is
+one Q-batched ``lss_state`` launch (per-peer decisions and violations)
+and one Q-batched ``region_decide`` launch over the Q global averages;
+its numbers reach the host in one transfer.
 
 The service owns its stacked state and edits slots in place between
 dispatches (admit, retire, preempt, resume, ingest, membership);
@@ -33,19 +39,22 @@ shapes within capacity), the message slots that a link or unlink touched
 are scrubbed in every tenant, and joining peers start from the paper's
 knowledge-init state while in-flight tenants keep converging.  A regrow
 epoch (:meth:`Service.grow_capacity`, or ``control.auto_regrow`` at a
-capacity wall) pads every slot's state to the grown capacity.
+capacity wall) pads every slot's state to the grown capacity; on the
+engine backend it re-partitions the grown graph and migrates every
+slot's state, as a rebalance epoch (:meth:`Service.rebalance_now`, or
+``control.rebalance_drift``) does over the current graph.
 
 The control plane (:mod:`repro_torch.service.controlplane`) runs as in
 the JAX package: per-tenant SLOs folded into every record, the
-admission/preemption scheduler (preempted queries are snapshotted and
-resume bitwise where they stopped, reconciled when membership moved
-while they held no slot), SLO-driven queue eviction, the regrow epoch.
+admission/preemption scheduler (preempted queries are snapshotted in
+the core layout and resume where they stopped, reconciled when membership
+moved while they held no slot), SLO-driven queue eviction, the regrow and
+rebalance epochs.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: ``backend="engine"`` (with its rebalance epochs) and
-``overlap=True`` (A.6), on a static topology or a ``DynTopology``;
-``profile_dispatch``/``profiler_dir``, ``alerts`` and ``audit_every > 0``
-(A.7).
+item: ``overlap=True`` (A.6, with the staged epoch builds), on either
+backend; ``profile_dispatch``/``profiler_dir``, ``alerts`` and
+``audit_every > 0`` (A.7).
 """
 
 from __future__ import annotations
@@ -91,10 +100,15 @@ class ServiceConfig(NamedTuple):
     a bool, or a registered suite name.  ``flight_capacity`` /
     ``flight_dump_dir`` size and place the flight recorder.
 
+    ``backend="engine"`` serves through
+    :class:`~repro_torch.engine.ShardedLSS` with ``engine_shards``
+    shards, the ``engine_method`` partitioner, ``engine_halo_slack``
+    headroom in the halo tables and the ``engine_wire`` halo format
+    (``exact``, ``compact``, ``int8``, ``bf16``).
+
     Fields of the JAX twin that select parts not ported yet are kept so
     configurations carry over, and the service raises on them:
-    ``backend="engine"`` and the ``engine_*`` fields and ``overlap``
-    (ROADMAP A.6), ``profile_dispatch``/``profiler_dir``/
+    ``overlap`` (ROADMAP A.6), ``profile_dispatch``/``profiler_dir``/
     ``profile_sample_every``, ``alerts`` and ``audit_every`` (A.7).
     """
 
@@ -108,11 +122,11 @@ class ServiceConfig(NamedTuple):
     beta: float = 1e-3
     ell: int = 1
     eps: float = 1e-9
-    backend: str = "core"  # "core" ("engine": ROADMAP A.6)
-    engine_shards: int = 2
-    engine_method: str = "bfs"
-    engine_halo_slack: float = 1.5
-    engine_wire: str = "exact"
+    backend: str = "core"  # "core" | "engine"
+    engine_shards: int = 2  # engine backend: shard count
+    engine_method: str = "bfs"  # engine backend: partitioner
+    engine_halo_slack: float = 1.5  # halo-width headroom for membership
+    engine_wire: str = "exact"  # engine halo wire: exact|compact|int8|bf16
     admission_queue: int = 16  # waiting specs bound (0 = fail fast)
     admission_overflow: str = "reject"  # "reject" | "evict-oldest"
     control: ControlPlaneConfig = ControlPlaneConfig()  # control plane
@@ -129,10 +143,9 @@ class ServiceConfig(NamedTuple):
 
 def _unported(scfg: ServiceConfig) -> Optional[str]:
     """What of ``scfg`` the port cannot serve yet, with its ROADMAP item,
-    or None (a static topology and a ``DynTopology`` alike)."""
-    if scfg.backend == "engine":
-        return "backend='engine' (the service's engine backend, ROADMAP A.6)"
-    if scfg.backend != "core":
+    or None (either backend, a static topology and a ``DynTopology``
+    alike)."""
+    if scfg.backend not in ("core", "engine"):
         raise ValueError(f"unknown backend {scfg.backend!r}")
     if scfg.overlap:
         return "overlap=True (the overlapped host boundary, ROADMAP A.6)"
@@ -211,9 +224,11 @@ class _CoreBackend:
     def topo_args(self):
         return self.ta
 
-    def refresh_topology(self, dyn) -> None:
-        """Copy the mutated topology's tables to the device (same shapes)."""
+    def refresh_topology(self, dyn) -> bool:
+        """Copy the mutated topology's tables to the device (same shapes:
+        returns False, no shape changed)."""
         self.ta = lss.TopoArrays.from_topology(dyn, self.device)
+        return False
 
     def init_states(self, q: int, d: int, alive=None) -> lss.LSSState:
         """Q padding slots: zero inputs, seed 0, the peers of ``alive``
@@ -253,6 +268,10 @@ class _CoreBackend:
             states, self.ta, lambda v: self.suite.decide(v, tables),
             params.eps, suite=self.suite, regions=tables)
         return acc, quiescent, want
+
+    def msgs_device(self, states) -> torch.Tensor:
+        """Per-slot sends since the last reset, (Q,), on the device."""
+        return states.msgs
 
     def reset_msgs(self, states):
         return states._replace(msgs=torch.zeros_like(states.msgs))
@@ -321,6 +340,182 @@ class _CoreBackend:
         return _grow_core_states(states, dyn.n, dyn.max_deg)
 
 
+def _copy_generators(gens: tuple) -> tuple:
+    return tuple(_copy_generator(g) for g in gens)
+
+
+class _EngineBackend:
+    """The query axis composed with :class:`ShardedLSS`'s shard axis: one
+    :class:`~repro_torch.engine.ShardedState` with a leading tenant axis,
+    ``(Q, S, B, ...)``, stepped by the engine's cycle with the tenants'
+    knobs, gate and tables as its per-call overrides."""
+
+    def __init__(self, topo, scfg: ServiceConfig, device):
+        self.topo = topo
+        self.scfg = scfg
+        self.device = device
+        self.eng = self._build(topo)
+
+    def _build(self, topo):
+        from ..engine import EngineConfig, ShardedLSS  # lazy: no cycle
+
+        scfg = self.scfg
+        base = lss.LSSConfig(beta=scfg.beta, ell=scfg.ell,
+                             drop_rate=scfg.drop_rate, policy=scfg.policy,
+                             max_corr_iters=scfg.max_corr_iters, eps=scfg.eps)
+        return ShardedLSS(
+            topo, torch.zeros((1, scfg.d)), base,
+            EngineConfig(num_shards=scfg.engine_shards,
+                         cycles_per_dispatch=scfg.cycles_per_dispatch,
+                         method=scfg.engine_method,
+                         use_kernels=scfg.use_kernels,
+                         halo_slack=scfg.engine_halo_slack,
+                         wire=scfg.engine_wire),
+            device=self.device)
+
+    def dispatch_info(self) -> dict:
+        return dict(self.eng.dispatch_info)
+
+    def topo_args(self):
+        return self.eng._tables
+
+    def refresh_topology(self, dyn) -> bool:
+        """Repair the engine's tables for the mutated topology; True when
+        the halo width regrew (the dispatch's table shapes changed)."""
+        return self.eng.apply_membership(dyn)
+
+    def init_states(self, q: int, d: int, alive=None):
+        """Q padding slots: zero inputs, seed 0, the peers of ``alive``
+        (default: every peer) alive."""
+        n = self.topo.n
+        one = self.eng.init_sync(wvs.WV(
+            torch.zeros((n, d), device=self.device),
+            torch.zeros((n,), device=self.device)), seed=0, alive=alive)
+        return one._replace(
+            **{f: getattr(one, f).expand(q, *getattr(one, f).shape).clone()
+               for f in one._fields
+               if f != "rng" and getattr(one, f) is not None},
+            rng=tuple(_copy_generators(one.rng) for _ in range(q)))
+
+    def init_slot(self, inputs: wvs.WV, seed: int, alive=None):
+        return self.eng.init_sync(inputs, seed=seed, alive=alive)
+
+    def tables(self, params: qmod.QueryParams) -> kernel_ops.SlotTables:
+        """The Q packed families with their kernel tables, prepared once
+        per dispatch."""
+        return kernel_ops.prep_slots(params.regions, params.eps, params.beta)
+
+    def step(self, states, params: qmod.QueryParams, tables, k: int,
+             cfg: lss.LSSConfig):
+        """K engine cycles over all Q tenants (each kernel launched once a
+        step for all of them); returns (states', per-slot do-while
+        iterations summed over the K cycles)."""
+        cfg = cfg._replace(beta=params.beta, ell=params.ell, eps=params.eps)
+        iters = torch.zeros(params.active.shape, dtype=torch.int32,
+                            device=self.device)
+        for _ in range(k):
+            states, it = self.eng._cycle_full(
+                states, self.eng._tables, with_stats=True, cfg=cfg,
+                gate=params.active, regions=tables)
+            iters = iters + it
+        return states, iters
+
+    def metrics(self, states, params: qmod.QueryParams, tables):
+        """Per-slot (accuracy, quiescent, want)."""
+        acc, quiescent, _, want = self.eng._metrics_impl(
+            states, params.eps, regions=tables)
+        return acc, quiescent, want
+
+    def msgs_device(self, states) -> torch.Tensor:
+        """Per-slot sends since the last reset: the (Q, S) per-shard
+        counters summed, on the device."""
+        return states.msgs.sum(dim=-1)
+
+    def reset_msgs(self, states):
+        return states._replace(msgs=torch.zeros_like(states.msgs))
+
+    def x_moments(self, states):
+        """The inputs as (Q, S*B, d) / (Q, S*B) rows and the original-id ->
+        row permutation ingest writes through."""
+        q, d = states.x_m.shape[0], states.x_m.shape[-1]
+        return (states.x_m.reshape(q, -1, d), states.x_c.reshape(q, -1),
+                self.eng._pos)
+
+    def with_x(self, states, x_m, x_c):
+        return states._replace(x_m=x_m.reshape(states.x_m.shape),
+                               x_c=x_c.reshape(states.x_c.shape))
+
+    def _rows(self, who) -> torch.Tensor:
+        return self.eng._positions(np.asarray(who))
+
+    def apply_leaves(self, states, who):
+        """Mark peers ``who`` dead in every slot, in place."""
+        q = states.alive.shape[0]
+        states.alive.view(q, -1)[:, self._rows(who)] = False
+        return states
+
+    def apply_joins(self, states, who, m, c):
+        """Knowledge-init peers ``who`` in every slot, in place: alive,
+        local input ``<m, c>`` ((k, d) and (k,)), cold send timer."""
+        q, d = states.alive.shape[0], states.x_m.shape[-1]
+        pos = self._rows(who)
+        states.alive.view(q, -1)[:, pos] = True
+        states.x_m.view(q, -1, d)[:, pos] = torch.as_tensor(
+            m, dtype=states.x_m.dtype, device=self.device)
+        states.x_c.view(q, -1)[:, pos] = torch.as_tensor(
+            c, dtype=states.x_c.dtype, device=self.device)
+        states.last_send.view(q, -1)[:, pos] = lss.COLD_TIMER
+        return states
+
+    def clear_slots(self, states, rows, slots):
+        """Scrub the ``(peer, slot)`` message slots (and their error
+        feedback) of every tenant in place."""
+        return self.eng.scrub_slots(states, np.asarray(rows), slots)
+
+    def snapshot(self, states, slot: int) -> lss.LSSState:
+        """One slot's state in the core layout (a copy; ``rng`` a copy of
+        its shard-0 generator)."""
+        one = states._replace(
+            **{f: getattr(states, f)[slot] for f in states._fields
+               if f != "rng" and getattr(states, f) is not None},
+            rng=states.rng[slot])
+        snap = self.eng.to_lss_state(one)
+        return snap._replace(t=snap.t.clone(),
+                             rng=_copy_generator(snap.rng))
+
+    def restore_slot(self, states, slot: int, snap):
+        """Write one slot in place: ``snap`` is a core-layout snapshot
+        (placed through :meth:`ShardedLSS.place_lss_state`, which re-seeds
+        the per-shard drop generators from its generator and puts its
+        send count on shard 0) or an engine-layout slot state from
+        :meth:`init_slot`."""
+        if isinstance(snap, lss.LSSState):
+            snap = self.eng.place_lss_state(snap)
+        for f in snap._fields:
+            if f != "rng" and getattr(snap, f) is not None:
+                getattr(states, f)[slot] = getattr(snap, f)
+        rng = list(states.rng)
+        rng[slot] = _copy_generators(snap.rng)
+        return states._replace(rng=tuple(rng))
+
+    def cut_frac(self) -> Optional[float]:
+        """Fraction of edges crossing shards: the partition quality the
+        drift metric is built on."""
+        st = self.eng.stopo
+        return st.cut_edges() / max(st.num_edges, 1)
+
+    def rebalance(self, dyn, states):
+        """Re-partition ``dyn`` (a fresh edge cut over the churned
+        adjacency; the halo width may change) and migrate every slot's
+        state across ``new_of_old``."""
+        old = self.eng
+        self.eng = self._build(dyn)
+        self.topo = dyn
+        return self.eng.migrate_from(old, states)
+
+    regrow = rebalance  # a regrow epoch re-partitions the grown graph
+
+
 class Service:
     """Long-running multi-tenant monitor over one network graph.
 
@@ -368,7 +563,8 @@ class Service:
             beta=scfg.beta, ell=scfg.ell, drop_rate=scfg.drop_rate,
             policy=scfg.policy, max_corr_iters=scfg.max_corr_iters,
             eps=scfg.eps)
-        self.backend = _CoreBackend(topo, scfg, self.device)
+        self.backend = (_EngineBackend if scfg.backend == "engine"
+                        else _CoreBackend)(topo, scfg, self.device)
         self.registry = QueryRegistry(scfg.capacity, scfg.k_max, scfg.d,
                                       self.base_cfg, device=self.device)
         self.ingest = StreamIngest()
@@ -789,9 +985,11 @@ class Service:
 
         Drives :meth:`DynTopology.grow`, copies the grown tables to the
         device and pads every slot's state (new rows start dead at init
-        values); queued membership events and preempted snapshots
-        survive.  With ``control.auto_regrow`` this runs when
-        :meth:`join_peer` / :meth:`link_peers` hit the capacity wall.
+        values), or on the engine backend re-partitions the grown graph
+        and migrates every slot's state; queued membership events and
+        preempted snapshots survive.  With ``control.auto_regrow`` this
+        runs when :meth:`join_peer` / :meth:`link_peers` hit the capacity
+        wall.
         """
         dyn = self._dyn
         if dyn is None:
@@ -817,14 +1015,49 @@ class Service:
         self._ctrl_events.append(("epoch", ev))
 
     def rebalance_now(self) -> Optional[dict]:
-        """Explicit re-partition epoch of the engine backend: ``None`` on
-        the partitionless core backend, the one ported (the engine
-        backend is ROADMAP A.6)."""
-        return None
+        """Explicit re-partition epoch (engine backend; ``None`` on the
+        partitionless core backend).
+
+        Long churn drifts shard occupancy away from the BFS edge-cut
+        optimum; this rebuilds the partition over the current graph and
+        migrates every slot's state across ``new_of_old``.  Returns the
+        epoch record (drift and cut fractions).  Runs by itself when
+        ``control.rebalance_drift`` > 0 and the drift crosses it.
+        """
+        before = self.backend.cut_frac()
+        if before is None:
+            return None
+        drift = self.capman.drift(before)
+        with self._obs.span("epoch_rebalance", trace=self._active_traces(),
+                            drift=drift, staged=False) as sp:
+            self.states = self.backend.rebalance(self.topo, self.states)
+        self._buffers.invalidate()  # fresh tables may change halo width
+        self._boundary_spans["epoch_rebalance"] = sp.seconds
+        self._boundary_counts["epochs"] = (
+            self._boundary_counts.get("epochs", 0) + 1)
+        ev = self.capman.note_epoch(
+            "rebalance", self.backend.cut_frac(),
+            cut_before=before, drift=drift, staged=False)
+        self._ctrl_events.append(("epoch", ev))
+        return ev
+
+    def _maybe_rebalance(self) -> None:
+        """The drift check of ``control.rebalance_drift``, every
+        ``rebalance_check_every`` dispatches: a rebalance epoch when the
+        drift crosses the threshold."""
+        # The early-outs skip the O(edges) cut_frac() host scan on every
+        # off-cadence dispatch.
+        if self.dispatches == 0 or self.capman.rebalance_drift <= 0.0:
+            return
+        if self.dispatches % self.capman.rebalance_check_every:
+            return
+        if self.capman.should_rebalance(self.dispatches,
+                                        self.backend.cut_frac()):
+            self.rebalance_now()
 
     def drift(self) -> float:
-        """Current partition drift (cut-fraction increase since the last
-        epoch); 0.0 on the core backend."""
+        """Current partition drift (the engine's cut-fraction increase
+        since the last epoch); 0.0 on the core backend."""
         return self.capman.drift(self.backend.cut_frac())
 
     def _apply_membership(self) -> int:
@@ -840,7 +1073,9 @@ class Service:
         events = self._dyn.events_since(self._applied_version)
         if not events:
             return 0
-        self.backend.refresh_topology(self._dyn)
+        if self.backend.refresh_topology(self._dyn):
+            # The halo width regrew: the declared reshape of the tables.
+            self._buffers.invalidate()
 
         # 1. Scrub the messaging state of every touched (peer, slot),
         #    freed and claimed alike (idempotent; order-free).
@@ -916,9 +1151,9 @@ class Service:
 
         The boundary runs inside one ``tick`` root span with the
         ``membership_drain`` / ``admission_drain`` / ``ingest_apply`` /
-        ``dispatch`` / ``observe`` spans under it (and ``epoch_regrow``
-        when a regrow epoch ran since the last tick).  An exception
-        escaping the tick dumps the flight recorder (when
+        ``dispatch`` / ``observe`` spans under it (and ``epoch_regrow`` /
+        ``epoch_rebalance`` when an epoch ran since the last tick).  An
+        exception escaping the tick dumps the flight recorder (when
         ``flight_dump_dir`` is set) before propagating.
         """
         try:
@@ -933,7 +1168,7 @@ class Service:
 
     def _host_boundary(self) -> None:
         """Everything the host does between dispatches: membership drain,
-        SLO eviction, admission, ingest."""
+        the drift check, SLO eviction, admission, ingest."""
         tr = self._obs
         with tr.span("membership_drain") as sp:
             n_events = self._apply_membership()
@@ -942,6 +1177,7 @@ class Service:
                     sp.set(key, v)
         self._boundary_spans["membership_drain"] = sp.seconds
         self._boundary_counts["membership_events"] = n_events
+        self._maybe_rebalance()
         self._evict_unrecoverable()
         with tr.span("admission_drain") as sp:
             n_act = self._drain_admission()
@@ -973,7 +1209,7 @@ class Service:
         self._last_k = k
         acc, quiescent, want = self.backend.metrics(self.states, params,
                                                     tables)
-        msgs = self.states.msgs
+        msgs = self.backend.msgs_device(self.states)
         self.states = self.backend.reset_msgs(self.states)
         events, self._ctrl_events = self._ctrl_events, []
         spans, self._boundary_spans = self._boundary_spans, {}

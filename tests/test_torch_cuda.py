@@ -602,6 +602,81 @@ def test_service_churn_fused_matches_reference(dev):
     assert _churn_records("cpu", True, specs)[0] == fused
 
 
+def _engine_service_records(device, use_kernels, specs, backend="engine",
+                            dispatches=8):
+    """A service on a DynTopology (grid 3,025, 8 spare rows, auto-regrow;
+    on the engine backend S = 4) under six seeded events a dispatch (joins
+    with a link, leaves, unlinks of live edges, links), a
+    ``grow_capacity`` of the degree slots at dispatch 3 and a forced
+    rebalance at dispatch 5.  Returns (records, epochs, launch counts)."""
+    dyn = topology.DynTopology.from_topology(topology.grid(3025),
+                                             n_cap=3033, deg_cap=6)
+    cfg = ServiceConfig(capacity=4, k_max=3, d=2, cycles_per_dispatch=4,
+                        use_kernels=use_kernels, backend=backend,
+                        engine_shards=4,
+                        control=ControlPlaneConfig(auto_regrow=True))
+    with Service(dyn, cfg, device=device) as svc:
+        for spec in specs:
+            svc.admit(spec)
+        rng = np.random.default_rng(11)
+        kernels.reset_counts()
+        records = []
+        for i in range(dispatches):
+            if i == 3:
+                svc.grow_capacity(deg_cap=svc.topo.deg_cap + 2)
+            if i == 5:
+                svc.rebalance_now()
+            for _ in range(6):
+                op = rng.choice([0, 0, 0, 1, 2, 3])
+                topo = svc.topo
+                a, b = (int(p) for p in rng.choice(
+                    np.flatnonzero(topo.present), 2, replace=False))
+                try:
+                    if op == 0:
+                        p = svc.join_peer(value=rng.normal(size=2))
+                        svc.link_peers(p, a)
+                    elif op == 1:
+                        svc.leave_peer(a)
+                    elif op == 2:
+                        live = topo.nbr[a][topo.mask[a]]
+                        if live.size:
+                            svc.unlink_peers(a, int(live[0]))
+                    else:
+                        svc.link_peers(a, b)
+                except ValueError:
+                    pass
+            records.append(svc.tick())
+        return (records, [e["kind"] for e in svc.capman.epochs],
+                kernels.counts())
+
+
+def test_engine_service_churn_fused_matches_reference(dev):
+    """The engine-backed service (Q = 4 tenants stacked on the sharded
+    state, S = 4) under churn through a regrow of the rows and of the
+    degree slots and a rebalance: the kernels on the card give the
+    reference suite's records on the card, the CPU's plain versions give
+    them too, and so does the core backend on the card; each kernel
+    launches as often as on the core backend (once a step for all
+    tenants)."""
+    centers, sample, _, _ = sim.make_problem(sim.ProblemSpec(n=3033, seed=0))
+    rng = np.random.default_rng(1)
+    specs = [QuerySpec(region=regions.VoronoiRegions(centers),
+                       inputs=sample(rng, 3033), seed=i) for i in range(4)]
+    fused, epochs, counts = _engine_service_records(dev, True, specs)
+    assert epochs.count("regrow") >= 2 and "rebalance" in epochs
+    assert counts["region_decide"] == len(fused)  # one per observe
+    assert counts["lss_state"] > 0 and counts["correction"] > 0
+    assert counts["lss_state_ref"] == counts["correction_ref"] == 0
+    plain = _engine_service_records(dev, False, specs)
+    assert plain[0] == fused and plain[1] == epochs
+    assert _engine_service_records("cpu", True, specs)[0] == fused
+    core, _, core_counts = _engine_service_records(dev, True, specs,
+                                                   backend="core")
+    assert core == fused
+    assert all(core_counts[k] == counts[k]
+               for k in ("lss_state", "correction", "region_decide"))
+
+
 def _engine_runs(dev, topo, use_kernels, cycles=30):
     """(engine, per-dispatch states) of a 3-shard engine on the card,
     K = 5, from ``run_static``'s problem."""

@@ -312,22 +312,32 @@ def test_workload_matches_jax():
 
 def test_unported_parts_raise_and_cpu_needs_asking():
     topo = t_top.grid(16)
-    for kw, item in (({"backend": "engine"}, "A.6"),
-                     ({"overlap": True}, "A.6"),
+    for kw, item in (({"overlap": True}, "A.6"),
+                     ({"backend": "engine", "overlap": True}, "A.6"),
                      ({"profile_dispatch": True}, "A.7"),
                      ({"alerts": ("rule",)}, "A.7"),
                      ({"audit_every": 1}, "A.7")):
         with pytest.raises(NotImplementedError, match=item):
             TService(topo, TConfig(**kw), device="cpu")
-    # A DynTopology is served on the core backend in synchronous mode;
-    # with the overlapped boundary or the engine backend it still raises.
+    # A DynTopology is served on both backends in synchronous mode; with
+    # the overlapped boundary it still raises.
     dyn = t_top.DynTopology.from_topology(topo, n_cap=20)
-    for kw in ({"backend": "engine"}, {"overlap": True}):
+    for kw in ({"backend": "engine", "overlap": True}, {"overlap": True}):
         with pytest.raises(NotImplementedError, match="A.6"):
             TService(dyn, TConfig(**kw), device="cpu")
     with TService(dyn, TConfig(), device="cpu") as svc:
         assert svc.membership is not None and svc.topo_version == 0
         assert svc.rebalance_now() is None and svc.drift() == 0.0
+    # backend="engine" constructs and serves, static and dynamic alike.
+    for graph in (topo, dyn):
+        with TService(graph, TConfig(backend="engine", capacity=2),
+                      device="cpu") as svc:
+            qid = svc.admit(heterogeneous_tenants(graph.n, 1)[0])
+            (rec,) = svc.tick()
+            assert rec["query"] == qid and rec["dispatch"] == 1
+            assert svc.dispatch_info()["suite"] == "reference"
+            assert svc.rebalance_now()["kind"] == "rebalance"
+            assert svc.drift() == 0.0
     with pytest.raises(ValueError, match="backend"):
         TService(topo, TConfig(backend="nope"), device="cpu")
     if not torch.cuda.is_available():
