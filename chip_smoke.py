@@ -131,13 +131,37 @@ Phases, in order; any failure exits nonzero:
    state after each run and timed beside their bounds after the
    128-event runs; at grid 4,096 the fused-suite and reference-suite
    engine-backed services must give identical records under churn
-   through a regrow of the rows and of the degree slots.
+   through a regrow of the rows and of the degree slots;
+12. the overlapped boundary (``ServiceConfig(overlap=True)``: each
+   dispatch on the service's worker thread beside the next boundary's
+   host work) beside the synchronous service, on phase 10's workload on
+   Chord at 128 events a dispatch, on the core and on the engine backend
+   (S = 8): one untimed dispatch each, then two interleaved rounds of six
+   timed ticks (the events emitted inside the timed chunk, the overlapped
+   chunk ending when its last dispatch is back), the counters zeroed
+   before each chunk and read after it, and two more dispatches each
+   under ``torch.profiler``; on the engine the second round opens with a
+   rebalance, in line in the synchronous service and staged
+   (``StagedBuild``) in the overlapped one, adopted by a later boundary.
+   Every record must equal the synchronous service's, dispatch by
+   dispatch (msgs, quiescent and region exact, accuracy within 1e-7), the
+   launches must be equal, the staged epoch must say ``staged: true``,
+   and the three kernels are held bitwise on the overlapped service's
+   state.  It prints the wall a tick and ``wall_ratio``, the pipeline
+   bubble (``host_overhead_frac`` and ``host_frac_ratio``, by
+   ``benchmarks/async_overlap.py``'s definition from the service's own
+   spans), ``membership_drain`` ms and its half beside the dispatch, the
+   epoch ms staged and in line, device events and idle share.  Then
+   phase 10's regrow run on grid on the engine backend, synchronous and
+   overlapped: under overlap the regrow at the capacity wall adopts the
+   build ``auto_regrow`` staged at the first boundary (``staged: true``),
+   with records equal.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
-churned-service and engine-backed-service runs, each path's in
-``launches_by_path``;
+churned-service, engine-backed-service and overlapped-service runs, each
+path's in ``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -177,7 +201,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Outside a checkout of the repository this import fails: no result.
-from repro_torch import kernels, service  # noqa: E402
+from repro_torch import kernels, obs, service  # noqa: E402
 from repro_torch.core import lss, regions, sim, topology, wvs  # noqa: E402
 from repro_torch.engine import EngineConfig, exchange  # noqa: E402
 from repro_torch.engine import sweep as engine_sweep  # noqa: E402
@@ -1740,16 +1764,16 @@ def _churn_specs(n_rows, n_pad, q):
 
 
 def _churn_service(base, n_cap, specs, dev, use_kernels=None,
-                   auto_regrow=False, **cfg):
+                   auto_regrow=False, tracker=None, **cfg):
     """The churn workload's service (``cfg``: further ``ServiceConfig``
-    fields, the engine backend's in phase 11)."""
+    fields, the engine backend's in phase 11, ``overlap`` in phase 12)."""
     dyn = topology.DynTopology.from_topology(base, n_cap=n_cap,
                                              deg_cap=base.max_deg + 2)
     svc = service.Service(dyn, service.ServiceConfig(
         capacity=len(specs), k_max=3, d=2, cycles_per_dispatch=CHURN_K,
         use_kernels=use_kernels,
         control=service.ControlPlaneConfig(auto_regrow=auto_regrow), **cfg),
-        device=dev)
+        tracker=tracker, device=dev)
     for spec in specs:
         svc.admit(spec)
     return svc
@@ -2161,6 +2185,286 @@ def phase_service_engine(topos, dev, gpu, core_runs):
     return totals
 
 
+# --- phase 12: the overlapped service boundary -----------------------------
+
+
+OVERLAP_RATE = 128  # phase 10's heavy churn
+OVERLAP_ROUNDS = 2  # interleaved rounds: a sync chunk, then an overlap chunk
+OVERLAP_PER_ROUND = CHURN_DISPATCHES // OVERLAP_ROUNDS
+OVERLAP_PROFILED = 2  # dispatches under torch.profiler, each mode
+
+
+def _in_flight(tracker, skip):
+    """``benchmarks/async_overlap.py::_in_flight``: the in-flight interval
+    of each window, from the end of its ``dispatch`` span (the K cycles
+    enqueued) to the end of its ``observe`` span (the records on the
+    host), merged; ``skip`` drops the warm-up window."""
+    enq = [s._t0 + s.seconds for s in tracker.spans_named("dispatch")][skip:]
+    syn = [s._t0 + s.seconds for s in tracker.spans_named("observe")][skip:]
+    merged = []
+    for lo, hi in sorted(zip(enq, syn)):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return merged
+
+
+def _bubble_frac(chunks, intervals):
+    """``benchmarks/async_overlap.py::_bubble_frac``: the share of the
+    timed chunks that no in-flight window covers."""
+    covered = 0.0
+    for lo, hi in intervals:
+        for c0, c1 in chunks:
+            covered += max(0.0, min(hi, c1) - max(lo, c0))
+    total = sum(c1 - c0 for c0, c1 in chunks)
+    return max(0.0, total - covered) / total
+
+
+def _by_dispatch(records):
+    """Records grouped per dispatch, in dispatch order."""
+    out = {}
+    for r in records:
+        out.setdefault(r["dispatch"], []).append(r)
+    return [out[k] for k in sorted(out)]
+
+
+def _span_ms(svc, name, attr=None):
+    """Milliseconds of each ``name`` span (or of its ``attr``)."""
+    return [1e3 * (s.attrs[attr] if attr else s.seconds)
+            for s in svc.tracker.spans_named(name)
+            if attr is None or attr in s.attrs]
+
+
+def _stage_rebalance(svc):
+    """What ``_maybe_rebalance`` does when the drift check fires under
+    overlap: the rebalance's partition build staged on a background
+    thread, adopted by a later boundary once ready."""
+    with svc._obs.span("epoch_stage", kind="rebalance"):
+        svc._staged["rebalance"] = svc.backend.stage_rebalance(svc._dyn)
+
+
+def _epoch_dispatch(svc, kind):
+    """The dispatch whose control record carries the first ``kind``
+    epoch (the first dispatch launched after it)."""
+    return next(r["dispatch"] for r in svc.tracker.records
+                if r.get("kind") == "control"
+                and any(e["kind"] == kind for e in r.get("epochs", ())))
+
+
+def _count_into(label, totals):
+    counts = kernels.counts()
+    if any(counts[f"{k}_ref"] for k in totals):
+        raise AssertionError(f"{label}: a plain version ran")
+    for key in totals:
+        totals[key] += counts[key]
+
+
+def _overlap_cell(label, base, dev, gpu, cfg, totals):
+    """One backend on phase 10's workload at 128 events a dispatch, the
+    synchronous and the overlapped service side by side: one untimed
+    dispatch each, then ``OVERLAP_ROUNDS`` interleaved rounds of
+    ``OVERLAP_PER_ROUND`` timed ticks (events emitted inside the timed
+    chunk, the overlapped chunk ending when its last dispatch is back).
+    On the engine the second round opens with a rebalance: in line in the
+    synchronous service, staged in the overlapped one.  The launch
+    counters are zeroed before each chunk and read after it; the
+    overlapped chunks' counts go into ``totals``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_cap = base.n + max(4, int(base.n * CHURN_SPARE))
+    specs = _churn_specs(n_cap, n_cap, CHURN_Q)
+    modes = {}
+    for mode in ("sync", "overlap"):
+        svc = _churn_service(base, n_cap, specs, dev,
+                             tracker=obs.InMemoryTracker(),
+                             overlap=mode == "overlap", **cfg)
+        warm = svc.tick() + svc.flush()
+        modes[mode] = {"svc": svc, "gen": _EventGen(svc, 2), "wall": 0.0,
+                       "chunks": [], "records": warm,
+                       "counts": {k: 0 for k in KERNELS}}
+    engine = cfg.get("backend") == "engine"
+    for rnd in range(OVERLAP_ROUNDS):
+        for mode, m in modes.items():
+            svc, gen = m["svc"], m["gen"]
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if engine and rnd == 1:
+                staged_at = svc.dispatches
+                (_stage_rebalance if mode == "overlap"
+                 else service.Service.rebalance_now)(svc)
+            for _ in range(OVERLAP_PER_ROUND):
+                for _ in range(OVERLAP_RATE):
+                    gen.emit(svc)
+                m["records"] += svc.tick()
+            svc._join()  # the chunk's last dispatch is back
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _count_into(f"{label} {mode}", m["counts"])
+            m["wall"] += t1 - t0
+            m["chunks"].append((t0, t1))
+    over = modes["overlap"]["svc"]
+    if engine and "rebalance" in over._staged:
+        # Not adopted within the timed rounds: wait for the build and
+        # give both services one more (untimed) dispatch.
+        over._staged["rebalance"][0].take()
+        for mode, m in modes.items():
+            kernels.reset_counts()
+            for _ in range(OVERLAP_RATE):
+                m["gen"].emit(m["svc"])
+            m["records"] += m["svc"].tick()
+            m["svc"]._join()
+            _count_into(f"{label} {mode} adoption", m["counts"])
+    ticks = OVERLAP_ROUNDS * OVERLAP_PER_ROUND
+    stats = {}
+    for mode, m in modes.items():
+        svc = m["svc"]
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(OVERLAP_PROFILED):
+                for _ in range(OVERLAP_RATE):
+                    m["gen"].emit(svc)
+                m["records"] += svc.tick()
+            svc._join()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _count_into(f"{label} {mode} profiled", m["counts"])
+        m["records"] += svc.flush()
+        stats[mode] = _print_profile(
+            f"overlap {label} {mode}", prof, wall * 1e3,
+            m["wall"] / ticks * 1e3 * OVERLAP_PROFILED, OVERLAP_PROFILED,
+            "dispatch")
+        m["frac"] = _bubble_frac(m["chunks"], _in_flight(svc.tracker, 1))
+    sync, over_m = modes["sync"], modes["overlap"]
+    n_rec = _same_records(f"{label} overlap vs sync",
+                          _by_dispatch(over_m["records"]),
+                          _by_dispatch(sync["records"]))
+    if over_m["counts"] != sync["counts"]:
+        raise AssertionError(f"{label}: launches {over_m['counts']} != the "
+                             f"synchronous service's {sync['counts']}")
+    if engine:
+        staged = [e for e in over.capman.epochs if e["kind"] == "rebalance"]
+        if [e["staged"] for e in staged] != [True]:
+            raise AssertionError(f"{label}: rebalance epochs {staged}")
+    for key in totals:
+        if over_m["counts"][key] <= 0:
+            raise AssertionError(f"{label}: overlap launched no {key}")
+        totals[key] += over_m["counts"][key]
+    tick_ms = {mode: m["wall"] / ticks * 1e3 for mode, m in modes.items()}
+    frac_ratio = min(100.0, sync["frac"] / max(over_m["frac"],
+                                               sync["frac"] / 100.0, 1e-9))
+    wall_ratio = tick_ms["sync"] / tick_ms["overlap"]
+    drains = {mode: _span_ms(m["svc"], "membership_drain")[1:]
+              for mode, m in modes.items()}
+    beside = _span_ms(over, "membership_drain", "prepare_s")[1:]
+    steps = {mode: _span_ms(m["svc"], "dispatch")[1:]
+             for mode, m in modes.items()}
+    n_disp = over.dispatches - 1  # every counted dispatch
+    print(f"[overlap] {label} n_cap={n_cap} Q={CHURN_Q} K={CHURN_K}, "
+          f"{OVERLAP_RATE} events a dispatch, {OVERLAP_ROUNDS} interleaved "
+          f"rounds of {OVERLAP_PER_ROUND} timed ticks: wall ms a tick sync "
+          f"{tick_ms['sync']:.3f}, overlap {tick_ms['overlap']:.3f} "
+          f"(wall_ratio {wall_ratio:.4f}); host_overhead_frac sync "
+          f"{sync['frac']:.4f}, overlap {over_m['frac']:.4f} "
+          f"(host_frac_ratio {frac_ratio:.4f}); membership_drain ms median "
+          f"sync {np.median(drains['sync']):.3f}, overlap "
+          f"{np.median(drains['overlap']):.3f} of which beside the "
+          f"dispatch {np.median(beside):.3f}; dispatch span (its K cycles "
+          f"enqueued) ms median sync {np.median(steps['sync']):.3f}, "
+          f"overlap {np.median(steps['overlap']):.3f}; launches per dispatch "
+          f"{ {k: over_m['counts'][k] / n_disp for k in KERNELS} } (equal "
+          f"to the synchronous service's); records equal over "
+          f"{len(_by_dispatch(over_m['records']))} dispatches ({n_rec} "
+          f"records); {gpu}", flush=True)
+    for mode in modes:
+        st = stats[mode]
+        if st is not None:
+            print(f"[overlap] {label} {mode}: device events per dispatch "
+                  f"{st['events']:.1f}, idle share {st['idle']:.3f}",
+                  flush=True)
+    if engine:
+        print(f"[overlap] {label}: rebalance in line "
+              f"{_span_ms(sync['svc'], 'epoch_rebalance')[0]:.3f} ms; "
+              f"staged: epoch_stage {_span_ms(over, 'epoch_stage')[0]:.3f} "
+              f"ms after dispatch {staged_at}, adopted in "
+              f"{_span_ms(over, 'epoch_rebalance')[0]:.3f} ms by the "
+              f"boundary of dispatch {_epoch_dispatch(over, 'rebalance')} "
+              f"(staged: true; catch-up and migration)", flush=True)
+    _check_service_kernels(f"overlap {label}", over)
+    for m in modes.values():
+        m["svc"].close()
+    return {"tick_ms": tick_ms, "wall_ratio": wall_ratio,
+            "frac": {mode: m["frac"] for mode, m in modes.items()},
+            "frac_ratio": frac_ratio}
+
+
+def _overlap_regrow(base, dev, gpu, totals):
+    """Phase 10's regrow run (grid, ``REGROW_SPARE`` rows past the graph,
+    64 joins a dispatch) on the engine backend, synchronous and
+    overlapped: under overlap ``_maybe_stage_growth`` stages the grown
+    partition at the first boundary and the regrow at the capacity wall
+    adopts it, caught up from the journal (``staged: true``); the
+    synchronous service rebuilds in line.  Records equal; the launch
+    counters zeroed before the overlapped run and read after it."""
+    n1 = base.n + REGROW_SPARE
+    specs = _churn_specs(n1, n1, CHURN_Q)
+    runs = {}
+    for overlap in (False, True):
+        svc = _churn_service(base, n1, specs, dev, auto_regrow=True,
+                             tracker=obs.InMemoryTracker(), overlap=overlap,
+                             **ENGINE_SERVICE)
+        records = svc.tick()
+        gen = _EventGen(svc, 2, (0,))
+        kernels.reset_counts()
+        for _ in range(6):
+            for _ in range(64):
+                gen.emit(svc)
+            records += svc.tick()
+        records += svc.flush()
+        if overlap:
+            _count_into("overlap regrow", totals)
+            _check_service_kernels(f"overlap regrow run n_cap={n1}->"
+                                   f"{svc.topo.n_cap}", svc)
+        runs[overlap] = (svc, _by_dispatch(records))
+    (sync, want), (over, got) = runs[False], runs[True]
+    n_rec = _same_records("overlap regrow vs sync", got, want)
+    epochs = [(e["kind"], e.get("staged")) for e in over.capman.epochs]
+    in_line = [(e["kind"], e.get("staged")) for e in sync.capman.epochs]
+    if (epochs[1] != ("regrow", True) or any(st for _, st in in_line)
+            or [k for k, _ in epochs] != [k for k, _ in in_line]):
+        raise AssertionError(f"overlap regrow: epochs {epochs}, in line "
+                             f"{in_line}")
+    print(f"[overlap-regrow] grid engine n_cap {n1} -> {over.topo.n_cap} "
+          f"(64 joins a dispatch; epochs {epochs}): first regrow in line "
+          f"{_span_ms(sync, 'epoch_regrow')[0]:.3f} ms; staged "
+          f"(epoch_stage {_span_ms(over, 'epoch_stage')[0]:.3f} ms at the "
+          f"first boundary) adopted with the journal's catch-up in "
+          f"{_span_ms(over, 'epoch_regrow')[0]:.3f} ms (staged: true); "
+          f"records equal over {len(got)} dispatches ({n_rec} records); "
+          f"{gpu}", flush=True)
+    sync.close()
+    over.close()
+    torch.cuda.empty_cache()
+
+
+def phase_overlap(topos, dev, gpu):
+    """The overlapped boundary (``ServiceConfig(overlap=True)``) beside the
+    synchronous one on chord at 128 events a dispatch, on the core and
+    the engine backend, and the staged regrow on grid.  Returns the
+    overlapped runs' launch totals."""
+    totals = {key: 0 for key in KERNELS}
+    for label, cfg in (("core chord", {}),
+                       ("engine chord", ENGINE_SERVICE)):
+        _overlap_cell(label, topos["chord"], dev, gpu, cfg, totals)
+        torch.cuda.empty_cache()
+    _overlap_regrow(topos["grid"], dev, gpu, totals)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2214,6 +2518,7 @@ def main() -> int:
                                      gpu)
     engine_svc_totals = phase("phase 11", phase_service_engine, topos, dev,
                               gpu, churn_runs)
+    overlap_totals = phase("phase 12", phase_overlap, topos, dev, gpu)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -2275,7 +2580,8 @@ def main() -> int:
             "launches": (totals[name] + svc_totals[name] + eng_totals[name]
                          + sweep_totals[name]
                          + sum(t[name] for t in aq_totals.values())
-                         + churn_totals[name] + engine_svc_totals[name]),
+                         + churn_totals[name] + engine_svc_totals[name]
+                         + overlap_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
@@ -2283,7 +2589,8 @@ def main() -> int:
                                  **{path: t[name]
                                     for path, t in aq_totals.items()},
                                  "service_churn": churn_totals[name],
-                                 "service_engine": engine_svc_totals[name]},
+                                 "service_engine": engine_svc_totals[name],
+                                 "service_overlap": overlap_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

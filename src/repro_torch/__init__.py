@@ -10,7 +10,8 @@ kernel's plain PyTorch version instead.
 Ported so far: the paper's formulas (:mod:`.core.wvs`, :mod:`.core.regions`,
 :mod:`.core.stopping`, :mod:`.core.correction`), the topologies, Alg. 1
 (:mod:`.core.lss`), the Sec.-VI experiment driver (:mod:`.core.sim`), the
-multi-tenant monitor service (:mod:`.service`, core backend), the sharded
+multi-tenant monitor service (:mod:`.service`, both backends, synchronous
+and overlapped), the sharded
 engine's single-device path (sync and async, all four halo wires) and its
 sweeps (:mod:`.engine`), the halo quantizer (:mod:`.distributed`), and all
 three kernels: ``lss_state``, ``correction`` and ``region_decide``.

@@ -72,8 +72,8 @@ from ..kernels import ops as kernel_ops
 from ..kernels import suite as kernel_suite
 from . import exchange, partition
 
-__all__ = ["DeviceTopo", "EngineConfig", "ShardedState", "AsyncShardedState",
-           "ShardedLSS"]
+__all__ = ["DeviceTopo", "EngineConfig", "MembershipRepair", "ShardedState",
+           "AsyncShardedState", "ShardedLSS"]
 
 
 def _unported(what: str, item: str):
@@ -99,8 +99,15 @@ class DeviceTopo(NamedTuple):
     halo: partition.HaloTables  # (S, S, H): int64 rows/slots, bool send_ok
 
     @classmethod
-    def from_sharded(cls, st: partition.ShardedTopo, device) -> "DeviceTopo":
+    def from_sharded(cls, st: partition.ShardedTopo, device,
+                     pin: bool = False) -> "DeviceTopo":
+        """The tables of ``st`` on ``device``; with ``pin``, in pinned host
+        memory instead, for a later asynchronous :meth:`to`."""
         def t(a, dtype):
+            if pin:
+                src = torch.from_numpy(np.ascontiguousarray(a))
+                return torch.empty(src.shape, dtype=dtype,
+                                   pin_memory=True).copy_(src)
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
         i64 = torch.int64
@@ -115,6 +122,17 @@ class DeviceTopo(NamedTuple):
                 t(h.send_ok, torch.bool), t(h.recv_row, i64),
                 t(h.recv_slot, i64)))
 
+    def to(self, device) -> "DeviceTopo":
+        """The tables copied to ``device``; from pinned host tables the
+        copy is asynchronous, ordered on the current stream before the
+        kernels that read it."""
+        def mv(a):
+            return a.to(device, non_blocking=True)
+
+        return DeviceTopo(*(mv(a) for a in self[:-1]),
+                          halo=partition.HaloTables(*(mv(a)
+                                                      for a in self.halo)))
+
     def flat(self) -> lss.TopoArrays:
         """The core's view over all ``S*B`` rows: ``(nbr=tgt_pos, mask,
         rev)`` keeps the slot involution across shard boundaries."""
@@ -122,6 +140,17 @@ class DeviceTopo(NamedTuple):
         return lss.TopoArrays(nbr=self.tgt_pos.reshape(S * B, D),
                               mask=self.mask.reshape(S * B, D),
                               rev=self.rev.reshape(S * B, D))
+
+
+class MembershipRepair(NamedTuple):
+    """A membership repair prepared on the host
+    (:meth:`ShardedLSS.prepare_membership`), installed by
+    :meth:`ShardedLSS.install_membership`."""
+
+    version: int  # the DynTopology version the repair catches up to
+    stopo: Optional[partition.ShardedTopo]  # None: no adjacency changed
+    wire_w: int  # the wire width after the repair
+    tables: Optional[DeviceTopo]  # host tables, trimmed to wire_w
 
 
 class EngineConfig(NamedTuple):
@@ -322,8 +351,9 @@ class ShardedLSS:
         self.part = part
         self.S, self.B, self.D = part.num_shards, part.block, self.stopo.D
         self.n, self.num_edges = self.stopo.n, self.stopo.num_edges
-        self._wire_w = self._wire_width()
-        self._refresh_tables()
+        self._wire_w = self._wire_width(self.stopo)
+        self._install_tables(self._wire_tables(
+            DeviceTopo.from_sharded(self.stopo, self.device), self._wire_w))
         # Version of the (Dyn)topology the tables reflect; apply_membership
         # catches up incrementally from here.
         self._topo_version = getattr(topo, "version", 0)
@@ -336,13 +366,13 @@ class ShardedLSS:
                                                            eps)
         return self._slot_tables[eps]
 
-    def _refresh_tables(self) -> None:
-        """Device tables (trimmed to the wire width) and the host-side
-        halo statistics :meth:`run` reports, from ``self.stopo``."""
+    def _install_tables(self, tables: DeviceTopo) -> None:
+        """Swap in device tables (trimmed to the wire width) and the
+        host-side halo statistics :meth:`run` reports, from
+        ``self.stopo``."""
         st = self.stopo
-        self._tables = self._wire_tables(DeviceTopo.from_sharded(
-            st, self.device))
-        self._flat_topo = self._tables.flat()
+        self._tables = tables
+        self._flat_topo = tables.flat()
         self._pair_counts = np.asarray(st.halo.send_ok).sum(axis=-1)
         self._cuts = (st.mask & ~st.intra).reshape(self.S, -1).sum(axis=1)
 
@@ -511,41 +541,65 @@ class ShardedLSS:
         (:func:`repro_torch.engine.partition.repair_sharded_topo`), and the
         device tables are rebuilt.  Returns True when the halo width (or
         the wire width) regrew.  ``rows`` overrides the changed-row set.
+
+        :meth:`prepare_membership` (the host work) then
+        :meth:`install_membership` (the upload and the swap); the
+        overlapped service runs the first while a dispatch still reads the
+        installed tables.
         """
+        return self.install_membership(self.prepare_membership(dyn, rows))
+
+    def prepare_membership(self, dyn, rows=None) -> MembershipRepair:
+        """The host half of :meth:`apply_membership`: the repaired
+        :class:`~repro_torch.engine.partition.ShardedTopo`, its wire width
+        and its tables in (pinned, for a CUDA engine) host memory.  Reads
+        the engine and writes nothing of it."""
         if rows is None:
             rows = dyn.changed_rows_since(self._topo_version)
-        self._topo_version = dyn.version
         if rows.size == 0:
-            return False
-        old_width = self.stopo.halo_width
-        old_wire_w = self._wire_w
-        self.stopo = partition.repair_sharded_topo(
+            return MembershipRepair(dyn.version, None, self._wire_w, None)
+        stopo = partition.repair_sharded_topo(
             self.stopo, dyn, rows,
             halo_slack=max(self.ecfg.halo_slack, 1.25))
-        self.num_edges = self.stopo.num_edges
         # The wire width only ever grows within an engine's lifetime.
-        self._wire_w = max(old_wire_w, self._wire_width())
-        self._refresh_tables()
-        return (self.stopo.halo_width != old_width
-                or self._wire_w != old_wire_w)
+        wire_w = max(self._wire_w, self._wire_width(stopo))
+        host = DeviceTopo.from_sharded(stopo, "cpu",
+                                       pin=self.device.type == "cuda")
+        return MembershipRepair(dyn.version, stopo, wire_w,
+                                self._wire_tables(host, wire_w))
+
+    def install_membership(self, rep: MembershipRepair) -> bool:
+        """The device half of :meth:`apply_membership`: upload ``rep``'s
+        tables and swap them in.  Returns True when the halo width (or the
+        wire width) regrew."""
+        self._topo_version = rep.version
+        if rep.stopo is None:
+            return False
+        grew = (rep.stopo.halo_width != self.stopo.halo_width
+                or rep.wire_w != self._wire_w)
+        self.stopo, self._wire_w = rep.stopo, rep.wire_w
+        self.num_edges = rep.stopo.num_edges
+        self._install_tables(rep.tables.to(self.device))
+        return grew
 
     # -- wire format -------------------------------------------------------
-    def _wire_width(self) -> int:
-        """Halo width the wire transport ships: the full padded ``H`` for
-        non-trimming formats; otherwise the last occupied table position
-        (+1) rounded up to a byte boundary (flags bit-pack evenly)."""
-        H = self.stopo.halo_width
+    def _wire_width(self, stopo: partition.ShardedTopo) -> int:
+        """Halo width the wire transport ships for ``stopo``'s tables: the
+        full padded ``H`` for non-trimming formats; otherwise the last
+        occupied table position (+1) rounded up to a byte boundary (flags
+        bit-pack evenly)."""
+        H = stopo.halo_width
         if not self._wire.trims:
             return H
-        ok = np.asarray(self.stopo.halo.send_ok)
+        ok = np.asarray(stopo.halo.send_ok)
         occupied = ok * (np.arange(H, dtype=np.int64) + 1)[None, None, :]
         needed = int(occupied.max()) if occupied.size else 0
         return max(1, min(H, -(-needed // 8) * 8))
 
-    def _wire_tables(self, tables: DeviceTopo) -> DeviceTopo:
-        """Slice the device halo tables to the wire width (entries beyond
+    @staticmethod
+    def _wire_tables(tables: DeviceTopo, W: int) -> DeviceTopo:
+        """Slice the halo tables to the wire width ``W`` (entries beyond
         it are all ``send_ok``-False padding)."""
-        W = self._wire_w
         halo = tables.halo
         if W >= halo.send_ok.shape[-1]:
             return tables

@@ -101,6 +101,11 @@ class Span:
     def _stop(self) -> None:
         self.seconds = time.perf_counter() - self._t0
 
+    def elapsed(self, until: Optional[float] = None) -> float:
+        """Seconds from the span's start to ``until`` (a
+        ``time.perf_counter`` stamp; default now)."""
+        return (time.perf_counter() if until is None else until) - self._t0
+
     def to_record(self) -> dict:
         """The ``kind="span"`` record for this scope (schema-validated).
 
@@ -160,6 +165,25 @@ class Tracker:
             if self._span_stack and self._span_stack[-1] is sp:
                 self._span_stack.pop()
             self._finish_span(sp)
+
+    def start_span(self, name: str, trace: Iterable[str] = (),
+                   **attrs) -> Span:
+        """Open a timed scope outside the nesting stack: its parent is the
+        span active now, and nothing opened later nests under it.  Close
+        it with :meth:`end_span`, from any point of the program (the
+        overlapped service ends a dispatch's span when its worker thread
+        hands the dispatch back)."""
+        parent = self._span_stack[-1].span_id if self._span_stack else None
+        return Span(name, attrs, parent_id=parent, trace=trace)
+
+    def end_span(self, sp: Span, seconds: Optional[float] = None) -> None:
+        """Record a span from :meth:`start_span`, timed until now or with
+        the given ``seconds``."""
+        if seconds is None:
+            sp._stop()
+        else:
+            sp.seconds = seconds
+        self._finish_span(sp)
 
     def _finish_span(self, sp: Span) -> None:
         self.registry.histogram(

@@ -20,10 +20,11 @@ Components:
 * :mod:`.controlplane` — per-tenant SLOs, priority scheduling with
   preemption, SLO-driven queue eviction.
 
-Ported: the core backend in synchronous mode on a static topology.  The
-engine backend, the overlapped boundary, dynamic membership and the
-profiling / alert / audit hooks are not ported yet (ROADMAP A.6,
-A.7); :class:`Service` raises on them.
+Ported: the core and engine backends, synchronous and overlapped
+(:mod:`.overlap`: a worker thread per service, staged epoch builds), on a
+static topology and under membership churn (:mod:`.membership`).  The
+profiling / alert / audit hooks are not ported yet (ROADMAP A.7);
+:class:`Service` raises on them.
 """
 
 from .admission import AdmissionQueue

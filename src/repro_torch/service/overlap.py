@@ -1,29 +1,41 @@
 """Host-boundary primitives of :class:`~repro_torch.service.Service`.
 
-Port of the two pieces of ``repro/service/overlap.py`` that the
-synchronous service uses:
+Port of ``repro/service/overlap.py``.  JAX gets the overlap from its
+asynchronous dispatch; here a dispatch is a host loop (the correction
+do-while reads its running flag every iteration), so the overlapped
+service (``ServiceConfig(overlap=True)``) runs each dispatch on a worker
+thread while the main thread runs the next boundary's host-only work and
+finishes the previous window::
 
-* :class:`PendingWindow` — everything dispatch K's telemetry needs,
-  captured at launch time: the observation tensors plus a host-side
-  snapshot of the bookkeeping the records are built from (active slots,
+    sync     |--boundary K--|--dispatch K--|--boundary K+1--|--dispatch K+1--|
+    overlap  |--boundary K--|--dispatch K (worker)-----|
+                            |--host part of K+1--|join|--rest--|--dispatch K+1
+
+* :class:`PendingWindow` — everything dispatch K's telemetry needs: the
+  observation rows, copied to (pinned) host memory behind the dispatch,
+  with the CUDA event that marks the copy done, plus a host-side snapshot
+  of the bookkeeping the records are built from (active slots,
   dispatch/cycle counters, control events).  The synchronous service
-  finishes the window right after its dispatch.
+  finishes it right after its dispatch, the overlapped one a tick later.
 * :class:`DoubleBuffer` — the fixed-shape invariant made explicit: each
   launch stages the ``QueryParams``/``TopoArrays`` operands and ``swap``
   checks that their shapes and dtypes are unchanged, so a boundary edit
   that would reshape the hot dispatch raises instead.
-
-The overlapped mode itself (``StagedBuild``, the deferred window) is not
-ported yet (ROADMAP A.6).
+* :class:`StagedBuild` — an epoch's heavy host work (a partition and its
+  halo tables, a new engine) run on a background thread against an
+  immutable topology snapshot; the boundary polls :meth:`StagedBuild.
+  ready` and adopts the build at a later tick, caught up by the same
+  incremental journal repair live membership uses.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+import threading
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["PendingWindow", "DoubleBuffer", "BufferReshape"]
+__all__ = ["PendingWindow", "DoubleBuffer", "StagedBuild", "BufferReshape"]
 
 
 class PendingWindow(NamedTuple):
@@ -33,11 +45,11 @@ class PendingWindow(NamedTuple):
     dispatch: int  # 1-based dispatch index (post-increment)
     t: int  # service cycle counter after this window's K cycles
     k: int  # cycles this dispatch ran
-    acc: Any  # (Q,) device — per-slot accuracy
-    quiescent: Any  # (Q,) device — per-slot quiescence
-    want: Any  # (Q,) device — global correct region
-    msgs: Any  # (Q,) device — per-slot sends this window
-    corr_iters: Any  # (Q,) device or None — correction do-while iters
+    acc: Any  # (Q,) host f64 — per-slot accuracy (None until landed)
+    quiescent: Any  # (Q,) host f64 — per-slot quiescence
+    want: Any  # (Q,) host f64 — global correct region
+    msgs: Any  # (Q,) host f64 — per-slot sends this window
+    corr_iters: Any  # (Q,) host f64 — correction do-while iters
     active: Tuple[Tuple[str, int], ...]  # (query_id, slot) at launch
     queued: Tuple[str, ...]  # waiting query ids at launch
     preempted: Tuple[str, ...]  # suspended query ids at launch
@@ -46,6 +58,7 @@ class PendingWindow(NamedTuple):
     events: list  # control events swapped out at launch
     spans: dict  # boundary span seconds swapped out at launch
     counts: dict  # boundary work counts swapped out at launch
+    ready: Any = None  # CUDA event: the rows above reached the host
 
 
 class BufferReshape(RuntimeError):
@@ -109,3 +122,44 @@ class DoubleBuffer:
         self._sig = sig
         self.front = bufs
         self.swaps += 1
+
+
+class StagedBuild:
+    """One background build of an epoch's host-side product.
+
+    Runs ``fn`` (work over an immutable snapshot — a partition, its halo
+    tables, a fresh engine) on a daemon thread started at construction.
+    The boundary polls :meth:`ready` and calls :meth:`take` to adopt;
+    ``take`` joins, so calling it early waits for the build instead of
+    racing it.  An exception of the build is kept and re-raised by
+    ``take``; the adopter then rebuilds in line.
+    """
+
+    __slots__ = ("label", "_fn", "_result", "_error", "_thread")
+
+    def __init__(self, fn: Callable[[], Any], label: str = ""):
+        self.label = label
+        self._fn = fn
+        self._result: Any = None
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, name=f"staged-build-{label or 'epoch'}",
+            daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            self._result = self._fn()
+        except BaseException as e:  # re-raised by take()
+            self._error = e
+
+    def ready(self) -> bool:
+        """True once the build finished (successfully or not)."""
+        return not self._thread.is_alive()
+
+    def take(self) -> Any:
+        """Join and return the build product (re-raising its error)."""
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._result

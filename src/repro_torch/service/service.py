@@ -1,7 +1,7 @@
 """The service driver: Q query slots, one batched pass per cycle.
 
-Port of ``repro/service/service.py`` in synchronous mode, on both
-backends.  Execution model::
+Port of ``repro/service/service.py``, on both backends.  Execution
+model::
 
     admit (or queue) / retire --+                +--> telemetry (JSONL)
     membership joins/leaves ----+--> [boundary] -+
@@ -51,15 +51,29 @@ the core layout and resume where they stopped, reconciled when membership
 moved while they held no slot), SLO-driven queue eviction, the regrow and
 rebalance epochs.
 
+With ``ServiceConfig(overlap=True)`` the tick is re-cut around a worker
+thread (:mod:`repro_torch.service.overlap`): dispatch K runs on the
+service's one worker thread while the main thread drains the membership
+queue and prepares the repaired tables for dispatch K+1 (host work only);
+then it joins the worker, edits the state and launches dispatch K+1, and
+finishes dispatch K's telemetry while K+1 runs.  Records are the
+synchronous mode's; only their emission is one tick late
+(:meth:`Service.flush` drains the last window).  On the engine backend
+the epochs' partition builds can be staged on a background thread
+(:class:`~repro_torch.service.overlap.StagedBuild`) and adopted at a later
+boundary.  Every method that reads or writes the state between ticks
+joins the worker first.
+
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: ``overlap=True`` (A.6, with the staged epoch builds), on either
-backend; ``profile_dispatch``/``profiler_dir``, ``alerts`` and
+item: ``profile_dispatch``/``profiler_dir``, ``alerts`` and
 ``audit_every > 0`` (A.7).
 """
 
 from __future__ import annotations
 
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -78,7 +92,7 @@ from .controlplane import (ActiveView, CapacityManager, ControlPlaneConfig,
                            make_scheduler)
 from .ingest import StreamIngest, UpdateBatch
 from .membership import MembershipQueue
-from .overlap import DoubleBuffer, PendingWindow
+from .overlap import DoubleBuffer, PendingWindow, StagedBuild
 from .registry import QueryRegistry
 from .telemetry import TelemetrySink
 
@@ -106,10 +120,15 @@ class ServiceConfig(NamedTuple):
     headroom in the halo tables and the ``engine_wire`` halo format
     (``exact``, ``compact``, ``int8``, ``bf16``).
 
+    ``overlap=True`` runs each dispatch on a worker thread beside the next
+    boundary's host work; ``tick()`` then returns the previous dispatch's
+    records (``[]`` on the first tick) and ``flush()`` the last ones.
+    Record content is the synchronous mode's.
+
     Fields of the JAX twin that select parts not ported yet are kept so
     configurations carry over, and the service raises on them:
-    ``overlap`` (ROADMAP A.6), ``profile_dispatch``/``profiler_dir``/
-    ``profile_sample_every``, ``alerts`` and ``audit_every`` (A.7).
+    ``profile_dispatch``/``profiler_dir``/``profile_sample_every``,
+    ``alerts`` and ``audit_every`` (ROADMAP A.7).
     """
 
     capacity: int = 64  # Q query slots
@@ -147,8 +166,6 @@ def _unported(scfg: ServiceConfig) -> Optional[str]:
     alike)."""
     if scfg.backend not in ("core", "engine"):
         raise ValueError(f"unknown backend {scfg.backend!r}")
-    if scfg.overlap:
-        return "overlap=True (the overlapped host boundary, ROADMAP A.6)"
     if scfg.profile_dispatch or scfg.profiler_dir is not None:
         return "profile_dispatch/profiler_dir (ROADMAP A.7)"
     if scfg.alerts:
@@ -224,10 +241,20 @@ class _CoreBackend:
     def topo_args(self):
         return self.ta
 
-    def refresh_topology(self, dyn) -> bool:
-        """Copy the mutated topology's tables to the device (same shapes:
+    def prepare_topology(self, dyn) -> lss.TopoArrays:
+        """The host half of a membership drain: a copy of the mutated
+        topology's three tables in (pinned, for a CUDA device) host
+        memory."""
+        host = lss.TopoArrays.from_topology(dyn, "cpu")
+        if self.device.type == "cuda":
+            host = lss.TopoArrays(*(t.pin_memory() for t in host))
+        return host
+
+    def install_topology(self, host: lss.TopoArrays) -> bool:
+        """Upload the prepared tables and swap them in (same shapes:
         returns False, no shape changed)."""
-        self.ta = lss.TopoArrays.from_topology(dyn, self.device)
+        self.ta = lss.TopoArrays(*(t.to(self.device, non_blocking=True)
+                                   for t in host))
         return False
 
     def init_states(self, q: int, d: int, alive=None) -> lss.LSSState:
@@ -249,23 +276,25 @@ class _CoreBackend:
         return kernel_ops.prep_slots(params.regions, params.eps, params.beta)
 
     def step(self, states, params: qmod.QueryParams, tables, k: int,
-             cfg: lss.LSSConfig):
-        """K batched cycles; returns (states', per-slot do-while
-        iterations summed over the K cycles)."""
+             cfg: lss.LSSConfig, topo: lss.TopoArrays):
+        """K batched cycles over ``topo`` (the tables captured at launch);
+        returns (states', per-slot do-while iterations summed over the K
+        cycles)."""
         cfg = cfg._replace(beta=params.beta, ell=params.ell, eps=params.eps)
         iters = torch.zeros(params.active.shape, dtype=torch.int32,
                             device=self.device)
         for _ in range(k):
             states, _, it = lss.cycle_impl(
-                states, self.ta, cfg, None, gate=params.active,
+                states, topo, cfg, None, gate=params.active,
                 suite=self.suite, regions=tables, with_stats=True)
             iters = iters + it
         return states, iters
 
-    def metrics(self, states, params: qmod.QueryParams, tables):
+    def metrics(self, states, params: qmod.QueryParams, tables,
+                topo: lss.TopoArrays):
         """Per-slot (accuracy, quiescent, want)."""
         acc, quiescent, _, want = lss.metrics_impl(
-            states, self.ta, lambda v: self.suite.decide(v, tables),
+            states, topo, lambda v: self.suite.decide(v, tables),
             params.eps, suite=self.suite, regions=tables)
         return acc, quiescent, want
 
@@ -333,11 +362,14 @@ class _CoreBackend:
     def cut_frac(self) -> Optional[float]:
         return None  # one device, no partition to drift
 
-    def regrow(self, dyn, states):
-        """Adopt a grown topology and pad every slot's state to it."""
+    def regrow(self, dyn, states, prebuilt=None, catchup_rows=None):
+        """Adopt a grown topology and pad every slot's state to it.
+        Returns (states', False): ``prebuilt``/``catchup_rows`` are the
+        engine backend's staged-epoch protocol, and the core has no
+        tables to pre-build (no ``stage_regrow``), so nothing is adopted."""
         self.topo = dyn
         self.ta = lss.TopoArrays.from_topology(dyn, self.device)
-        return _grow_core_states(states, dyn.n, dyn.max_deg)
+        return _grow_core_states(states, dyn.n, dyn.max_deg), False
 
 
 def _copy_generators(gens: tuple) -> tuple:
@@ -379,10 +411,16 @@ class _EngineBackend:
     def topo_args(self):
         return self.eng._tables
 
-    def refresh_topology(self, dyn) -> bool:
-        """Repair the engine's tables for the mutated topology; True when
-        the halo width regrew (the dispatch's table shapes changed)."""
-        return self.eng.apply_membership(dyn)
+    def prepare_topology(self, dyn):
+        """The host half of a membership drain: the engine's partition
+        repair and its tables in host memory
+        (:meth:`ShardedLSS.prepare_membership`)."""
+        return self.eng.prepare_membership(dyn)
+
+    def install_topology(self, rep) -> bool:
+        """Upload and swap in the repaired tables; True when the halo
+        width regrew (the dispatch's table shapes changed)."""
+        return self.eng.install_membership(rep)
 
     def init_states(self, q: int, d: int, alive=None):
         """Q padding slots: zero inputs, seed 0, the peers of ``alive``
@@ -406,22 +444,25 @@ class _EngineBackend:
         return kernel_ops.prep_slots(params.regions, params.eps, params.beta)
 
     def step(self, states, params: qmod.QueryParams, tables, k: int,
-             cfg: lss.LSSConfig):
-        """K engine cycles over all Q tenants (each kernel launched once a
-        step for all of them); returns (states', per-slot do-while
-        iterations summed over the K cycles)."""
+             cfg: lss.LSSConfig, topo):
+        """K engine cycles over all Q tenants through ``topo`` (the engine's
+        tables captured at launch; each kernel launched once a step for
+        all of them); returns (states', per-slot do-while iterations
+        summed over the K cycles)."""
         cfg = cfg._replace(beta=params.beta, ell=params.ell, eps=params.eps)
         iters = torch.zeros(params.active.shape, dtype=torch.int32,
                             device=self.device)
+        eng = self.eng
         for _ in range(k):
-            states, it = self.eng._cycle_full(
-                states, self.eng._tables, with_stats=True, cfg=cfg,
+            states, it = eng._cycle_full(
+                states, topo, with_stats=True, cfg=cfg,
                 gate=params.active, regions=tables)
             iters = iters + it
         return states, iters
 
-    def metrics(self, states, params: qmod.QueryParams, tables):
-        """Per-slot (accuracy, quiescent, want)."""
+    def metrics(self, states, params: qmod.QueryParams, tables, topo):
+        """Per-slot (accuracy, quiescent, want); ``topo`` is the engine's
+        own installed tables, which change only between dispatches."""
         acc, quiescent, _, want = self.eng._metrics_impl(
             states, params.eps, regions=tables)
         return acc, quiescent, want
@@ -504,16 +545,66 @@ class _EngineBackend:
         st = self.eng.stopo
         return st.cut_edges() / max(st.num_edges, 1)
 
-    def rebalance(self, dyn, states):
-        """Re-partition ``dyn`` (a fresh edge cut over the churned
-        adjacency; the halo width may change) and migrate every slot's
-        state across ``new_of_old``."""
-        old = self.eng
-        self.eng = self._build(dyn)
-        self.topo = dyn
-        return self.eng.migrate_from(old, states)
+    def _reshard(self, dyn, states, prebuilt=None, catchup_rows=None):
+        """A fresh partition of ``dyn`` and every slot's state migrated
+        across ``new_of_old``: the mechanics of both epoch kinds.  Returns
+        (states', whether ``prebuilt`` was adopted).
 
-    regrow = rebalance  # a regrow epoch re-partitions the grown graph
+        ``prebuilt`` is a staged background build (:meth:`stage_rebalance`
+        / :meth:`stage_regrow`): an engine built over an earlier snapshot,
+        caught up here by the incremental journal repair live membership
+        uses (``catchup_rows`` gives the changed rows when ``dyn``'s own
+        journal cannot reach back to the snapshot: the regrow case).  A
+        catch-up that fails rebuilds in line, as the JAX service does."""
+        if prebuilt is not None:
+            try:
+                if prebuilt._topo_version != getattr(dyn, "version", 0):
+                    prebuilt.apply_membership(dyn, rows=catchup_rows)
+            except Exception:
+                prebuilt = None  # stale beyond repair: rebuild in line
+        old = self.eng
+        self.eng = prebuilt if prebuilt is not None else self._build(dyn)
+        self.topo = dyn
+        return self.eng.migrate_from(old, states), prebuilt is not None
+
+    def regrow(self, dyn, states, prebuilt=None, catchup_rows=None):
+        """Re-partition a grown topology (see :meth:`_reshard`)."""
+        return self._reshard(dyn, states, prebuilt=prebuilt,
+                             catchup_rows=catchup_rows)
+
+    def rebalance(self, dyn, states, prebuilt=None):
+        """Re-partition the current graph (a fresh edge cut over the
+        churned adjacency; the halo width may change; see
+        :meth:`_reshard`)."""
+        return self._reshard(dyn, states, prebuilt=prebuilt)
+
+    # -- staged epoch builds (overlap mode) --------------------------------
+    def stage_rebalance(self, dyn):
+        """Start a background partition and table build over an immutable
+        snapshot of the current graph.  Returns ``(build, version)``; the
+        adopter hands ``build.take()`` to :meth:`rebalance` at a later
+        boundary and the catch-up repair covers what churned since
+        ``version`` (the service keeps the journal back to it)."""
+        snap = dyn.snapshot() if hasattr(dyn, "snapshot") else dyn
+        ver = getattr(dyn, "version", 0)
+
+        def build():
+            eng = self._build(snap)
+            eng._topo_version = ver  # a snapshot carries no version
+            return eng
+
+        return StagedBuild(build, label="rebalance"), ver
+
+    def stage_regrow(self, dyn, n_cap=None, deg_cap=None):
+        """Background build over a grown copy of ``dyn`` (``grow()`` runs
+        here, on the caller's thread: array copies, so the build touches
+        only its own product).  The grown copy carries ``dyn``'s version,
+        so the returned version is what the adopter gives catch-up rows
+        relative to (a fresh ``grow()`` product journals nothing)."""
+        grown = dyn.grow(n_cap=n_cap, deg_cap=deg_cap)
+        ver = getattr(dyn, "version", 0)
+        return StagedBuild(lambda: self._build(grown),
+                           label="regrow"), ver
 
 
 class Service:
@@ -623,6 +714,18 @@ class Service:
         self.states = self.backend.init_states(scfg.capacity, scfg.d,
                                                alive=self._present)
         self._buffers = DoubleBuffer()
+        # Overlap: the window launched and not yet finished, the worker's
+        # future and dispatch span while that dispatch is in flight (the
+        # worker then owns the state: self.states is None), and the one
+        # worker thread, started at the first overlapped launch.
+        self._pending: Optional[PendingWindow] = None
+        self._inflight: Optional[tuple] = None
+        self._pool: Optional[ThreadPoolExecutor] = None
+        # kind ("rebalance" | "regrow") -> (StagedBuild, version[, caps]).
+        # While a build is in flight the membership journal is compacted
+        # only up to the oldest staged version, so the catch-up repair at
+        # adoption still finds the events it needs.
+        self._staged: Dict[str, tuple] = {}
         self.capman.note_epoch("init", self.backend.cut_frac())
 
     @property
@@ -646,8 +749,16 @@ class Service:
         return info
 
     def close(self) -> None:
-        """Flush the tracker and close it when the service built it
-        (borrowed trackers stay open).  Idempotent."""
+        """Finish a pending overlapped window (best effort), stop the
+        worker thread, flush the tracker and close it when the service
+        built it (borrowed trackers stay open).  Idempotent."""
+        try:
+            self.flush()
+        except Exception:
+            pass  # shutdown must not fail on a poisoned window
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
         if self._owns_tracker:
             self.tracker.close()
         else:
@@ -901,6 +1012,7 @@ class Service:
         self._reset_slot(self.registry.slot_of(query_id), spec)
 
     def _reset_slot(self, slot: int, spec: Optional[qmod.QuerySpec]):
+        self._join()
         n = self.topo.n
         if spec is None:
             inputs = wvs.WV(torch.zeros((n, self.scfg.d), device=self.device),
@@ -995,13 +1107,36 @@ class Service:
         if dyn is None:
             raise RuntimeError(
                 "grow_capacity needs a DynTopology-backed service")
+        self._join()
+        # A build staged by _maybe_stage_growth whose capacity covers the
+        # request is adopted instead of rebuilding in line; its catch-up
+        # rows come from the OLD dyn's journal, read before grow(), which
+        # starts a fresh journal.  The staged caps name only the grown
+        # dimension; the other kept the capacity it has now.
+        prebuilt = catchup_rows = None
+        staged = self._staged.pop("regrow", None)
+        if staged is not None:
+            build, ver, caps = staged
+            have_n = caps.get("n_cap", dyn.n_cap)
+            have_d = caps.get("deg_cap", dyn.deg_cap)
+            if ((n_cap is None or have_n >= n_cap)
+                    and (deg_cap is None or have_d >= deg_cap)):
+                n_cap, deg_cap = have_n, have_d
+                try:
+                    catchup_rows = dyn.changed_rows_since(ver)
+                    prebuilt = build.take()
+                except Exception:
+                    prebuilt = catchup_rows = None  # rebuild in line
         new_dyn = dyn.grow(n_cap=n_cap, deg_cap=deg_cap)
         self.topo = self._dyn = new_dyn
         self.membership.rebind(new_dyn)
         with self._obs.span("epoch_regrow", trace=self._active_traces(),
-                            n_cap=new_dyn.n_cap, deg_cap=new_dyn.deg_cap,
-                            staged=False) as sp:
-            self.states = self.backend.regrow(new_dyn, self.states)
+                            n_cap=new_dyn.n_cap,
+                            deg_cap=new_dyn.deg_cap) as sp:
+            self.states, staged = self.backend.regrow(
+                new_dyn, self.states, prebuilt=prebuilt,
+                catchup_rows=catchup_rows)
+            sp.set("staged", staged)  # False unless the build was adopted
         self._buffers.invalidate()  # the declared shape change
         self._boundary_spans["epoch_regrow"] = sp.seconds
         self._boundary_counts["epochs"] = (
@@ -1011,7 +1146,7 @@ class Service:
         self._edges = max(new_dyn.num_edges, 1)
         ev = self.capman.note_epoch(
             "regrow", self.backend.cut_frac(),
-            n_cap=new_dyn.n_cap, deg_cap=new_dyn.deg_cap, staged=False)
+            n_cap=new_dyn.n_cap, deg_cap=new_dyn.deg_cap, staged=staged)
         self._ctrl_events.append(("epoch", ev))
 
     def rebalance_now(self) -> Optional[dict]:
@@ -1027,24 +1162,42 @@ class Service:
         before = self.backend.cut_frac()
         if before is None:
             return None
+        self._join()
+        prebuilt = None
+        staged = self._staged.pop("rebalance", None)
+        if staged is not None:
+            try:
+                prebuilt = staged[0].take()
+            except Exception:
+                prebuilt = None  # a failed build: rebuild in line
         drift = self.capman.drift(before)
         with self._obs.span("epoch_rebalance", trace=self._active_traces(),
-                            drift=drift, staged=False) as sp:
-            self.states = self.backend.rebalance(self.topo, self.states)
+                            drift=drift) as sp:
+            self.states, staged = self.backend.rebalance(
+                self.topo, self.states, prebuilt=prebuilt)
+            sp.set("staged", staged)  # False unless the build was adopted
         self._buffers.invalidate()  # fresh tables may change halo width
         self._boundary_spans["epoch_rebalance"] = sp.seconds
         self._boundary_counts["epochs"] = (
             self._boundary_counts.get("epochs", 0) + 1)
         ev = self.capman.note_epoch(
             "rebalance", self.backend.cut_frac(),
-            cut_before=before, drift=drift, staged=False)
+            cut_before=before, drift=drift, staged=staged)
         self._ctrl_events.append(("epoch", ev))
         return ev
 
     def _maybe_rebalance(self) -> None:
         """The drift check of ``control.rebalance_drift``, every
         ``rebalance_check_every`` dispatches: a rebalance epoch when the
-        drift crosses the threshold."""
+        drift crosses the threshold; in overlap mode on the engine backend
+        a staged build, adopted as soon as it is ready."""
+        # A staged build adopts once ready, and suppresses drift checks
+        # while in flight.
+        staged = self._staged.get("rebalance")
+        if staged is not None:
+            if staged[0].ready():
+                self.rebalance_now()
+            return
         # The early-outs skip the O(edges) cut_frac() host scan on every
         # off-cadence dispatch.
         if self.dispatches == 0 or self.capman.rebalance_drift <= 0.0:
@@ -1053,27 +1206,64 @@ class Service:
             return
         if self.capman.should_rebalance(self.dispatches,
                                         self.backend.cut_frac()):
-            self.rebalance_now()
+            if self.scfg.overlap and hasattr(self.backend,
+                                             "stage_rebalance"):
+                src = self._dyn if self._dyn is not None else self.topo
+                with self._obs.span("epoch_stage", kind="rebalance"):
+                    self._staged["rebalance"] = \
+                        self.backend.stage_rebalance(src)
+            else:
+                self.rebalance_now()
+
+    def _maybe_stage_growth(self) -> None:
+        """Overlap mode on the engine backend: when free membership rows
+        run low, stage the regrow epoch's partition and table build in the
+        background, so the capacity-wall epoch adopts a finished build
+        instead of rebuilding in line."""
+        if (not self.scfg.overlap or self._dyn is None
+                or not self.capman.auto_regrow or self._staged
+                or not hasattr(self.backend, "stage_regrow")):
+            return
+        free = int((~self._dyn.present).sum())
+        if free >= max(1, self._dyn.n_cap // 16):
+            return
+        caps = self.capman.grown_caps(self._dyn.n_cap, self._dyn.deg_cap,
+                                      "rows")
+        with self._obs.span("epoch_stage", kind="regrow", **caps):
+            build, ver = self.backend.stage_regrow(self._dyn, **caps)
+        self._staged["regrow"] = (build, ver, caps)
 
     def drift(self) -> float:
         """Current partition drift (the engine's cut-fraction increase
         since the last epoch); 0.0 on the core backend."""
         return self.capman.drift(self.backend.cut_frac())
 
-    def _apply_membership(self) -> int:
-        """Drain queued events into the DynTopology and catch every
-        execution surface up: the device tables, then the per-slot state
-        edits.  Returns the topology events applied."""
+    def _prepare_membership(self) -> Optional[tuple]:
+        """The host half of the membership drain: drain queued events into
+        the DynTopology and prepare the backend's tables for it (the
+        engine's partition repair).  Touches neither the state nor the
+        installed tables, so the overlapped tick runs it beside the
+        previous dispatch.  Returns ``(events, join inits, prepared
+        tables)``, or None on a quiet tick."""
         if self._dyn is None:
-            return 0
+            return None
         if (not self.membership.has_pending()
                 and self._dyn.version == self._applied_version):
-            return 0  # quiet tick: skip the drain machinery entirely
+            return None  # quiet tick: skip the drain machinery entirely
         join_inits = self.membership.drain_into(self._dyn)
         events = self._dyn.events_since(self._applied_version)
         if not events:
+            return None
+        return events, join_inits, self.backend.prepare_topology(self._dyn)
+
+    def _apply_membership(self, prepared: Optional[tuple]) -> int:
+        """The state half of the membership drain: install the prepared
+        tables, then the per-slot state edits.  Returns the topology
+        events applied."""
+        if prepared is None:
             return 0
-        if self.backend.refresh_topology(self._dyn):
+        events, join_inits, tables = prepared
+        if self.backend.install_topology(tables):
             # The halo width regrew: the declared reshape of the tables.
             self._buffers.invalidate()
 
@@ -1111,7 +1301,12 @@ class Service:
         self._present = self._dyn.present.copy()
         self._edges = max(self._dyn.num_edges, 1)
         self._applied_version = self._dyn.version
-        self._dyn.compact(self._applied_version)
+        # Staged epoch builds catch up from the journal at adoption time,
+        # so compaction may only advance to the oldest staged version.
+        floor = self._applied_version
+        for entry in self._staged.values():
+            floor = min(floor, entry[1])
+        self._dyn.compact(floor)
         return len(events)
 
     # -- streaming ingest --------------------------------------------------
@@ -1152,32 +1347,62 @@ class Service:
         The boundary runs inside one ``tick`` root span with the
         ``membership_drain`` / ``admission_drain`` / ``ingest_apply`` /
         ``dispatch`` / ``observe`` spans under it (and ``epoch_regrow`` /
-        ``epoch_rebalance`` when an epoch ran since the last tick).  An
-        exception escaping the tick dumps the flight recorder (when
-        ``flight_dump_dir`` is set) before propagating.
+        ``epoch_rebalance`` when an epoch ran since the last tick,
+        ``epoch_stage`` when one was staged).  An exception escaping the
+        tick dumps the flight recorder (when ``flight_dump_dir`` is set)
+        before propagating.
+
+        Under ``scfg.overlap`` the records returned are the PREVIOUS
+        dispatch's, finished while this one runs on the worker thread; the
+        first tick returns ``[]`` and :meth:`flush` drains the last window.
+        An exception of the worker's dispatch surfaces at the next tick
+        (or flush).  Record content is the synchronous mode's either way.
         """
         try:
+            # The root span is labeled with the dispatch this tick RUNS.
             with self._obs.span("tick", dispatch=self.dispatches + 1):
                 k = (cycles if cycles is not None
                      else self.scfg.cycles_per_dispatch)
                 self._host_boundary()
-                return self._finish_window(self._launch(k))
+                window = self._launch(k)
+                if not self.scfg.overlap:
+                    return self._finish_window(window)
+                prev, self._pending = self._pending, window
+                return self._finish_window(prev) if prev is not None else []
         except Exception as e:
+            # Leave no dispatch running on the worker (an error of its
+            # own is dropped: this tick's propagates).
+            try:
+                self._join()
+            except Exception:
+                pass
             self._auto_flight_dump("crash", error=repr(e))
             raise
 
     def _host_boundary(self) -> None:
         """Everything the host does between dispatches: membership drain,
-        the drift check, SLO eviction, admission, ingest."""
+        the epoch checks and staging, SLO eviction, admission, ingest.  In
+        overlap mode the drain's host half runs while the previous dispatch
+        is still on the worker, which is joined before anything touches the
+        state or the installed tables."""
         tr = self._obs
-        with tr.span("membership_drain") as sp:
-            n_events = self._apply_membership()
-            if n_events:
-                for key, v in self.membership.last_drain_stats.items():
-                    sp.set(key, v)
+        sp = tr.start_span("membership_drain")
+        prepared = self._prepare_membership()
+        beside = sp.elapsed()
+        t_join = time.perf_counter()
+        self._join()
+        waited = time.perf_counter() - t_join
+        n_events = self._apply_membership(prepared)
+        if n_events:
+            for key, v in self.membership.last_drain_stats.items():
+                sp.set(key, v)
+        if self.scfg.overlap:
+            sp.set("prepare_s", beside)  # the half beside the dispatch
+        tr.end_span(sp, sp.elapsed() - waited)  # the join's wait excluded
         self._boundary_spans["membership_drain"] = sp.seconds
         self._boundary_counts["membership_events"] = n_events
         self._maybe_rebalance()
+        self._maybe_stage_growth()
         self._evict_unrecoverable()
         with tr.span("admission_drain") as sp:
             n_act = self._drain_admission()
@@ -1190,34 +1415,28 @@ class Service:
         self._boundary_counts["ingest_batches"] = n_batches
 
     def _launch(self, k: int) -> PendingWindow:
-        """Run the K-cycle dispatch and the observation pass behind it;
-        returns the window its records are built from."""
+        """Stage the dispatch operands (the double-buffer swap), capture
+        the bookkeeping the window's records are built from, and run the
+        K-cycle dispatch and its observe: here (sync mode; the window is
+        returned landed) or on the worker thread (overlap mode; the window
+        lands at the next join)."""
         params = self.registry.params
         topo = self.backend.topo_args()
         self._buffers.swap(params, topo)
         info = self.backend.dispatch_info()
-        tr = self._obs
-        with tr.span("dispatch", trace=self._active_traces(), k=k,
-                     backend=self.scfg.backend,
-                     suite=info.get("suite"), fused=info.get("fused")) as sp:
-            tables = self.backend.tables(params)
-            self.states, self._corr_iters = self.backend.step(
-                self.states, params, tables, k, self.base_cfg)
-        self._boundary_spans["dispatch"] = sp.seconds
+        sp = self._obs.start_span(
+            "dispatch", trace=self._active_traces(), k=k,
+            backend=self.scfg.backend, suite=info.get("suite"),
+            fused=info.get("fused"))
         self.dispatches += 1
         self.cycles += k
         self._last_k = k
-        acc, quiescent, want = self.backend.metrics(self.states, params,
-                                                    tables)
-        msgs = self.backend.msgs_device(self.states)
-        self.states = self.backend.reset_msgs(self.states)
         events, self._ctrl_events = self._ctrl_events, []
         spans, self._boundary_spans = self._boundary_spans, {}
         counts, self._boundary_counts = self._boundary_counts, {}
-        return PendingWindow(
+        window = PendingWindow(
             dispatch=self.dispatches, t=self.cycles, k=k,
-            acc=acc, quiescent=quiescent, want=want, msgs=msgs,
-            corr_iters=self._corr_iters,
+            acc=None, quiescent=None, want=None, msgs=None, corr_iters=None,
             active=tuple((qid, slot) for qid, slot, _spec
                          in self.registry.active_items()),
             queued=tuple(self.admission.queued_ids()),
@@ -1225,6 +1444,105 @@ class Service:
             topo_version=self._applied_version,
             edges=self._edges,
             events=events, spans=spans, counts=counts)
+        if not self.scfg.overlap:
+            return self._land(window, sp, self._dispatch(
+                self.states, params, topo, k))
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="service-dispatch")
+        # The worker owns the state until the join lands the dispatch, and
+        # runs on this thread's CUDA stream (the current stream is per
+        # thread), so its work stays ordered with the boundary's edits.
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        states, self.states = self.states, None
+        self._inflight = (self._pool.submit(
+            self._dispatch, states, params, topo, k, stream), sp)
+        return window
+
+    def _dispatch(self, states, params: qmod.QueryParams, topo, k: int,
+                  stream=None):
+        """The dispatch proper, on the operands captured at launch (and on
+        ``stream``, when given): K cycles over every slot, the observe,
+        and the observation rows' copy to the host started behind them.
+        Reads nothing the boundary edits (so the worker thread can run it
+        beside the next boundary's host work).  Returns (states', per-slot
+        do-while iterations, the (5, Q) host rows, their copy's CUDA event
+        or None, the ``perf_counter`` stamp at which the K cycles were
+        enqueued)."""
+        backend = self.backend
+        with torch.cuda.stream(stream):  # a no-op for None
+            tables = backend.tables(params)
+            states, iters = backend.step(states, params, tables, k,
+                                         self.base_cfg, topo)
+            stepped = time.perf_counter()
+            acc, quiescent, want = backend.metrics(states, params, tables,
+                                                   topo)
+            # ONE host transfer for the whole fleet: accuracy, quiescence,
+            # region, message counts and do-while iterations as one
+            # float64 (5, Q) tensor (every value is exact in float64).
+            rows = torch.stack([acc.double(), quiescent.double(),
+                                want.double(),
+                                backend.msgs_device(states).double(),
+                                iters.double()])
+            host, ready = rows, None
+            if rows.device.type == "cuda":
+                # Into pinned memory, waited on by its own event: finishing
+                # the window does not wait behind a later dispatch.
+                host = torch.empty(rows.shape, dtype=rows.dtype,
+                                   pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(rows.device))
+            return backend.reset_msgs(states), iters, host, ready, stepped
+
+    def _land(self, window: PendingWindow, sp, result) -> PendingWindow:
+        """Take a finished dispatch back: the state and the per-slot
+        iterations, the dispatch span (ended when its K cycles were
+        enqueued), and the window's observation rows."""
+        states, iters, host, ready, stepped = result
+        self.states, self._corr_iters = states, iters
+        self._obs.end_span(sp, sp.elapsed(stepped))
+        window.spans["dispatch"] = sp.seconds
+        acc, quiescent, want, msgs, corr_iters = host
+        return window._replace(acc=acc, quiescent=quiescent, want=want,
+                               msgs=msgs, corr_iters=corr_iters, ready=ready)
+
+    def _join(self) -> None:
+        """Wait for the dispatch in flight on the worker thread (overlap
+        mode) and land its window; a no-op when none is in flight.  Every
+        method that reads or writes the state or the installed tables
+        calls it first.  The dispatch's exception propagates from here,
+        and the service is left with nothing in flight."""
+        if self._inflight is None:
+            return
+        future, sp = self._inflight
+        self._inflight = None
+        try:
+            result = future.result()
+        except BaseException:
+            self._pending = None  # its dispatch failed: nothing to finish
+            raise
+        self._pending = self._land(self._pending, sp, result)
+
+    def flush(self) -> list:
+        """Finish the pending overlapped window without launching a new
+        dispatch: joins the worker, brings the window's observation to the
+        host and emits its telemetry.  No-op (empty list) in sync mode or
+        when nothing is pending.  :meth:`serve` and :meth:`close` call it;
+        call it after a manual :meth:`tick` loop when record delivery must
+        be caught up."""
+        if self._pending is None:
+            return []
+        try:
+            with self._obs.span("tick", dispatch=self._pending.dispatch,
+                                flush=True):
+                self._join()
+                w, self._pending = self._pending, None
+                return self._finish_window(w)
+        except Exception as e:
+            self._auto_flight_dump("crash", error=repr(e))
+            raise
 
     def _evict_unrecoverable(self) -> None:
         """SLO-driven eviction of *waiting* tenants whose published
@@ -1237,27 +1555,31 @@ class Service:
                 self._note_eviction(qid, reason)
 
     def serve(self, dispatches: int) -> list:
-        """Run ``dispatches`` ticks; returns the final tick's records."""
+        """Run ``dispatches`` ticks; returns the final tick's records
+        (overlap mode flushes the trailing window first, so the return
+        value is the final dispatch's records in both modes)."""
         records = []
         for _ in range(dispatches):
             records = self.tick()
+        if self._pending is not None:
+            records = self.flush()
         return records
 
     # -- observation -------------------------------------------------------
     def _finish_window(self, w: PendingWindow) -> list:
-        """Bring a window's observation to the host and emit its
-        telemetry."""
+        """Wait for a landed window's observation rows to reach the host
+        and emit its telemetry.  Sync mode calls this right after the
+        dispatch; overlap mode a tick later, while the next dispatch runs
+        on the worker."""
         with self._obs.span(
                 "observe", dispatch=w.dispatch,
                 trace=tuple(self._trace_ids[qid] for qid, _slot in w.active
                             if qid in self._trace_ids)) as sp:
-            # ONE host transfer for the whole fleet: accuracy, quiescence,
-            # region, message counts and do-while iterations as one
-            # float64 (5, Q) tensor (every value is exact in float64).
-            host = torch.stack([
-                w.acc.double(), w.quiescent.double(), w.want.double(),
-                w.msgs.double(), w.corr_iters.double()]).cpu().numpy()
-            acc, quiescent, want, msgs, corr_iters = host
+            if w.ready is not None:
+                w.ready.synchronize()
+            acc, quiescent, want, msgs, corr_iters = (
+                r.numpy() for r in (w.acc, w.quiescent, w.want, w.msgs,
+                                    w.corr_iters))
         w.spans["observe"] = sp.seconds
         reg = self.tracker.registry
         corr_hist = self.tracker.histogram(
@@ -1337,6 +1659,7 @@ class Service:
         + spans) as JSONL and return the path.  Default path:
         ``flight-d<dispatch>-<reason>.jsonl`` under ``flight_dump_dir`` (or
         the working directory when unset)."""
+        self._join()
         dispatch = self.dispatches if dispatch is None else dispatch
         t = self.cycles if t is None else t
         if path is None:
@@ -1400,12 +1723,14 @@ class Service:
     def total_msgs(self, query_id: str) -> int:
         """Exact cumulative sends by this query (host-side accumulation;
         carries across preemption)."""
+        self._join()
         return self._total_msgs[query_id]
 
     def snapshot(self, query_id: str) -> lss.LSSState:
         """A copy of this query's full simulator state — the parity-test /
         debugging view.  For a preempted query, the state it was suspended
         with."""
+        self._join()
         if query_id in self._preempted:
             return self._preempted[query_id].state
         return self.backend.snapshot(self.states,

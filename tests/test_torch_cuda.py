@@ -626,28 +626,34 @@ def _engine_service_records(device, use_kernels, specs, backend="engine",
                 svc.grow_capacity(deg_cap=svc.topo.deg_cap + 2)
             if i == 5:
                 svc.rebalance_now()
-            for _ in range(6):
-                op = rng.choice([0, 0, 0, 1, 2, 3])
-                topo = svc.topo
-                a, b = (int(p) for p in rng.choice(
-                    np.flatnonzero(topo.present), 2, replace=False))
-                try:
-                    if op == 0:
-                        p = svc.join_peer(value=rng.normal(size=2))
-                        svc.link_peers(p, a)
-                    elif op == 1:
-                        svc.leave_peer(a)
-                    elif op == 2:
-                        live = topo.nbr[a][topo.mask[a]]
-                        if live.size:
-                            svc.unlink_peers(a, int(live[0]))
-                    else:
-                        svc.link_peers(a, b)
-                except ValueError:
-                    pass
+            _six_events(svc, rng)
             records.append(svc.tick())
         return (records, [e["kind"] for e in svc.capman.epochs],
                 kernels.counts())
+
+
+def _six_events(svc, rng):
+    """Six seeded membership events: joins with a link, leaves, unlinks of
+    live edges, links."""
+    for _ in range(6):
+        op = rng.choice([0, 0, 0, 1, 2, 3])
+        topo = svc.topo
+        a, b = (int(p) for p in rng.choice(
+            np.flatnonzero(topo.present), 2, replace=False))
+        try:
+            if op == 0:
+                p = svc.join_peer(value=rng.normal(size=2))
+                svc.link_peers(p, a)
+            elif op == 1:
+                svc.leave_peer(a)
+            elif op == 2:
+                live = topo.nbr[a][topo.mask[a]]
+                if live.size:
+                    svc.unlink_peers(a, int(live[0]))
+            else:
+                svc.link_peers(a, b)
+        except ValueError:
+            pass
 
 
 def test_engine_service_churn_fused_matches_reference(dev):
@@ -675,6 +681,70 @@ def test_engine_service_churn_fused_matches_reference(dev):
     assert core == fused
     assert all(core_counts[k] == counts[k]
                for k in ("lss_state", "correction", "region_decide"))
+
+
+def _overlap_service_records(device, use_kernels, specs, overlap,
+                             dispatches=8):
+    """The engine-backed service (S = 4, grid 4,096 with 8 spare rows,
+    auto-regrow) under six seeded events a dispatch and a forced
+    rebalance after dispatch 5, with or without the overlapped boundary;
+    overlapped, the regrow adopts the build that ``_maybe_stage_growth``
+    staged (waited for after each tick).  Returns (the records in
+    dispatch order, the epochs as (kind, staged), launch counts)."""
+    dyn = topology.DynTopology.from_topology(topology.grid(4096),
+                                             n_cap=4104, deg_cap=6)
+    cfg = ServiceConfig(capacity=4, k_max=3, d=2, cycles_per_dispatch=4,
+                        use_kernels=use_kernels, backend="engine",
+                        engine_shards=4, overlap=overlap,
+                        control=ControlPlaneConfig(auto_regrow=True))
+    with Service(dyn, cfg, device=device) as svc:
+        for spec in specs:
+            svc.admit(spec)
+        rng = np.random.default_rng(5)
+        kernels.reset_counts()
+        records = []
+        for i in range(dispatches):
+            if i == 5:
+                svc.rebalance_now()
+            _six_events(svc, rng)
+            records += svc.tick()
+            for entry in svc._staged.values():
+                entry[0].take()
+        records += svc.flush()
+        return (records, [(e["kind"], e.get("staged"))
+                          for e in svc.capman.epochs], kernels.counts())
+
+
+def test_overlapped_engine_service_fused_matches_reference(dev):
+    """The overlapped engine-backed service (Q = 4, S = 4, grid 4,096)
+    under churn through a staged regrow and a rebalance: the kernels on
+    the card give the reference suite's records on the card, the same
+    records when the service is driven from a side stream, the
+    synchronous service's records on the card (with the same launches)
+    and the CPU's."""
+    centers, sample, _, _ = sim.make_problem(sim.ProblemSpec(n=4104, seed=0))
+    rng = np.random.default_rng(2)
+    specs = [QuerySpec(region=regions.VoronoiRegions(centers),
+                       inputs=sample(rng, 4104), seed=i) for i in range(4)]
+    fused, epochs, counts = _overlap_service_records(dev, True, specs, True)
+    assert len(fused) == 32 and ("regrow", True) in epochs
+    assert ("rebalance", False) in epochs
+    assert counts["region_decide"] == 8  # one per observe
+    assert counts["lss_state_ref"] == counts["correction_ref"] == 0
+    plain = _overlap_service_records(dev, False, specs, True)
+    assert plain[0] == fused and plain[1] == epochs
+    # The worker runs on the launching thread's stream, not its own
+    # thread's default one.
+    with torch.cuda.stream(torch.cuda.Stream()):
+        side = _overlap_service_records(dev, True, specs, True)
+    assert side[0] == fused and side[1] == epochs
+    sync, sync_epochs, sync_counts = _overlap_service_records(
+        dev, True, specs, False)
+    assert sync == fused and [k for k, _ in sync_epochs] == \
+        [k for k, _ in epochs]
+    assert all(sync_counts[k] == counts[k]
+               for k in ("lss_state", "correction", "region_decide"))
+    assert _overlap_service_records("cpu", True, specs, True)[0] == fused
 
 
 def _engine_runs(dev, topo, use_kernels, cycles=30):

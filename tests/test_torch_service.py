@@ -312,19 +312,25 @@ def test_workload_matches_jax():
 
 def test_unported_parts_raise_and_cpu_needs_asking():
     topo = t_top.grid(16)
-    for kw, item in (({"overlap": True}, "A.6"),
-                     ({"backend": "engine", "overlap": True}, "A.6"),
-                     ({"profile_dispatch": True}, "A.7"),
+    for kw, item in (({"profile_dispatch": True}, "A.7"),
                      ({"alerts": ("rule",)}, "A.7"),
                      ({"audit_every": 1}, "A.7")):
         with pytest.raises(NotImplementedError, match=item):
             TService(topo, TConfig(**kw), device="cpu")
-    # A DynTopology is served on both backends in synchronous mode; with
-    # the overlapped boundary it still raises.
+    # The overlapped boundary constructs and serves one tick late on both
+    # backends, static and dynamic.
     dyn = t_top.DynTopology.from_topology(topo, n_cap=20)
-    for kw in ({"backend": "engine", "overlap": True}, {"overlap": True}):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            TService(dyn, TConfig(**kw), device="cpu")
+    for graph in (topo, dyn):
+        for backend in ("core", "engine"):
+            with TService(graph, TConfig(backend=backend, capacity=2,
+                                         overlap=True),
+                          device="cpu") as svc:
+                qid = svc.admit(heterogeneous_tenants(graph.n, 1)[0])
+                assert svc.tick() == []
+                (rec,) = svc.tick()
+                assert rec["query"] == qid and rec["dispatch"] == 1
+                (rec,) = svc.flush()
+                assert rec["dispatch"] == 2 and svc._pending is None
     with TService(dyn, TConfig(), device="cpu") as svc:
         assert svc.membership is not None and svc.topo_version == 0
         assert svc.rebalance_now() is None and svc.drift() == 0.0
