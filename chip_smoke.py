@@ -155,13 +155,35 @@ Phases, in order; any failure exits nonzero:
    phase 10's regrow run on grid on the engine backend, synchronous and
    overlapped: under overlap the regrow at the capacity wall adopts the
    build ``auto_regrow`` staged at the first boundary (``staged: true``),
-   with records equal.
+   with records equal;
+13. the observability and audit plane: (a) ``benchmarks/obs_overhead.py``
+   on phase 6's workload (Chord, Q = 64, K = 16), five services that
+   differ only in their tracker and knobs (``noop``, ``jsonl``, ``prom``
+   with a scrape a dispatch, ``traced``: profiling and an always-firing
+   alert, ``audited``: ``audit_every=1``), one untimed dispatch each and
+   three round-robin timed ones: records equal across the five, every
+   audit ``ok``, the median dispatch ms and ``overhead_frac`` of each;
+   (b) phase 10's churn at 128 events on the core and (S = 8, a forced
+   rebalance) the engine backend with ``audit_every=1``, counters zeroed
+   before each run and read after it: records and launches equal to
+   phase 10's unaudited runs, every audit ``ok``, the kernels held
+   bitwise on the audited state; ``ShardedLSS.audit`` on phase 9's
+   staleness-2 and int8 engines (grid, Chord) holds; (c) one fault of
+   each ``AuditFaults`` kind at grid 4,096 (two through the service on
+   both backends, the skew and the sequence regression on the engine):
+   the verdicts equal the CPU's and forensics names the faulted window;
+   (d) the overlapped engine service on phase 12's Chord churn with
+   ``profile_dispatch=True`` and ``profile_sample_every=4``: records
+   equal to the unprofiled service's, the sampled ``dispatch_host_ms``,
+   ``dispatch_device_ms`` and ``host_overhead_frac`` printed, and one
+   ``profiler_dir`` session on a small overlapped service writes a Chrome
+   trace.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
-churned-service, engine-backed-service and overlapped-service runs, each
-path's in ``launches_by_path``;
+churned-service, engine-backed-service, overlapped-service and
+audited-service runs, each path's in ``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -189,6 +211,7 @@ order (``slot_sum``), and a sum rounded otherwise would show there.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -202,13 +225,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # Outside a checkout of the repository this import fails: no result.
 from repro_torch import kernels, obs, service  # noqa: E402
-from repro_torch.core import lss, regions, sim, topology, wvs  # noqa: E402
+from repro_torch.core import (lss, regions, sim, stopping,  # noqa: E402
+                              topology, wvs)
 from repro_torch.engine import EngineConfig, exchange  # noqa: E402
 from repro_torch.engine import sweep as engine_sweep  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import correction as kcorr  # noqa: E402
 from repro_torch.kernels import lss_state as kst  # noqa: E402
 from repro_torch.kernels import region_decide as kdec  # noqa: E402
+from repro_torch.obs import audit as obs_audit  # noqa: E402
+from repro_torch.obs import forensics  # noqa: E402
 
 N_MAIN = 80_000
 N_SMALL = 4096
@@ -2465,6 +2491,424 @@ def phase_overlap(topos, dev, gpu):
     return totals
 
 
+# --- phase 13: the observability and audit plane ---------------------------
+
+
+OBS_ROUNDS = 3  # timed dispatches a tracker, round-robin after one untimed
+AUDIT_RATE = 128  # phase 10's heavy churn
+AUDIT_VERDICT = ("dispatch", "t", "query", "slot", "ok", "violations",
+                 "monitors", "quiescent", "claimed_quiescent", "edge_bad",
+                 "edge_checked", "stop_bad", "msgs", "live_slots")
+PROFILE_SAMPLE = 4  # profile_sample_every of the profiled service
+PROFILE_TICKS = 8  # timed ticks of the profiled and unprofiled services
+
+
+def _always_alert():
+    return (obs.AlertRule(name="always", metric="service_queue_depth",
+                          above=-1.0),)
+
+
+def _observe_audit_ms(svc, reps=3):
+    """The observe and the audit reductions alone on the service's state
+    (CUDA events, ms a call): what an audited window adds to its
+    dispatch, beside what every window pays."""
+    params = svc.registry.params
+    tables = svc.backend.tables(params)
+    topo = svc.backend.topo_args()
+    return (_time_ms(lambda: svc.backend.metrics(svc.states, params, tables,
+                                                 topo), reps),
+            _time_ms(lambda: svc.backend.audit(svc.states, params, tables,
+                                               topo), reps))
+
+
+def _obs_overhead(topo, dev, gpu):
+    """``benchmarks/obs_overhead.py`` on phase 6's workload (64 tenants,
+    K = 16): five services that differ only in their tracker and knobs,
+    one untimed dispatch each, then ``OBS_ROUNDS`` round-robin timed
+    dispatches.  Records must be equal across the five (msgs, quiescent
+    and region exact, accuracy bitwise) and every audit clean."""
+    import tempfile
+
+    specs = service.heterogeneous_tenants(topo.n, Q_SERVICE)
+    state_gb = (Q_SERVICE * topo.n * topo.max_deg * (2 * 2 + 2) * 4
+                + Q_SERVICE * topo.n * topo.max_deg) / 1e9
+    print(f"[obs-overhead] chord n={topo.n} D={topo.max_deg} Q={Q_SERVICE}: "
+          f"message state {state_gb:.2f} GB a service, "
+          f"{5 * state_gb:.2f} GB for five", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        prom = obs.PrometheusTextTracker()
+        backends = [
+            ("noop", obs.NoopTracker(), None, {}),
+            ("jsonl", obs.JsonlTracker(str(Path(tmp) / "obs.jsonl")), None,
+             {}),
+            ("prom", prom, prom.expose, {}),
+            ("traced", obs.InMemoryTracker(max_records=4096), None,
+             dict(profile_dispatch=True, alerts=_always_alert())),
+            ("audited", obs.InMemoryTracker(max_records=4096), None,
+             dict(audit_every=1))]
+        runs = {}
+        for name, tracker, scrape, cfg in backends:
+            svc = service.Service(topo, service.ServiceConfig(
+                capacity=Q_SERVICE, k_max=3, d=2,
+                cycles_per_dispatch=K_SERVICE, **cfg), tracker=tracker,
+                device=dev)
+            for spec in specs:
+                svc.admit(spec)
+            runs[name] = {"svc": svc, "scrape": scrape, "walls": [],
+                          "records": [svc.tick()]}
+        for _ in range(OBS_ROUNDS):
+            for name, run in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run["records"].append(run["svc"].tick())
+                if run["scrape"] is not None:
+                    run["scrape"]()
+                torch.cuda.synchronize()
+                run["walls"].append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        observe_ms, audit_ms = _observe_audit_ms(runs["audited"]["svc"])
+        for run in runs.values():
+            run["svc"].close()
+    want = runs["noop"]["records"]
+    for name, run in runs.items():
+        if run["records"] != want:
+            raise AssertionError(f"obs-overhead {name}: records differ from "
+                                 f"the noop tracker's")
+    audits = [r for r in backends[4][1].records if r.get("kind") == "audit"]
+    if len(audits) != (OBS_ROUNDS + 1) * Q_SERVICE or not all(
+            r["ok"] for r in audits):
+        raise AssertionError(f"obs-overhead audited: {len(audits)} audit "
+                             f"records, failing "
+                             f"{[r for r in audits if not r['ok']][:2]}")
+    alerts = [r for r in backends[3][1].records if r.get("kind") == "alert"]
+    floor = float(np.median(runs["noop"]["walls"]))
+    parts = []
+    for name, run in runs.items():
+        med = float(np.median(run["walls"]))
+        parts.append(f"{name} {med * 1e3:.3f} ms (min "
+                     f"{min(run['walls']) * 1e3:.3f} max "
+                     f"{max(run['walls']) * 1e3:.3f}) overhead_frac "
+                     f"{max(0.0, (med - floor) / floor):.4f}")
+    gauges = {g: backends[3][1].registry.gauge(g).value(backend="core")
+              for g in ("dispatch_host_ms", "dispatch_device_ms",
+                        "host_overhead_frac")}
+    print(f"[obs-overhead] median dispatch wall over {OBS_ROUNDS} "
+          f"round-robin dispatches a tracker: {'; '.join(parts)}; records "
+          f"equal across the five over {OBS_ROUNDS + 1} dispatches; "
+          f"{len(audits)} audit records, all ok (max residual/tol "
+          f"{max(r['residual'] / r['tol'] for r in audits):.3e}); "
+          f"{len(alerts)} alert record(s); traced gauges (last dispatch) "
+          f"{gauges}; alone by CUDA events: the observe "
+          f"{observe_ms:.3f} ms, the audit {audit_ms:.3f} ms a window; peak "
+          f"memory {peak:.3f} GiB; {gpu}", flush=True)
+
+
+def _audited_churn(topos, dev, gpu, churn_runs, totals):
+    """Phase 10's churn at ``AUDIT_RATE`` events a dispatch with
+    ``audit_every=1``, on the core and (S = 8, a forced rebalance after
+    the 6th timed dispatch, as phase 11) the engine backend: the counters
+    zeroed before each run and read after it, which must equal phase
+    10's (the audit launches no kernel); records equal to phase 10's;
+    every audit record ``ok``; the kernels held bitwise on the audited
+    state."""
+    for backend, cfg in (("core", {}), ("engine", ENGINE_SERVICE)):
+        for name in SERVICE_TOPOS:
+            base = topos[name]
+            label = f"{name} rate={AUDIT_RATE}"
+            core = churn_runs[label]
+            n_cap = base.n + max(4, int(base.n * CHURN_SPARE))
+            specs = _churn_specs(n_cap, n_cap, CHURN_Q)
+
+            def rebalance(svc, i):
+                if backend == "engine" and i == REBALANCE_AT:
+                    svc.rebalance_now()
+
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            svc = _churn_service(base, n_cap, specs, dev,
+                                 tracker=obs.InMemoryTracker(),
+                                 audit_every=1, **cfg)
+            records, walls, _, gen = _churn_run(
+                svc, AUDIT_RATE, CHURN_DISPATCHES, timed=True,
+                hook=rebalance)
+            for _ in range(AUDIT_RATE):
+                gen.emit(svc)
+            svc.tick()  # phase 10's profiled dispatch
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+            _count_into(f"audited {backend} {label}", totals)
+            for key in KERNELS:
+                if counts[key] <= 0:
+                    raise AssertionError(f"audited {backend} {label}: "
+                                         f"launched no {key}")
+            if {k: counts[k] for k in KERNELS} != core["counts"]:
+                raise AssertionError(
+                    f"audited {backend} {label}: launches {counts} != "
+                    f"phase 10's unaudited {core['counts']}")
+            n_rec = _same_records(f"audited {backend} {label} vs phase 10",
+                                  records, core["records"])
+            audits = [r for r in svc.tracker.records
+                      if r.get("kind") == "audit"]
+            bad = [r for r in audits if not r["ok"]]
+            if len(audits) != (CHURN_DISPATCHES + 2) * CHURN_Q or bad:
+                raise AssertionError(f"audited {backend} {label}: "
+                                     f"{len(audits)} audits, failing "
+                                     f"{bad[:2]}")
+            epochs = [e["kind"] for e in svc.capman.epochs]
+            observe_ms, audit_ms = _observe_audit_ms(svc)
+            us = [w / CHURN_K * 1e6 for w in walls]
+            print(f"[obs-audit] {backend} {label} n_cap={n_cap} Q={CHURN_Q} "
+                  f"K={CHURN_K} audit_every=1: us_per_cycle median "
+                  f"{np.median(us):.1f} (min {min(us):.1f} max "
+                  f"{max(us):.1f}; phase 10 unaudited core "
+                  f"{core['us']:.1f}); alone by CUDA events: the observe "
+                  f"{observe_ms:.3f} ms, the audit {audit_ms:.3f} ms a "
+                  f"window; {len(audits)} audit records all ok "
+                  f"(max residual/tol "
+                  f"{max(r['residual'] / r['tol'] for r in audits):.3e}, "
+                  f"edges checked a window "
+                  f"{np.mean([r['edge_checked'] for r in audits]):.0f}); "
+                  f"epochs {epochs}; records equal to phase 10's over "
+                  f"{len(records)} dispatches ({n_rec} records); launches "
+                  f"equal to phase 10's {core['counts']}; {gpu}",
+                  flush=True)
+            _check_service_kernels(f"audited {backend} {label}", svc)
+            svc.close()
+            del svc
+            torch.cuda.empty_cache()
+
+
+def _engine_audits(topos, dev):
+    """``ShardedLSS.audit`` on phase 9's async (staleness 2) and int8
+    engines' quiescent states (``run_static``'s engine route, grid and
+    Chord at 80,000 peers): every monitor holds, the stale-drop books
+    reconciled with ``async_lag_stats``."""
+    for name in SERVICE_TOPOS:
+        topo = topos[name]
+        for kw in (dict(async_mode=True, staleness=STALENESS),
+                   dict(wire="int8")):
+            drv = _set_up(topo, dev, _engine_cfg(**kw))
+            res = sim._run_to_quiescence(drv, topo, MAX_CYCLES, 1)
+            eng, st = drv._eng, drv._st
+            t0 = time.perf_counter()
+            raw = eng.audit(st)
+            ms = (time.perf_counter() - t0) * 1e3
+            drops = (eng.async_lag_stats(st)["stale_drops"]
+                     if kw.get("async_mode") else None)
+            rep = obs_audit.evaluate(raw, stale_drops_metric=drops)
+            what = ", ".join(f"{k}={v}" for k, v in kw.items())
+            if not rep.ok:
+                raise AssertionError(f"engine audit {name} {what}: "
+                                     f"{rep.monitors} {raw}")
+            print(f"[obs-engine-audit] {name} n={topo.n} {what} after "
+                  f"{res['quiesced_at']} cycles: every monitor holds "
+                  f"({sorted(rep.monitors)}; residual {raw['resid']:.3e} "
+                  f"tol {raw['tol']:.3e}, edges checked "
+                  f"{raw['edge_checked']}, seq_bad {raw.get('seq_bad')}, "
+                  f"stale_drops {raw.get('stale_drops')}); audit "
+                  f"{ms:.1f} ms", flush=True)
+            del drv, eng, st
+            torch.cuda.empty_cache()
+
+
+def _flip_delta(snap, ta, centers, row=0):
+    """``tests/test_audit.py::_flip_delta``: the data-vector skew that
+    moves ``row``'s status vector exactly onto the next center."""
+    s = stopping.status(snap.x_m, snap.x_c, snap.out_m, snap.out_c,
+                            snap.in_m, snap.in_c, ta.mask)
+    c = centers.cpu().numpy()
+    v = s.m[row].cpu().numpy() / float(s.c[row])
+    cur = int(np.argmin(((c - v) ** 2).sum(-1)))
+    return c[(cur + 1) % len(c)] * float(s.c[row]) - s.m[row].cpu().numpy()
+
+
+def _service_fault(device, cfg, fault):
+    """A 4-tenant service on grid 4,096 with ``audit_every=1``: three
+    clean ticks, one slot faulted by ``AuditFaults`` through snapshot ->
+    fault -> restore, a zero-cycle tick.  Returns (the audit verdicts,
+    the first violation's dispatch, the forensic span's dispatch)."""
+    base = topology.grid(N_SMALL)
+    tracker = obs.InMemoryTracker()
+    svc = service.Service(base, service.ServiceConfig(
+        capacity=4, k_max=3, d=2, cycles_per_dispatch=4, audit_every=1,
+        **cfg), tracker=tracker, device=device)
+    for spec in _churn_specs(base.n, base.n, 4):
+        svc.admit(spec)
+    for _ in range(3):
+        svc.tick()
+    snap = svc.backend.snapshot(svc.states, 1)
+    ta = lss.TopoArrays.from_topology(base, device)
+    # The conservation tolerance grows with n (D + 1) times the state's
+    # mass (hundreds here): the phantom knowledge must exceed it.
+    delta = 1e4 if fault == "corrupt_knowledge" else 5.0
+    bad = getattr(obs.AuditFaults, fault)(snap, ta, row=0, delta=delta)
+    svc.states = svc.backend.restore_slot(svc.states, 1, bad)
+    svc.tick(cycles=0)
+    svc.close()
+    prov = forensics.provenance(tracker.records)
+    return ([{k: r.get(k) for k in AUDIT_VERDICT} for r in tracker.records
+             if r.get("kind") == "audit"],
+            prov["violation"]["dispatch"], prov["span"].attrs["dispatch"],
+            prov["failed"])
+
+
+def _engine_fault(device, fault):
+    """``ShardedLSS`` on grid 4,096 (S = 4, K = 5, 20 cycles): a skewed
+    data vector under a stale quiescence claim (sync) or a regressed
+    sequence counter (staleness 2).  Returns (the verdicts, the integer
+    reductions)."""
+    from repro_torch.engine import ShardedLSS
+
+    base = topology.grid(N_SMALL)
+    centers, _, _, inputs = sim._setup(base, sim.ProblemSpec(n=base.n),
+                                       device)
+    kw = (dict(async_mode=True, staleness=STALENESS)
+          if fault == "regress_seq" else {})
+    eng = ShardedLSS(base, centers, lss.LSSConfig(),
+                     EngineConfig(num_shards=4, cycles_per_dispatch=5, **kw),
+                     device=device)
+    st = eng.run(eng.init(inputs, seed=0), 20)
+    if fault == "regress_seq":
+        bad, claimed = obs.AuditFaults.regress_seq(st, eng._tables), None
+    else:
+        ta = lss.TopoArrays.from_topology(base, device)
+        delta = _flip_delta(eng.to_lss_state(st), ta, centers)
+        bad = obs.AuditFaults.on_engine(
+            eng, st, lambda s: obs.AuditFaults.skew_migration(s, delta))
+        claimed = True
+    raw = eng.audit(bad)
+    rep = obs_audit.evaluate(raw, claimed_quiescent=claimed)
+    return rep.monitors, {k: raw[k] for k in ("edge_bad", "edge_checked",
+                                              "stop_bad", "seq_bad")
+                          if k in raw}
+
+
+def _audit_faults(dev, gpu):
+    """One fault of each ``AuditFaults`` kind at grid 4,096 on the card
+    and on the CPU: the verdicts must be equal (on the async engine,
+    whose delay draws differ between the card's generators and the CPU's,
+    the monitors only), each fault fires its monitor, and forensics names
+    the faulted window."""
+    fires = {"corrupt_knowledge": "conservation",
+             "drop_halo_message": "edge", "skew_migration": "stopping",
+             "regress_seq": "seq"}
+    for backend, cfg in (("core", {}),
+                         ("engine", dict(backend="engine", engine_shards=4))):
+        for fault in ("corrupt_knowledge", "drop_halo_message"):
+            got = _service_fault(dev, cfg, fault)
+            want = _service_fault("cpu", cfg, fault)
+            verdicts, first, span, failed = got
+            if got != want:
+                raise AssertionError(f"fault {backend} {fault}: card "
+                                     f"{got[1:]} != CPU {want[1:]}")
+            if first != 4 or span != 4 or fires[fault] not in failed:
+                raise AssertionError(f"fault {backend} {fault}: {got[1:]}")
+            print(f"[obs-fault] service {backend} grid n={N_SMALL} {fault}: "
+                  f"monitors {failed} fire at dispatch {first} (slot 1; "
+                  f"forensics' span: dispatch {span}); {len(verdicts)} "
+                  f"audit verdicts equal to the CPU's", flush=True)
+    for fault in ("skew_migration", "regress_seq"):
+        monitors, ints = _engine_fault(dev, fault)
+        cpu_monitors, cpu_ints = _engine_fault("cpu", fault)
+        failed = sorted(m for m, held in monitors.items() if not held)
+        if (monitors != cpu_monitors or failed != [fires[fault]]
+                or (fault != "regress_seq" and ints != cpu_ints)):
+            raise AssertionError(f"fault engine {fault}: card {monitors} "
+                                 f"{ints}, CPU {cpu_monitors} {cpu_ints}")
+        print(f"[obs-fault] engine grid n={N_SMALL} {fault}: fires only "
+              f"{failed}, as on the CPU ({ints}); {gpu}", flush=True)
+
+
+def _profiled_overlap(topos, dev, gpu):
+    """The overlapped engine-backed service (chord, S = 8, phase 12's
+    churn) with ``profile_dispatch=True`` and ``profile_sample_every=4``
+    beside the same service unprofiled: records equal; the sampled
+    attributions printed.  Then one ``profiler_dir`` session on a small
+    overlapped service writes a Chrome trace (its device kernels
+    counted)."""
+    import tempfile
+
+    base = topos["chord"]
+    n_cap = base.n + max(4, int(base.n * CHURN_SPARE))
+    specs = _churn_specs(n_cap, n_cap, CHURN_Q)
+    runs = {}
+    for profile in (False, True):
+        tracker = obs.InMemoryTracker()
+        svc = _churn_service(base, n_cap, specs, dev, tracker=tracker,
+                             overlap=True, profile_dispatch=profile,
+                             profile_sample_every=PROFILE_SAMPLE,
+                             **ENGINE_SERVICE)
+        records, walls, _, _ = _churn_run(svc, OVERLAP_RATE, PROFILE_TICKS)
+        records.append(svc.flush())
+        runs[profile] = (records, tracker, walls,
+                         getattr(svc._dispatch_call, "sampled", 0))
+        svc.close()
+        del svc
+        torch.cuda.empty_cache()
+    (plain, _, plain_walls, _), (got, tracker, walls, sampled) = \
+        runs[False], runs[True]
+    n_rec = _same_records("profiled overlap vs unprofiled",
+                          _by_dispatch([r for rs in got for r in rs]),
+                          _by_dispatch([r for rs in plain for r in rs]))
+    samples = [m["metrics"] for m in tracker.metrics
+               if "dispatch_host_ms" in m["metrics"]]
+    if sampled < 2 or len(samples) != sampled:
+        raise AssertionError(f"profiled overlap: {sampled} sampled, "
+                             f"{len(samples)} published")
+    med = {k: float(np.median([s[k] for s in samples]))
+           for k in ("dispatch_host_ms", "dispatch_device_ms",
+                     "host_overhead_frac")}
+    print(f"[obs-profile] engine chord overlapped, {OVERLAP_RATE} events a "
+          f"dispatch, profile_sample_every={PROFILE_SAMPLE}: {sampled} of "
+          f"{PROFILE_TICKS + 1} dispatches fenced on the worker thread; "
+          f"median dispatch_host_ms {med['dispatch_host_ms']:.3f}, "
+          f"dispatch_device_ms {med['dispatch_device_ms']:.3f}, "
+          f"host_overhead_frac {med['host_overhead_frac']:.4f} (each: "
+          f"{[round(s['host_overhead_frac'], 4) for s in samples]}); wall "
+          f"a tick median {np.median(walls) * 1e3:.3f} ms (unprofiled "
+          f"{np.median(plain_walls) * 1e3:.3f}); records equal to the "
+          f"unprofiled service's ({n_rec} records); {gpu}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = topology.grid(N_SMALL)
+        svc = _churn_service(base, base.n, _churn_specs(base.n, base.n, 4),
+                             dev, overlap=True, profile_dispatch=True,
+                             profiler_dir=tmp, backend="engine",
+                             engine_shards=4)
+        svc.tick()
+        svc.flush()
+        svc.close()
+        files = list(Path(tmp).glob("*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"profiler_dir: {files}")
+        events = json.loads(files[0].read_text()).get("traceEvents", [])
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        ours = {m.group(1) for m in (
+            re.search(r"(\w*(?:lss_state|correction|decide)\w*)", e["name"])
+            for e in kern) if m}
+        if not events:
+            raise AssertionError(f"profiler_dir: {files[0].name} is empty")
+        print(f"[obs-profile] profiler_dir: one session on the worker "
+              f"thread wrote {files[0].name} ({files[0].stat().st_size} "
+              f"bytes, {len(events)} events, {len(kern)} device kernels; "
+              f"ours: {sorted(ours)})", flush=True)
+
+
+def phase_observability(topos, dev, gpu, churn_runs):
+    """The observability and audit plane on the card: tracker overhead on
+    phase 6's workload, the audited churned services (their launches
+    returned as the ``service_audit`` path), ``ShardedLSS.audit`` on phase
+    9's engines, one fault of each kind against the CPU, and profiling on
+    the overlapped engine service."""
+    totals = {key: 0 for key in KERNELS}
+    _obs_overhead(topos["chord"], dev, gpu)
+    torch.cuda.empty_cache()
+    _audited_churn(topos, dev, gpu, churn_runs, totals)
+    _engine_audits(topos, dev)
+    _audit_faults(dev, gpu)
+    _profiled_overlap(topos, dev, gpu)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2519,6 +2963,8 @@ def main() -> int:
     engine_svc_totals = phase("phase 11", phase_service_engine, topos, dev,
                               gpu, churn_runs)
     overlap_totals = phase("phase 12", phase_overlap, topos, dev, gpu)
+    audit_totals = phase("phase 13", phase_observability, topos, dev, gpu,
+                         churn_runs)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -2581,7 +3027,7 @@ def main() -> int:
                          + sweep_totals[name]
                          + sum(t[name] for t in aq_totals.values())
                          + churn_totals[name] + engine_svc_totals[name]
-                         + overlap_totals[name]),
+                         + overlap_totals[name] + audit_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
@@ -2590,7 +3036,8 @@ def main() -> int:
                                     for path, t in aq_totals.items()},
                                  "service_churn": churn_totals[name],
                                  "service_engine": engine_svc_totals[name],
-                                 "service_overlap": overlap_totals[name]},
+                                 "service_overlap": overlap_totals[name],
+                                 "service_audit": audit_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

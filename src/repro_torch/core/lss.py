@@ -506,43 +506,58 @@ def audit_impl(state: LSSState, topo: TopoArrays, decide, eps=1e-9,
     (+)_infl (in (-) out_rev)`` is rounding noise bounded by ``tol``.
     **Edge symmetry**: on settled slots ``A_ij`` and ``A_ji`` are bitwise
     equal (``edge_bad`` counts mismatches).  **Stopping soundness**:
-    ``stop_bad`` counts alive peers whose Def.-4 balance fails.
+    ``stop_bad`` counts alive peers whose Def.-4 balance fails, with the
+    reference formulas and ``decide``, whatever suite the cycles ran.
+
+    ``settled_ok`` (bool (n, D) or None) moves the slots it excludes to
+    the in-flight side of the ledger and out of the edge check (the
+    engine's halo slots on a lossy wire or in async mode);
+    ``tol_rel_extra`` widens the rounding model by a wire's relative
+    error bound.
 
     Returns a dict of scalar tensors: ``resid``/``tol``/``mag``,
     ``edge_bad``/``edge_checked``, ``stop_bad``/``quiescent``, and
-    ``live_slots``/``msgs``/``t``.
+    ``live_slots``/``msgs``/``t``.  For Q stacked slots (``decide``
+    batched over them, ``eps`` one value or (Q,)) each is a (Q,) tensor
+    of the slots' own reductions, what the JAX service gets from
+    ``vmap``.
     """
     n, D = topo.nbr.shape
+    lead = state.alive.shape[:-1]
     live = _live_mask(topo, state.alive)
     src = topo.nbr.to(torch.int64) * D + topo.rev
-    out_rev_m = state.out_m.reshape(n * D, -1)[src]
-    out_rev_c = state.out_c.reshape(n * D)[src]
-    pend_rev = state.pending.reshape(n * D)[src]
+    out_rev_m = state.out_m.reshape(*lead, n * D, -1)[..., src, :]
+    out_rev_c = state.out_c.reshape(*lead, n * D)[..., src]
+    pend_rev = state.pending.reshape(*lead, n * D)[..., src]
 
     s = stopping.status(state.x_m, state.x_c, state.out_m, state.out_c,
                         state.in_m, state.in_c, live)
-    alive_k = state.alive[:, None]
-    gx_m = torch.sum(torch.where(alive_k, state.x_m, 0.0), dim=0)
-    gx_c = torch.sum(torch.where(state.alive, state.x_c, 0.0))
+    alive_k = state.alive[..., None]
+    gx_m = torch.sum(torch.where(alive_k, state.x_m, 0.0), dim=-2)
+    gx_c = torch.sum(torch.where(state.alive, state.x_c, 0.0), dim=-1)
 
     infl = live & pend_rev
     if settled_ok is not None:
         infl = live & (pend_rev | ~settled_ok)
-    sum_s_m = torch.sum(torch.where(alive_k, s.m, 0.0), dim=0)
-    sum_s_c = torch.sum(torch.where(state.alive, s.c, 0.0))
+    sum_s_m = torch.sum(torch.where(alive_k, s.m, 0.0), dim=-2)
+    sum_s_c = torch.sum(torch.where(state.alive, s.c, 0.0), dim=-1)
     flight_m = torch.sum(torch.where(infl[..., None], state.in_m - out_rev_m,
-                                     0.0), dim=(0, 1))
-    flight_c = torch.sum(torch.where(infl, state.in_c - out_rev_c, 0.0))
-    resid = torch.maximum(torch.max(torch.abs(sum_s_m - gx_m - flight_m)),
-                          torch.abs(sum_s_c - gx_c - flight_c))
+                                     0.0), dim=(-3, -2))
+    flight_c = torch.sum(torch.where(infl, state.in_c - out_rev_c, 0.0),
+                         dim=(-2, -1))
+    resid = torch.maximum(
+        torch.amax(torch.abs(sum_s_m - gx_m - flight_m), dim=-1),
+        torch.abs(sum_s_c - gx_c - flight_c))
     mag = (
-        torch.sum(torch.where(alive_k, torch.abs(state.x_m), 0.0))
-        + torch.sum(torch.where(state.alive, torch.abs(state.x_c), 0.0))
+        torch.sum(torch.where(alive_k, torch.abs(state.x_m), 0.0),
+                  dim=(-2, -1))
+        + torch.sum(torch.where(state.alive, torch.abs(state.x_c), 0.0),
+                    dim=-1)
         + torch.sum(torch.where(live[..., None],
                                 torch.abs(state.in_m) + torch.abs(out_rev_m),
-                                0.0))
+                                0.0), dim=(-3, -2, -1))
         + torch.sum(torch.where(live, torch.abs(state.in_c)
-                                + torch.abs(out_rev_c), 0.0))
+                                + torch.abs(out_rev_c), 0.0), dim=(-2, -1))
     )
     u = torch.finfo(state.x_m.dtype).eps
     tol = 1e-6 + (4.0 * u + tol_rel_extra) * (n * (D + 1)) * mag
@@ -556,20 +571,22 @@ def audit_impl(state: LSSState, topo: TopoArrays, decide, eps=1e-9,
     check = settled & (((slot_id + int(sample_phase)) % mod) == 0)
     a_m = state.out_m + state.in_m
     a_c = state.out_c + state.in_c
-    mismatch = (torch.any(a_m != a_m.reshape(n * D, -1)[src], dim=-1)
-                | (a_c != a_c.reshape(n * D)[src]))
-    edge_bad = torch.sum(check & mismatch)
-    edge_checked = torch.sum(check)
+    mismatch = (torch.any(a_m != a_m.reshape(*lead, n * D, -1)[..., src, :],
+                          dim=-1)
+                | (a_c != a_c.reshape(*lead, n * D)[..., src]))
+    edge_bad = torch.sum(check & mismatch, dim=(-2, -1))
+    edge_checked = torch.sum(check, dim=(-2, -1))
 
     a = stopping.agreements(state.out_m, state.out_c, state.in_m, state.in_c)
     ok4 = stopping.def4_satisfied(decide, s, a, live, eps)
-    stop_bad = torch.sum(state.alive & ~ok4)
+    stop_bad = torch.sum(state.alive & ~ok4, dim=-1)
     viol = stopping.violations_alg1(decide, s, a, live, eps)
-    quiescent = ~torch.any(state.pending & live) & ~torch.any(viol)
+    quiescent = (~torch.any((state.pending & live).flatten(-2), dim=-1)
+                 & ~torch.any(viol.flatten(-2), dim=-1))
 
     return dict(
         resid=resid, tol=tol, mag=mag,
         edge_bad=edge_bad, edge_checked=edge_checked,
         stop_bad=stop_bad, quiescent=quiescent,
-        live_slots=torch.sum(live), msgs=state.msgs, t=state.t,
+        live_slots=torch.sum(live, dim=(-2, -1)), msgs=state.msgs, t=state.t,
     )

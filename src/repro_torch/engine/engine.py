@@ -53,9 +53,11 @@ the in-place form of ``clear_slots`` the service's membership edits use;
 the drop and delay generators advance in place, as in the core, and
 :meth:`ShardedLSS.run` copies an async state's ring once per call and then
 writes only the published slot each cycle.
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the mesh transport (``use_mesh``, A.5), the audit plane and
-``profile=True`` (A.7), and ``auto_plan=True`` (A.8).
+``EngineConfig(profile=True)`` wraps each dispatch's K-cycle loop in a
+:class:`~repro_torch.obs.ProfiledDispatch` (host/device split, fenced by a
+CUDA event on the card).  Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: the mesh transport
+(``use_mesh``, A.5) and ``auto_plan=True`` (A.8).
 """
 
 from __future__ import annotations
@@ -163,7 +165,7 @@ class EngineConfig(NamedTuple):
     # reference formulas on the CPU), bool, or a registered suite name.
     use_kernels: Union[bool, str, None] = None
     halo_slack: float = 1.0  # >1 pads halo width for membership headroom
-    profile: bool = False  # not ported (ROADMAP A.7)
+    profile: bool = False  # ProfiledDispatch around each dispatch
     async_mode: bool = False  # per-shard clocks + the bounded-stale ring
     staleness: int = 0  # halo reads may lag the sender by <= this many cycles
     wire: str = "exact"  # "exact" | "compact" | "int8" | "bf16"
@@ -306,10 +308,8 @@ class ShardedLSS:
                  cfg: lss.LSSConfig = lss.LSSConfig(),
                  ecfg: EngineConfig = EngineConfig(), decide=None,
                  region=None, tracker=None, device=None):
-        from ..obs import NoopTracker  # local: keep the engine import light
+        from ..obs import NoopTracker, ProfiledDispatch  # local: no cycle
 
-        if ecfg.profile:
-            raise _unported("profile=True (ProfiledDispatch)", "A.7")
         if ecfg.auto_plan:
             raise _unported("auto_plan=True (engine autotuning)", "A.8")
         self._wire = exchange.get_wire(ecfg.wire)
@@ -317,6 +317,9 @@ class ShardedLSS:
         self.cfg = cfg
         self.ecfg = ecfg
         self.tracker = tracker if tracker is not None else NoopTracker()
+        self._profiled = (ProfiledDispatch(self._k_cycles, self.tracker,
+                                           backend="engine")
+                          if ecfg.profile else None)
         self.centers = torch.as_tensor(centers).to(self.device)
         if region is not None:
             self.region_slot = regions.PackedSlot(*(
@@ -380,10 +383,6 @@ class ShardedLSS:
     def use_mesh(self, mesh, axis_name: str):
         raise _unported("use_mesh (the collective all_to_all transport)",
                         "A.5")
-
-    def audit(self, state, eps: float = 1e-9, sample_mod: int = 1,
-              sample_phase: int = 0):
-        raise _unported("ShardedLSS.audit (the audit plane)", "A.7")
 
     # -- state -------------------------------------------------------------
     def init(self, inputs: wvs.WV, seed: int = 0, alive=None):
@@ -903,7 +902,9 @@ class ShardedLSS:
         ``engine_async_staleness_mean``, ``engine_async_stale_drops_total``
         and ``engine_async_applied_total`` gauges (one host sync).  There
         is no ``recompiled`` attribute: the port compiles nothing per
-        dispatch.
+        dispatch.  With ``EngineConfig(profile=True)`` each dispatch's K
+        cycles run inside a :class:`~repro_torch.obs.ProfiledDispatch`
+        (``backend="engine"`` gauges in the tracker).
         """
         from ..obs import NoopTracker
 
@@ -930,8 +931,8 @@ class ShardedLSS:
                                    suite=self.suite.name,
                                    mode="async" if is_async else "sync",
                                    transport=transport) as sp:
-                for _ in range(step):
-                    state = cycle(state, self._tables)
+                state = (self._profiled or self._k_cycles)(
+                    state, cycle, step)
                 sp.set("fused", self.dispatch_info["fused"])
                 sp.set("wire", self._wire.name)
                 sp.set("halo_bytes", total_bytes * step)
@@ -956,6 +957,13 @@ class ShardedLSS:
                 "engine_async_applied_total",
                 "cross-shard messages applied, cumulative").set(
                     lag["applied"])
+        return state
+
+    def _k_cycles(self, state, cycle, k: int):
+        """One dispatch: ``k`` cycles of ``cycle`` over the installed
+        tables."""
+        for _ in range(k):
+            state = cycle(state, self._tables)
         return state
 
     def _publish_halo(self, step, transport, shard_bytes, pair) -> None:
@@ -1063,6 +1071,69 @@ class ShardedLSS:
         if isinstance(state, AsyncShardedState):
             quiescent = quiescent & ~self.async_in_flight(state)
         return acc, quiescent, correct
+
+    # -- audit plane -------------------------------------------------------
+    def _audit_impl(self, state: ShardedState, tables: DeviceTopo, eps=1e-9,
+                    decide=None, sample_mod=1, sample_phase=0):
+        """The audit reductions on a sync state, single or Q tenants
+        stacked: :func:`repro_torch.core.lss.audit_impl` on the flat
+        ``S*B``-row view of ``tables`` (``tgt_pos`` is the flat neighbor
+        table and ``rev`` the reverse slot at the target row, so the slot
+        involution holds across shard boundaries).
+
+        In async mode or on a lossy wire the halo slots' in/out pairing is
+        relaxed (a stale read, a quantized value), so they move to the
+        in-flight side of the ledger and out of the bitwise edge check
+        (``settled_ok=intra``), and the rounding model widens by the
+        wire's ``quant_eps``.  ``decide`` (default: the engine's own plain
+        decision) and ``eps`` (one or (Q,)) may be per-tenant overrides,
+        as in the JAX twin.
+        """
+        decide = decide if decide is not None else self.decide
+        S, B = self.S, self.B
+        relaxed = self.ecfg.async_mode or self._wire.lossy
+        settled_ok = tables.intra.reshape(S * B, -1) if relaxed else None
+        return lss.audit_impl(self._flat_state(state), tables.flat(),
+                              decide, eps=eps, sample_mod=sample_mod,
+                              sample_phase=sample_phase,
+                              settled_ok=settled_ok,
+                              tol_rel_extra=self._wire.quant_eps)
+
+    def _audit_async_impl(self, astate: AsyncShardedState,
+                          tables: DeviceTopo) -> dict:
+        """Async-monotonicity reductions over the transport books.
+
+        ``snd[src, dst, h]`` is the sender-side out-slot counter: no
+        receiver's last applied seq may exceed it (``seq_bad``), and no
+        live ring publication may carry a stamp beyond it (``ring_bad``).
+        Also the cumulative ``stale_drops`` and :meth:`async_in_flight`.
+        """
+        S = self.S
+        h = tables.halo
+        shard = torch.arange(S, device=h.send_row.device)[:, None, None]
+        snd = astate.out_seq[shard, h.send_row, h.send_slot]  # (Ss, Sd, H)
+        cur = astate.last_seq[shard, h.recv_row, h.recv_slot]  # (Sd, Ss, H)
+        ok = h.send_ok.transpose(0, 1)
+        seq_bad = torch.sum(ok & (cur > snd.transpose(0, 1)))
+        ring_bad = torch.sum(astate.ring_flag & h.send_ok[None]
+                             & (astate.ring_seq > snd[None]))
+        return dict(seq_bad=seq_bad, ring_bad=ring_bad,
+                    stale_drops=torch.sum(astate.stale_drops),
+                    in_flight=self.async_in_flight(astate))
+
+    def audit(self, state, eps: float = 1e-9, sample_mod: int = 1,
+              sample_phase: int = 0) -> dict:
+        """Host-side audit read: the raw invariant reductions as a dict of
+        Python scalars.  Accepts either state kind; an async state adds
+        the seq-monotonicity counters and the cumulative stale-drop total
+        (reconciled against ``engine_async_stale_drops_total`` by
+        :mod:`repro_torch.obs.audit`)."""
+        raw = dict(self._audit_impl(self._base(state), self._tables,
+                                    eps=eps, sample_mod=sample_mod,
+                                    sample_phase=sample_phase))
+        if isinstance(state, AsyncShardedState):
+            raw.update(self._audit_async_impl(state, self._tables))
+        return {k: v.item() for k, v in raw.items()}
 
     def to_lss_state(self, state) -> lss.LSSState:
         """Unpermute into a core :class:`LSSState` (parity tests, debug);

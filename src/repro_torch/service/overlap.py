@@ -59,6 +59,8 @@ class PendingWindow(NamedTuple):
     spans: dict  # boundary span seconds swapped out at launch
     counts: dict  # boundary work counts swapped out at launch
     ready: Any = None  # CUDA event: the rows above reached the host
+    audit: Any = None  # dict of (Q,) host audit rows, or None when this
+    # window was not sampled (scfg.audit_every)
 
 
 class BufferReshape(RuntimeError):

@@ -64,9 +64,18 @@ the epochs' partition builds can be staged on a background thread
 boundary.  Every method that reads or writes the state between ticks
 joins the worker first.
 
-Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP
-item: ``profile_dispatch``/``profiler_dir``, ``alerts`` and
-``audit_every > 0`` (A.7).
+Observability (:mod:`repro_torch.obs`), as in the JAX service:
+``audit_every=N`` audits every Nth window (the first always): the
+paper's invariant monitors run as torch reductions on the state after the
+observe and before the send counters reset, and their per-slot numbers
+ride the observe's one host transfer; the finished window emits
+``kind="audit"`` records, the ``audit_residual`` gauge and the
+``audit_violations_total`` counter.  ``alerts`` are evaluated at every
+finished window.  ``profile_dispatch`` wraps the dispatch in a
+:class:`~repro_torch.obs.ProfiledDispatch` (on the worker thread under
+overlap).  The flight recorder dumps itself, when ``flight_dump_dir`` is
+set, on an audit violation, an SLO violation, an eviction, an epoch or a
+firing alert, in that order of precedence, and on a crash.
 """
 
 from __future__ import annotations
@@ -82,8 +91,10 @@ import torch
 from .. import resolve_device
 from ..core import lss, topology, wvs
 from ..kernels import ops as kernel_ops
-from ..kernels.suite import resolve_suite
-from ..obs import FlightRecorder, Tracker, jit_cache_size
+from ..kernels.suite import get_suite, resolve_suite
+from ..obs import (AlertEngine, FlightRecorder, NoopTracker,
+                   ProfiledDispatch, Tracker, jit_cache_size)
+from ..obs import audit as obs_audit
 from ..obs import metrics as obs_metrics
 from . import query as qmod
 from .admission import AdmissionQueue
@@ -125,10 +136,14 @@ class ServiceConfig(NamedTuple):
     records (``[]`` on the first tick) and ``flush()`` the last ones.
     Record content is the synchronous mode's.
 
-    Fields of the JAX twin that select parts not ported yet are kept so
-    configurations carry over, and the service raises on them:
-    ``profile_dispatch``/``profiler_dir``/``profile_sample_every``,
-    ``alerts`` and ``audit_every`` (ROADMAP A.7).
+    Observability knobs: ``profile_dispatch`` wraps the dispatch in
+    :class:`~repro_torch.obs.ProfiledDispatch` (host/device wall gauges,
+    fenced every ``profile_sample_every``-th dispatch; ``profiler_dir``
+    also runs those dispatches in a ``torch.profiler`` session writing a
+    Chrome trace there); ``alerts`` is a tuple of
+    :class:`~repro_torch.obs.AlertRule` evaluated at every finished
+    window; ``audit_every=N`` audits every Nth window (0 disables).
+    Records and states are the same with all of them on or off.
     """
 
     capacity: int = 64  # Q query slots
@@ -150,29 +165,41 @@ class ServiceConfig(NamedTuple):
     admission_overflow: str = "reject"  # "reject" | "evict-oldest"
     control: ControlPlaneConfig = ControlPlaneConfig()  # control plane
     use_kernels: Union[bool, str, None] = None  # kernel suite (see above)
-    profile_dispatch: bool = False
-    profiler_dir: Optional[str] = None
-    alerts: Tuple = ()
+    profile_dispatch: bool = False  # host/device dispatch attribution
+    profiler_dir: Optional[str] = None  # torch.profiler trace sessions
+    alerts: Tuple = ()  # AlertRule set, evaluated per finished window
     flight_capacity: int = 1024  # flight-recorder ring size (records)
     flight_dump_dir: Optional[str] = None  # auto-dump dir (None = manual)
     overlap: bool = False
-    profile_sample_every: int = 1
-    audit_every: int = 0
+    profile_sample_every: int = 1  # dispatch-attribution fence cadence
+    audit_every: int = 0  # audit the observe every N dispatches
 
 
-def _unported(scfg: ServiceConfig) -> Optional[str]:
-    """What of ``scfg`` the port cannot serve yet, with its ROADMAP item,
-    or None (either backend, a static topology and a ``DynTopology``
-    alike)."""
-    if scfg.backend not in ("core", "engine"):
-        raise ValueError(f"unknown backend {scfg.backend!r}")
-    if scfg.profile_dispatch or scfg.profiler_dir is not None:
-        return "profile_dispatch/profiler_dir (ROADMAP A.7)"
-    if scfg.alerts:
-        return "alerts (ROADMAP A.7)"
-    if scfg.audit_every > 0:
-        return "audit_every > 0 (the audit plane, ROADMAP A.7)"
-    return None
+# The audit reductions that ride the observe's host transfer, in row order
+# after its five rows (each value is exact in float64).
+_AUDIT_ROWS = ("resid", "tol", "mag", "edge_bad", "edge_checked",
+               "stop_bad", "quiescent", "live_slots", "msgs", "t")
+
+
+def _reference_decide(tables: kernel_ops.SlotTables):
+    """The slots' packed decisions by the reference formulas: the audit
+    checks the serving path's claims, so it never decides through the
+    kernels."""
+    ref = get_suite("reference")
+    return lambda v: ref.decide(v, tables)  # noqa: E731
+
+
+class _DeferredMetrics(NoopTracker):
+    """Where the overlapped worker's :class:`ProfiledDispatch` logs its
+    gauges: held until the main thread publishes them at the join, since
+    a tracker is not thread-safe."""
+
+    def __init__(self):
+        super().__init__()
+        self.pending: list = []
+
+    def log_metrics(self, metrics, **labels) -> None:
+        self.pending.append((metrics, labels))
 
 
 class _Preempted(NamedTuple):
@@ -298,6 +325,18 @@ class _CoreBackend:
             params.eps, suite=self.suite, regions=tables)
         return acc, quiescent, want
 
+    def audit(self, states, params: qmod.QueryParams, tables,
+              topo: lss.TopoArrays) -> dict:
+        """Per-slot audit reductions, (Q,) each, with the reference
+        formulas' decisions."""
+        return lss.audit_impl(states, topo, _reference_decide(tables),
+                              eps=params.eps)
+
+    def capacity_slots(self) -> int:
+        """n * D message-slot capacity: the per-cycle send bound the
+        audit's exact counter check uses (sound under churn)."""
+        return int(self.ta.nbr.shape[0] * self.ta.nbr.shape[1])
+
     def msgs_device(self, states) -> torch.Tensor:
         """Per-slot sends since the last reset, (Q,), on the device."""
         return states.msgs
@@ -361,6 +400,9 @@ class _CoreBackend:
 
     def cut_frac(self) -> Optional[float]:
         return None  # one device, no partition to drift
+
+    def halo_bytes_per_cycle(self) -> int:
+        return 0  # one device, nothing crosses a shard boundary
 
     def regrow(self, dyn, states, prebuilt=None, catchup_rows=None):
         """Adopt a grown topology and pad every slot's state to it.
@@ -467,6 +509,19 @@ class _EngineBackend:
             states, params.eps, regions=tables)
         return acc, quiescent, want
 
+    def audit(self, states, params: qmod.QueryParams, tables,
+              topo) -> dict:
+        """Per-slot audit reductions, (Q,) each, on the flat S*B rows of
+        the tables captured at launch, with the reference formulas'
+        decisions."""
+        return self.eng._audit_impl(states, topo, eps=params.eps,
+                                    decide=_reference_decide(tables))
+
+    def capacity_slots(self) -> int:
+        """S * B * D capacity (padding rows included: still a sound bound
+        on per-cycle sends)."""
+        return int(self.eng.S * self.eng.B * self.eng.D)
+
     def msgs_device(self, states) -> torch.Tensor:
         """Per-slot sends since the last reset: the (Q, S) per-shard
         counters summed, on the device."""
@@ -544,6 +599,11 @@ class _EngineBackend:
         drift metric is built on."""
         st = self.eng.stopo
         return st.cut_edges() / max(st.num_edges, 1)
+
+    def halo_bytes_per_cycle(self) -> int:
+        """Bytes the halo exchange moves per cycle per tenant under the
+        active wire (:meth:`ShardedLSS.wire_pair_bytes`)."""
+        return int(self.eng.wire_pair_bytes(self.scfg.d).sum())
 
     def _reshard(self, dyn, states, prebuilt=None, catchup_rows=None):
         """A fresh partition of ``dyn`` and every slot's state migrated
@@ -643,10 +703,8 @@ class Service:
         if telemetry is not None and tracker is not None:
             raise ValueError(
                 "pass either telemetry= (legacy) or tracker=, not both")
-        missing = _unported(scfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"the port's Service does not support {missing} yet")
+        if scfg.backend not in ("core", "engine"):
+            raise ValueError(f"unknown backend {scfg.backend!r}")
         self.device = resolve_device(device)
         self.topo = topo
         self.scfg = scfg
@@ -676,6 +734,8 @@ class Service:
         # Per-tenant causal trace ids, minted deterministically at admit.
         self._trace_seq = 0
         self._trace_ids: Dict[str, str] = {}
+        self.alerts = (AlertEngine(scfg.alerts, self.tracker.registry)
+                       if scfg.alerts else None)
         cp = scfg.control
         self.cp = cp
         self.slo = SLOTracker(registry=self.tracker.registry)
@@ -713,6 +773,16 @@ class Service:
 
         self.states = self.backend.init_states(scfg.capacity, scfg.d,
                                                alive=self._present)
+        # Profiling wraps the dispatch; the overlapped worker's gauges wait
+        # in _deferred for the main thread.
+        self._deferred = _DeferredMetrics() if scfg.overlap else None
+        self._dispatch_call = (
+            ProfiledDispatch(self._dispatch,
+                             self._deferred if scfg.overlap else self._obs,
+                             backend=scfg.backend,
+                             profiler_dir=scfg.profiler_dir,
+                             sample_every=scfg.profile_sample_every)
+            if scfg.profile_dispatch else self._dispatch)
         self._buffers = DoubleBuffer()
         # Overlap: the window launched and not yet finished, the worker's
         # future and dispatch span while that dispatch is in flight (the
@@ -1434,6 +1504,9 @@ class Service:
         events, self._ctrl_events = self._ctrl_events, []
         spans, self._boundary_spans = self._boundary_spans, {}
         counts, self._boundary_counts = self._boundary_counts, {}
+        # dispatches was just incremented: the first window is audited.
+        ae = self.scfg.audit_every
+        audited = bool(ae) and (self.dispatches - 1) % ae == 0
         window = PendingWindow(
             dispatch=self.dispatches, t=self.cycles, k=k,
             acc=None, quiescent=None, want=None, msgs=None, corr_iters=None,
@@ -1445,8 +1518,8 @@ class Service:
             edges=self._edges,
             events=events, spans=spans, counts=counts)
         if not self.scfg.overlap:
-            return self._land(window, sp, self._dispatch(
-                self.states, params, topo, k))
+            return self._land(window, sp, self._dispatch_call(
+                self.states, params, topo, k, audited))
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="service-dispatch")
@@ -1457,56 +1530,70 @@ class Service:
                   if self.device.type == "cuda" else None)
         states, self.states = self.states, None
         self._inflight = (self._pool.submit(
-            self._dispatch, states, params, topo, k, stream), sp)
+            self._on_stream, stream, states, params, topo, k, audited), sp)
         return window
 
-    def _dispatch(self, states, params: qmod.QueryParams, topo, k: int,
-                  stream=None):
-        """The dispatch proper, on the operands captured at launch (and on
-        ``stream``, when given): K cycles over every slot, the observe,
-        and the observation rows' copy to the host started behind them.
-        Reads nothing the boundary edits (so the worker thread can run it
-        beside the next boundary's host work).  Returns (states', per-slot
-        do-while iterations, the (5, Q) host rows, their copy's CUDA event
-        or None, the ``perf_counter`` stamp at which the K cycles were
-        enqueued)."""
-        backend = self.backend
+    def _on_stream(self, stream, *args):
+        """The worker's dispatch, on the launching thread's ``stream``
+        (None: the current one), profiled when configured."""
         with torch.cuda.stream(stream):  # a no-op for None
-            tables = backend.tables(params)
-            states, iters = backend.step(states, params, tables, k,
-                                         self.base_cfg, topo)
-            stepped = time.perf_counter()
-            acc, quiescent, want = backend.metrics(states, params, tables,
-                                                   topo)
-            # ONE host transfer for the whole fleet: accuracy, quiescence,
-            # region, message counts and do-while iterations as one
-            # float64 (5, Q) tensor (every value is exact in float64).
-            rows = torch.stack([acc.double(), quiescent.double(),
-                                want.double(),
-                                backend.msgs_device(states).double(),
-                                iters.double()])
-            host, ready = rows, None
-            if rows.device.type == "cuda":
-                # Into pinned memory, waited on by its own event: finishing
-                # the window does not wait behind a later dispatch.
-                host = torch.empty(rows.shape, dtype=rows.dtype,
-                                   pin_memory=True)
-                host.copy_(rows, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(rows.device))
-            return backend.reset_msgs(states), iters, host, ready, stepped
+            return self._dispatch_call(*args)
+
+    def _dispatch(self, states, params: qmod.QueryParams, topo, k: int,
+                  audited: bool = False):
+        """The dispatch proper, on the operands captured at launch: K
+        cycles over every slot, the observe (and on an ``audited`` window
+        the audit reductions, before the send counters reset), and the
+        observation rows' copy to the host started behind them.  Reads
+        nothing the boundary edits (so the worker thread can run it beside
+        the next boundary's host work).  Returns (states', per-slot
+        do-while iterations, the (5, Q) host rows plus the audit's, their
+        copy's CUDA event or None, the ``perf_counter`` stamp at which the
+        K cycles were enqueued)."""
+        backend = self.backend
+        tables = backend.tables(params)
+        states, iters = backend.step(states, params, tables, k,
+                                     self.base_cfg, topo)
+        stepped = time.perf_counter()
+        acc, quiescent, want = backend.metrics(states, params, tables, topo)
+        # ONE host transfer for the whole fleet: accuracy, quiescence,
+        # region, message counts, do-while iterations and the audit's
+        # reductions as one float64 tensor (every value is exact in
+        # float64).
+        rows = [acc.double(), quiescent.double(), want.double(),
+                backend.msgs_device(states).double(), iters.double()]
+        if audited:
+            raw = backend.audit(states, params, tables, topo)
+            rows += [raw[key].double() for key in _AUDIT_ROWS]
+        rows = torch.stack(rows)
+        host, ready = rows, None
+        if rows.device.type == "cuda":
+            # Into pinned memory, waited on by its own event: finishing the
+            # window does not wait behind a later dispatch.
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(rows.device))
+        return backend.reset_msgs(states), iters, host, ready, stepped
 
     def _land(self, window: PendingWindow, sp, result) -> PendingWindow:
         """Take a finished dispatch back: the state and the per-slot
         iterations, the dispatch span (ended when its K cycles were
-        enqueued), and the window's observation rows."""
+        enqueued), the window's observation rows and the overlapped
+        worker's profile gauges."""
         states, iters, host, ready, stepped = result
         self.states, self._corr_iters = states, iters
         self._obs.end_span(sp, sp.elapsed(stepped))
         window.spans["dispatch"] = sp.seconds
-        acc, quiescent, want, msgs, corr_iters = host
+        if self._deferred is not None:
+            for metrics, labels in self._deferred.pending:
+                self._obs.log_metrics(metrics, **labels)
+            self._deferred.pending.clear()
+        rows = host.unbind(0)
+        acc, quiescent, want, msgs, corr_iters = rows[:5]
         return window._replace(acc=acc, quiescent=quiescent, want=want,
-                               msgs=msgs, corr_iters=corr_iters, ready=ready)
+                               msgs=msgs, corr_iters=corr_iters, ready=ready,
+                               audit=dict(zip(_AUDIT_ROWS, rows[5:])) or None)
 
     def _join(self) -> None:
         """Wait for the dispatch in flight on the worker thread (overlap
@@ -1580,6 +1667,8 @@ class Service:
             acc, quiescent, want, msgs, corr_iters = (
                 r.numpy() for r in (w.acc, w.quiescent, w.want, w.msgs,
                                     w.corr_iters))
+            audit_raw = ({key: r.numpy() for key, r in w.audit.items()}
+                         if w.audit is not None else None)
         w.spans["observe"] = sp.seconds
         reg = self.tracker.registry
         corr_hist = self.tracker.histogram(
@@ -1628,6 +1717,40 @@ class Service:
             corr_hist.observe(int(corr_iters[slot]), query=qid)
             self._obs.log_record(rec)
             records.append(rec)
+        # Audit plane: on sampled windows, evaluate the invariant
+        # reductions per active slot and emit kind="audit" records.
+        audit_bad = False
+        if audit_raw is not None:
+            max_sent = w.k * self.backend.capacity_slots()
+            for qid, slot in w.active:
+                raw = {key: v[slot] for key, v in audit_raw.items()}
+                rep = obs_audit.evaluate(
+                    raw, claimed_quiescent=bool(quiescent[slot]),
+                    max_sent=max_sent)
+                arec = obs_audit.record(
+                    rep, dispatch=w.dispatch, t=w.t, query=qid, slot=slot,
+                    trace_id=self._trace_ids.get(qid, ""))
+                self._obs.log_record(arec)
+                reg.gauge("audit_residual",
+                          "conservation residual of the last audited "
+                          "window (absolute, tolerance-gated)").set(
+                              arec["residual"], query=qid)
+                if not rep.ok:
+                    audit_bad = True
+                    for m, held in rep.monitors.items():
+                        if not held:
+                            reg.counter(
+                                "audit_violations_total",
+                                "audit-plane invariant violations, per "
+                                "query and monitor").inc(
+                                    1, query=qid, monitor=m)
+        halo_bytes = self.backend.halo_bytes_per_cycle()
+        if halo_bytes and records:
+            reg.counter(
+                "engine_halo_bytes_total",
+                "halo exchange buffer bytes moved (dense transport "
+                "footprint), summed over cycles and active slots").inc(
+                    halo_bytes * w.k * len(records))
         reg.gauge("service_queue_depth",
                   "admission queue occupancy").set(len(self.admission))
         reg.gauge("service_preempted_depth",
@@ -1640,11 +1763,27 @@ class Service:
             self.slo.observe_waiting(qid, w.t)
         for qid in w.preempted:
             self.slo.observe_waiting(qid, w.t)
+        # Alert rules, after every gauge above is current: transitions
+        # become kind="alert" records and arm the flight trigger.
+        fired = []
+        if self.alerts is not None:
+            for a in self.alerts.evaluate(dispatch=w.dispatch, t=w.t):
+                if a["state"] == "firing":
+                    fired.append(a)
+                self._obs.log_record(a)
+        # The window's flight trigger: an invariant violation outranks the
+        # service-level triggers.
         trigger = None
-        if any(r.get("slo_ok") is False for r in records):
+        if audit_bad:
+            trigger = "audit_violation"
+        elif any(r.get("slo_ok") is False for r in records):
             trigger = "slo_violation"
         elif any(kind == "evicted" for kind, _ in w.events):
             trigger = "eviction"
+        elif any(kind == "epoch" for kind, _ in w.events):
+            trigger = "epoch"
+        elif fired:
+            trigger = "alert"
         self._emit_control_record(w)
         if trigger is not None:
             self._auto_flight_dump(trigger, dispatch=w.dispatch, t=w.t)
@@ -1672,8 +1811,9 @@ class Service:
     def _auto_flight_dump(self, reason: str, dispatch: Optional[int] = None,
                           t: Optional[int] = None,
                           **context) -> Optional[str]:
-        """Automatic dump on SLO violation / eviction / crash — only when
-        the service was configured with a dump dir."""
+        """Automatic dump on audit / SLO violation / eviction / epoch /
+        alert / crash: only when the service was configured with a dump
+        dir."""
         base = self.scfg.flight_dump_dir
         if base is None:
             return None

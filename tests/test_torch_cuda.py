@@ -869,3 +869,86 @@ def test_async_and_int8_engines_fused_match_reference(dev, make, kw):
             assert np.array_equal(a, p_st[name]), f"dispatch {i}: {name}"
         for a, b in zip(f_m, p_m):
             assert torch.equal(a, b), f"dispatch {i}"
+
+
+VERDICT = ("dispatch", "t", "query", "slot", "ok", "violations", "monitors",
+           "quiescent", "claimed_quiescent", "edge_bad", "edge_checked",
+           "stop_bad", "msgs", "live_slots")
+
+
+def _audited_service_records(device, use_kernels, specs, backend,
+                             overlap=False, profile=False, audit_every=1,
+                             dispatches=8):
+    """The churned service of ``_overlap_service_records`` (grid 4,096
+    with 8 spare rows, auto-regrow, six seeded events a dispatch, a
+    ``grow_capacity`` of the degree slots at dispatch 3 and, on the engine
+    backend, a forced rebalance at dispatch 5) with the audit plane on
+    every ``audit_every``-th window.  Returns (records, audit records'
+    verdicts and integer reductions, launch counts, the tracker)."""
+    from repro_torch.obs import InMemoryTracker
+
+    dyn = topology.DynTopology.from_topology(topology.grid(4096),
+                                             n_cap=4104, deg_cap=6)
+    cfg = ServiceConfig(capacity=4, k_max=3, d=2, cycles_per_dispatch=4,
+                        use_kernels=use_kernels, backend=backend,
+                        engine_shards=4, overlap=overlap,
+                        profile_dispatch=profile, audit_every=audit_every,
+                        control=ControlPlaneConfig(auto_regrow=True))
+    tr = InMemoryTracker()
+    with Service(dyn, cfg, tracker=tr, device=device) as svc:
+        for spec in specs:
+            svc.admit(spec)
+        rng = np.random.default_rng(5)
+        kernels.reset_counts()
+        records = []
+        for i in range(dispatches):
+            if i == 3:
+                svc.grow_capacity(deg_cap=svc.topo.deg_cap + 2)
+            if i == 5 and backend == "engine":
+                svc.rebalance_now()
+            _six_events(svc, rng)
+            records += svc.tick()
+            for entry in svc._staged.values():
+                entry[0].take()
+        records += svc.flush()
+        counts = kernels.counts()
+    audits = [{k: r.get(k) for k in VERDICT} for r in tr.records
+              if r.get("kind") == "audit"]
+    return records, audits, counts, tr
+
+
+@pytest.mark.parametrize("backend,overlap", [("core", False),
+                                             ("engine", False),
+                                             ("engine", True)],
+                         ids=["core", "engine", "engine-overlap-profiled"])
+def test_audited_service_churn_fused_matches_reference(dev, backend,
+                                                       overlap):
+    """The audit plane on the churned service (grid 4,096, Q = 4, a regrow
+    of the degree slots, on the engine a rebalance; overlapped and
+    profiled once): the kernels on the card give the reference suite's
+    records and audit verdicts on the card and the CPU's; every clean
+    audit holds; the audit launches no kernel (the counts of the
+    unaudited service)."""
+    centers, sample, _, _ = sim.make_problem(sim.ProblemSpec(n=4104, seed=0))
+    rng = np.random.default_rng(2)
+    specs = [QuerySpec(region=regions.VoronoiRegions(centers),
+                       inputs=sample(rng, 4104), seed=i) for i in range(4)]
+    kw = dict(backend=backend, overlap=overlap, profile=overlap)
+    fused, audits, counts, tr = _audited_service_records(dev, True, specs,
+                                                         **kw)
+    assert len(fused) == 32 and len(audits) == 32
+    assert all(a["ok"] for a in audits), [a for a in audits if not a["ok"]]
+    assert counts["region_decide"] == 8  # one per observe
+    assert counts["lss_state_ref"] == counts["correction_ref"] == 0
+    plain = _audited_service_records(dev, False, specs, **kw)
+    assert plain[0] == fused and plain[1] == audits
+    off = _audited_service_records(dev, True, specs, audit_every=0, **kw)
+    assert off[0] == fused and off[1] == []
+    assert all(off[2][k] == counts[k]
+               for k in ("lss_state", "correction", "region_decide"))
+    cpu = _audited_service_records("cpu", True, specs, **kw)
+    assert cpu[0] == fused and cpu[1] == audits
+    if overlap:
+        frac = tr.registry.gauge("host_overhead_frac").value(
+            backend=backend)
+        assert frac is not None and 0.0 <= frac <= 1.0

@@ -484,27 +484,49 @@ def test_dynamic_hooks_use_original_ids():
     assert float(un.out_c[3, 1]) == 0.0 and not bool(un.pending[20, 0])
 
 
-@pytest.mark.parametrize("what", ["use_mesh", "audit", "profile",
-                                  "auto_plan"])
+@pytest.mark.parametrize("what", ["use_mesh", "auto_plan"])
 def test_unported_options_raise(what):
     topo = t_top.grid(16)
-    item = {"use_mesh": "A.5", "audit": "A.7", "profile": "A.7",
-            "auto_plan": "A.8"}[what]
-    ecfg = {"profile": dict(profile=True),
-            "auto_plan": dict(auto_plan=True)}.get(what)
+    item = {"use_mesh": "A.5", "auto_plan": "A.8"}[what]
     centers = torch.zeros((3, 2))
     with pytest.raises(NotImplementedError, match=item):
-        if ecfg is not None:
-            ShardedLSS(topo, centers, ecfg=EngineConfig(**ecfg),
+        if what == "auto_plan":
+            ShardedLSS(topo, centers, ecfg=EngineConfig(auto_plan=True),
                        device="cpu")
         else:
-            eng = ShardedLSS(topo, centers, device="cpu")
-            if what == "use_mesh":
-                eng.use_mesh(None, "shards")
-            else:
-                eng.audit(None)
+            ShardedLSS(topo, centers, device="cpu").use_mesh(None, "shards")
     with pytest.raises(ValueError, match="unknown wire"):
         t_ex.get_wire("fp4")
+
+
+@pytest.mark.parametrize("what", ["audit", "profile"])
+def test_audit_and_profile_options_run(what):
+    """``ShardedLSS.audit`` and ``EngineConfig(profile=True)`` run (A.7):
+    the audit returns Python scalars that pass every monitor on a clean
+    state, and the profiled engine publishes its gauges and steps the
+    same state as the unprofiled one."""
+    from repro_torch.obs import InMemoryTracker
+    from repro_torch.obs import audit as t_audit
+
+    topo = t_top.grid(36)
+    eng, inputs = _engine(topo, 3)
+    est = eng.run(eng.init(inputs, seed=0), 6)
+    if what == "audit":
+        raw = eng.audit(est)
+        assert all(isinstance(v, (bool, int, float)) for v in raw.values())
+        assert t_audit.evaluate(raw).ok and raw["edge_checked"] > 0
+        return
+    tr = InMemoryTracker()
+    prof = ShardedLSS(topo, eng.centers, eng.cfg,
+                      eng.ecfg._replace(profile=True), tracker=tr,
+                      device="cpu")
+    pst = prof.run(prof.init(inputs, seed=0), 6)
+    for a, b in zip(pst, est):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+    assert prof._profiled.calls == 2  # two dispatches of K = 3
+    assert tr.registry.gauge("host_overhead_frac").value(
+        backend="engine") is not None
 
 
 def test_opaque_decide_cannot_ride_the_fused_suite():

@@ -311,12 +311,27 @@ def test_workload_matches_jax():
 
 
 def test_unported_parts_raise_and_cpu_needs_asking():
+    from repro_torch.obs import AlertRule, InMemoryTracker
+
     topo = t_top.grid(16)
-    for kw, item in (({"profile_dispatch": True}, "A.7"),
-                     ({"alerts": ("rule",)}, "A.7"),
-                     ({"audit_every": 1}, "A.7")):
-        with pytest.raises(NotImplementedError, match=item):
-            TService(topo, TConfig(**kw), device="cpu")
+    # The observability knobs construct and serve (A.7 is ported).
+    rule = AlertRule(name="always", metric="service_queue_depth",
+                     above=-1.0)
+    for kw, kind in (({"profile_dispatch": True}, None),
+                     ({"alerts": (rule,)}, "alert"),
+                     ({"audit_every": 1}, "audit")):
+        tr = InMemoryTracker()
+        with TService(topo, TConfig(capacity=2, **kw), tracker=tr,
+                      device="cpu") as svc:
+            svc.admit(heterogeneous_tenants(topo.n, 1)[0])
+            (rec,) = svc.tick()
+        assert rec["dispatch"] == 1
+        if kind is None:
+            assert tr.registry.gauge("dispatch_host_ms").value(
+                backend="core") >= 0.0
+        else:
+            assert [r["kind"] for r in tr.records
+                    if r.get("kind") == kind] == [kind]
     # The overlapped boundary constructs and serves one tick late on both
     # backends, static and dynamic.
     dyn = t_top.DynTopology.from_topology(topo, n_cap=20)
