@@ -177,13 +177,37 @@ Phases, in order; any failure exits nonzero:
    equal to the unprofiled service's, the sampled ``dispatch_host_ms``,
    ``dispatch_device_ms`` and ``host_overhead_frac`` printed, and one
    ``profiler_dir`` session on a small overlapped service writes a Chrome
-   trace.
+   trace;
+14. the multi-process paths, on grid and Chord at 80,000 peers through
+   the kernels (``EngineConfig(num_shards=S, cycles_per_dispatch=10)``,
+   one untimed and five timed dispatches, 60 cycles, counters zeroed
+   before and read after each run, the final observe included): (a)
+   ``ShardedLSS.use_mesh`` on a one-rank NCCL group (S = 1): every
+   ``ShardedState`` field, msgs and metrics bitwise the gather
+   fallback's at S = 1 (sha256 of each field), µs per cycle beside it,
+   each of the cycle's collectives timed alone at its shapes, one more
+   dispatch of each under ``torch.profiler`` (device events a cycle,
+   idle share, device time by kernel), the kernels held bitwise
+   to their plain versions on its state; (b)
+   two ranks on the one card over gloo (``repro_torch.distributed.
+   launch.spawn``; the payload staged through pinned host memory), S = 2,
+   on the ``exact`` and ``int8`` wires: both ranks' gathered state,
+   msgs and metrics bitwise the fallback's at S = 2, µs per cycle (rank 0
+   and 1, and the fallback's), the staged bytes a cycle beside the
+   modeled ``wire_pair_bytes``, each rank's launches, the kernels held
+   bitwise on each rank's block (the B rows its cycles launch on); (c)
+   ``MeshMonitor`` on four ranks of the card (a 4-ring with
+   ``tests/test_distributed.py:91``'s flip, a 2x2 torus with ``:66``'s
+   statistics): decisions equal the same ranks' CPU run at every step,
+   the last ones the global mean's region, fewer effective than physical
+   sends, ms a step.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
-churned-service, engine-backed-service, overlapped-service and
-audited-service runs, each path's in ``launches_by_path``;
+churned-service, engine-backed-service, overlapped-service,
+audited-service and collective-engine (``engine-mesh``: phase 14's (a)
+and both ranks of (b)) runs, each path's in ``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -1129,6 +1153,19 @@ def phase_service_parity(topos, dev, runs):
 # --- phases 4 and 5: the main path --------------------------------------
 
 
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _require_launched(label, counts) -> None:
+    """Every kernel launched on the path and no plain version ran."""
+    if min(counts[key] for key in KERNELS) <= 0:
+        raise AssertionError(f"{label}: the path launched no kernel")
+    if any(counts[f"{key}_ref"] for key in KERNELS):
+        raise AssertionError(f"{label}: the path ran a plain version")
+
+
 def _counted_run(label, fn=sim.run_static, **kw):
     """``fn(**kw)`` (a main path's entry point) with the launch counters
     zeroed before it and read after it; fails unless every kernel launched
@@ -1137,10 +1174,7 @@ def _counted_run(label, fn=sim.run_static, **kw):
     res = fn(**kw)
     torch.cuda.synchronize()
     counts = kernels.counts()
-    if min(counts[key] for key in KERNELS) <= 0:
-        raise AssertionError(f"{label}: the path launched no kernel")
-    if any(counts[f"{key}_ref"] for key in KERNELS):
-        raise AssertionError(f"{label}: the path ran a plain version")
+    _require_launched(label, counts)
     return res, counts
 
 
@@ -1380,11 +1414,18 @@ def _replay_state(st):
 
 def _check_engine_kernels(name, eng, st0):
     """The three kernels' wrappers on the engine's own flat ``S*B``-row
-    state three cycles in (padding rows included), bitwise against their
+    state three cycles in (padding rows included; under a mesh this
+    rank's ``B`` rows, the shape its cycles launch), bitwise against their
     plain versions: ``lss_state`` and ``correction`` (V = every live slot)
     with the cycles' tables, the global decision with the observe's."""
-    flat = eng._flat_state(eng.run(_replay_state(st0), 3))
-    live = lss._live_mask(eng._flat_topo, flat.alive)
+    st = eng.run(_replay_state(st0), 3)
+    flat = eng._flat_state(st)
+    if eng._mesh is None:
+        live = lss._live_mask(eng._flat_topo, flat.alive)
+    else:  # the block's live slots, as its cycle computes them
+        blk = eng._block
+        alive_all = eng.gather_state(st).alive.reshape(-1)
+        live = blk.mask & flat.alive[:, None] & alive_all[blk.tgt_pos]
     cfg, tables = eng.cfg, eng._tables_for(eng.cfg.eps)
     args = (flat.x_m, flat.x_c, flat.out_m, flat.out_c, flat.in_m,
             flat.in_c, live)
@@ -1403,7 +1444,7 @@ def _check_engine_kernels(name, eng, st0):
                    ops.global_decision(*gargs, observe, sim.OBSERVE_EPS),
                    ref.global_decision_ref(*gargs, observe.regions,
                                            sim.OBSERVE_EPS)))
-    torch.cuda.synchronize()
+    _sync(flat.x_m.device)
     for kname, got, want in checks:
         for g, w in zip(got, want):
             if not torch.equal(g, w):
@@ -2909,6 +2950,327 @@ def phase_observability(topos, dev, gpu, churn_runs):
     return totals
 
 
+# --- phase 14: the multi-process paths (collective engine, mesh monitor) -
+
+MESH_K = 10  # cycles a dispatch: phase 8's K
+MESH_TIMED = 5  # timed dispatches, after one untimed: 60 cycles in all
+MESH_WIRES = ("exact", "int8")
+MESH_TIMEOUT_S = 600  # each launch.spawn of phase 14
+# tests/test_distributed.py:91's flip on a 4-ring and :66's statistics on
+# a 2x2 torus: (mesh shape, axis names, centers, [(per-peer stat, steps)]).
+MONITOR_CASES = {
+    "ring4": ((4,), ("data",), [[0.0], [10.0]],
+              [(np.full((4, 1), 2.0, np.float32), 6),
+               (np.full((4, 1), 9.0, np.float32), 10)]),
+    "torus2x2": ((2, 2), ("data", "model"), [[0.0, 0.0], [1.0, 1.0]],
+                 [(np.array([[0.95, 0.9]] * 3 + [[0.1, 0.05]], np.float32),
+                   8)]),
+}
+
+
+def _mesh_engine(topo, dev, shards, wire, mesh=None):
+    """Phase 8's problem on an engine of ``shards`` shards (K = 10,
+    through the kernels on the card), on ``mesh`` when given."""
+    from repro_torch.engine import ShardedLSS
+
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    eng = ShardedLSS(topo, centers, lss.LSSConfig(),
+                     EngineConfig(num_shards=shards, cycles_per_dispatch=MESH_K,
+                                  wire=wire), device=dev)
+    if mesh is not None:
+        eng.use_mesh(mesh, "shards")
+    return eng, eng.init(inputs, seed=0)
+
+
+def _mesh_dispatches(eng, st, dev):
+    """One untimed dispatch and ``MESH_TIMED`` timed ones of K cycles:
+    (state, µs a cycle of each timed dispatch, synchronized)."""
+    st = eng.run(st, MESH_K)
+    _sync(dev)
+    us = []
+    for _ in range(MESH_TIMED):
+        t0 = time.perf_counter()
+        st = eng.run(st, MESH_K)
+        _sync(dev)
+        us.append((time.perf_counter() - t0) * 1e6 / MESH_K)
+    return st, us
+
+
+def _profile_dispatch(label, eng, st, dev, us):
+    """One more dispatch of ``eng`` from ``st`` under torch.profiler:
+    device events a cycle, idle share, device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(st, MESH_K)
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _print_profile(label, prof, wall_ms, np.median(us) * MESH_K / 1e3,
+                   MESH_K)
+
+
+def _collective_ms(label, eng, st, dev, reps=20):
+    """Each collective of a mesh cycle alone at the cycle's shapes (the
+    ``alive`` all-gather and the wire's all-to-alls on ``st``'s boundary
+    sends): ms a call over ``reps`` back-to-back calls, synchronized once,
+    and their sum a cycle."""
+    from repro_torch.distributed import collective
+
+    group, h = eng._mesh.group, eng._block.halo
+    bufs = exchange.gather_block(st.out_m[0], st.out_c[0], st.pending[0],
+                                 h.send_row, h.send_slot, h.send_ok)
+    payload, _, _ = eng._wire.encode(*bufs)
+    calls = [("all_gather alive", st.alive[0], collective.all_gather)]
+    calls += [("all_to_all", p, exchange.collective_all_to_all)
+              for p in payload]
+    total, parts = 0.0, []
+    for name, buf, fn in calls:
+        fn(buf, group)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(buf, group)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        total += ms
+        parts.append(f"{name} {tuple(buf.shape)} {buf.dtype} {ms:.4f}")
+    print(f"[mesh] {label}: the cycle's collectives alone, ms a call over "
+          f"{reps} calls: {'; '.join(parts)}; {total:.4f} ms a cycle",
+          flush=True)
+
+
+def _digests(eng, st) -> dict:
+    """sha256 of every field of the (gathered) state, the metrics and the
+    send total: what two runs are held to bitwise."""
+    import hashlib
+
+    def sha(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                              .tobytes()).hexdigest()
+
+    full = eng.gather_state(st)
+    out = {f"{name} {tuple(t.shape)} {t.dtype}": sha(t)
+           for name, t in full._asdict().items()
+           if isinstance(t, torch.Tensor)}
+    acc, quiescent, correct = eng.metrics(st)
+    out["metrics"] = (float(acc), bool(quiescent), sha(correct))
+    out["total_msgs"] = int(eng.total_msgs(st))
+    return out
+
+
+def _mesh_rank(rank, world, topos, dev):
+    """Phase 14 (b) on one rank: each topology and wire on this rank's
+    shard of a gloo ``("shards",)`` mesh, counters zeroed before the 60
+    cycles and read after them (the final observe included); then the
+    kernels held bitwise to their plain versions on the rank's block."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("shards",))
+    out = {}
+    for name, topo in topos.items():
+        for wire in MESH_WIRES:
+            eng, st0 = _mesh_engine(topo, dev, world, wire, mesh)
+            kernels.reset_counts()
+            st, us = _mesh_dispatches(eng, _replay_state(st0), dev)
+            digests = _digests(eng, st)
+            _sync(dev)
+            counts = kernels.counts()
+            out[(name, wire)] = {
+                "digests": digests, "us": us, "counts": counts,
+                "staged_per_cycle": eng.staged_bytes / (
+                    MESH_K * (MESH_TIMED + 1)),
+                "pair_bytes": int(eng.wire_pair_bytes(2)[rank].sum()),
+                "B": eng.B}
+            _check_engine_kernels(f"mesh S={world} rank {rank} {name} "
+                                  f"{wire}", eng, st0)
+    return out
+
+
+def _mesh_world1(topos, dev, totals):
+    """Phase 14 (a): ``use_mesh`` on a one-rank NCCL group (S = 1) against
+    the gather fallback at S = 1, bitwise, timed beside it."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)  # before the mesh: NCCL's device
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1,),
+                                    mesh_dim_names=("shards",))
+            for name, topo in topos.items():
+                eng, st0 = _mesh_engine(topo, dev, 1, "exact", mesh)
+                kernels.reset_counts()
+                st, us = _mesh_dispatches(eng, _replay_state(st0), dev)
+                got = _digests(eng, st)
+                _sync(dev)
+                counts = kernels.counts()
+                _require_launched(f"mesh S=1 {name}", counts)
+                for key in KERNELS:
+                    totals[key] += counts[key]
+                ref_eng, ref0 = _mesh_engine(topo, dev, 1, "exact")
+                ref_st, ref_us = _mesh_dispatches(ref_eng, ref0, dev)
+                want = _digests(ref_eng, ref_st)
+                if got != want:
+                    bad = [k for k in want if got.get(k) != want[k]]
+                    raise AssertionError(f"mesh S=1 {name} ({backend}): "
+                                         f"differs from the gather "
+                                         f"fallback in {bad}")
+                print(f"[mesh] {name} n={topo.n} S=1 {backend} world 1: "
+                      f"every ShardedState field, msgs and metrics bitwise "
+                      f"the gather fallback's after "
+                      f"{MESH_K * (MESH_TIMED + 1)} cycles (metrics "
+                      f"{got['metrics'][:2]}, msgs {got['total_msgs']}); "
+                      f"us_per_cycle median {np.median(us):.1f} (min "
+                      f"{min(us):.1f} max {max(us):.1f}), gather fallback "
+                      f"{np.median(ref_us):.1f} ({min(ref_us):.1f}-"
+                      f"{max(ref_us):.1f}); launches {counts}", flush=True)
+                _collective_ms(f"{name} S=1 {backend}", eng, st, dev)
+                _profile_dispatch(f"mesh S=1 {name}", eng, st, dev, us)
+                _profile_dispatch(f"gather S=1 {name}", ref_eng, ref_st, dev,
+                                  ref_us)
+                _check_engine_kernels(f"mesh S=1 {name}", eng, st0)
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_world2(topos, dev, totals):
+    """Phase 14 (b): two ranks on one device over gloo (the payload
+    staged through pinned host memory), S = 2, against the gather
+    fallback at S = 2 on the exact and int8 wires."""
+    from repro_torch.distributed import launch
+
+    ranks = launch.spawn(_mesh_rank, 2, timeout_s=MESH_TIMEOUT_S,
+                         args=(topos, str(dev)))
+    for name, topo in topos.items():
+        for wire in MESH_WIRES:
+            eng, st0 = _mesh_engine(topo, dev, 2, wire)
+            st, ref_us = _mesh_dispatches(eng, st0, dev)
+            want = _digests(eng, st)
+            runs = [r[(name, wire)] for r in ranks]
+            for rank, run in enumerate(runs):
+                if run["digests"] != want:
+                    bad = [k for k in want if run["digests"].get(k) !=
+                           want[k]]
+                    raise AssertionError(
+                        f"mesh S=2 rank {rank} {name} {wire}: differs from "
+                        f"the gather fallback in {bad}")
+                _require_launched(f"mesh S=2 rank {rank} {name} {wire}",
+                                  run["counts"])
+                for key in KERNELS:
+                    totals[key] += run["counts"][key]
+            us = runs[0]["us"]
+            print(f"[mesh] {name} n={topo.n} S=2 gloo world 2 on one "
+                  f"device, wire {wire}: every ShardedState field, msgs "
+                  f"and metrics bitwise the gather fallback's on both "
+                  f"ranks after {MESH_K * (MESH_TIMED + 1)} cycles (metrics "
+                  f"{want['metrics'][:2]}, msgs {want['total_msgs']}); "
+                  f"rank 0 us_per_cycle median {np.median(us):.1f} (min "
+                  f"{min(us):.1f} max {max(us):.1f}), rank 1 median "
+                  f"{np.median(runs[1]['us']):.1f}; gather fallback S=2 "
+                  f"median {np.median(ref_us):.1f} ({min(ref_us):.1f}-"
+                  f"{max(ref_us):.1f}); staged bytes a cycle rank 0 "
+                  f"{runs[0]['staged_per_cycle']:.0f} rank 1 "
+                  f"{runs[1]['staged_per_cycle']:.0f}; modeled "
+                  f"wire_pair_bytes a cycle rank 0 {runs[0]['pair_bytes']} "
+                  f"rank 1 {runs[1]['pair_bytes']}; B={runs[0]['B']}; "
+                  f"launches rank 0 {runs[0]['counts']} rank 1 "
+                  f"{runs[1]['counts']}", flush=True)
+
+
+def _monitor_rank(rank, world, dev):
+    """Phase 14 (c) on one rank: each monitor case on ``dev`` and on the
+    CPU (one gloo mesh each), every step's gathered decisions, the
+    gathered send counters and the ms a step (synchronized) on ``dev``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import monitor
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    for case, (shape, names, centers, phases) in MONITOR_CASES.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        for where in (dev, "cpu"):
+            mon = monitor.MeshMonitor(mesh, names, centers,
+                                      monitor.MonitorConfig(rounds=2),
+                                      device=where)
+            st = mon.init()
+            decisions, ms = [], []
+            for vals, steps in phases:
+                stat = wvs.from_vector(
+                    torch.tensor(vals[mon.peer:mon.peer + 1], device=where),
+                    torch.ones(1, device=where))
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    st, dec, _ = mon.step(st, stat)
+                    _sync(where)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    decisions.append(mon.gather(dec))
+            out[(case, str(where))] = {
+                "decisions": decisions, "eff": mon.gather(st.eff_sends),
+                "phys": mon.gather(st.phys_sends), "ms": ms}
+    return out
+
+
+def _mesh_monitor(dev):
+    """Phase 14 (c): the mesh monitor on 4 ranks of one device (gloo)
+    gives the CPU run's decisions, and the region of the global mean."""
+    from repro_torch.distributed import launch
+
+    ranks = launch.spawn(_monitor_rank, 4, timeout_s=MESH_TIMEOUT_S,
+                         args=(str(dev),))
+    for case, (_, _, centers, phases) in MONITOR_CASES.items():
+        card, cpu = ranks[0][(case, str(dev))], ranks[0][(case, "cpu")]
+        for i, (a, b) in enumerate(zip(card["decisions"],
+                                       cpu["decisions"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"monitor {case} step {i}: {a} on the "
+                                     f"device, {b} on the CPU")
+        gmean = phases[-1][0].mean(0)
+        want = int(((gmean - np.asarray(centers)) ** 2).sum(1).argmin())
+        last = card["decisions"][-1]
+        if not (last == want).all():
+            raise AssertionError(f"monitor {case}: final decisions {last}, "
+                                 f"the global mean's region is {want}")
+        eff, phys = float(card["eff"].sum()), float(card["phys"].sum())
+        if not eff < phys:
+            raise AssertionError(f"monitor {case}: eff {eff} >= phys {phys}")
+        ms = card["ms"]
+        print(f"[mesh] monitor {case} on 4 ranks of one device (gloo, "
+              f"staged): {len(ms)} steps, decisions equal the CPU run's at "
+              f"every step, final {last.tolist()} = the global mean's "
+              f"region; eff_sends {eff:.0f} < phys_sends {phys:.0f}; ms a "
+              f"step (rank 0, 2 rounds) median {np.median(ms):.3f} (min "
+              f"{min(ms):.3f} max {max(ms):.3f}), CPU median "
+              f"{np.median(cpu['ms']):.3f}", flush=True)
+
+
+def phase_mesh(topos, dev):
+    """The multi-process paths: (a) the collective engine at world size 1
+    on NCCL, (b) at world size 2 over gloo on one device, (c) the mesh
+    monitor on 4 ranks; returns the engine's launches (the
+    ``engine-mesh`` path)."""
+    totals = {key: 0 for key in KERNELS}
+    topos = {name: topos[name] for name in ("grid", "chord")}
+    _mesh_world1(topos, dev, totals)
+    torch.cuda.empty_cache()
+    _mesh_world2(topos, dev, totals)
+    _mesh_monitor(dev)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2965,6 +3327,7 @@ def main() -> int:
     overlap_totals = phase("phase 12", phase_overlap, topos, dev, gpu)
     audit_totals = phase("phase 13", phase_observability, topos, dev, gpu,
                          churn_runs)
+    mesh_totals = phase("phase 14", phase_mesh, topos, dev)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -3027,7 +3390,8 @@ def main() -> int:
                          + sweep_totals[name]
                          + sum(t[name] for t in aq_totals.values())
                          + churn_totals[name] + engine_svc_totals[name]
-                         + overlap_totals[name] + audit_totals[name]),
+                         + overlap_totals[name] + audit_totals[name]
+                         + mesh_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
@@ -3037,7 +3401,8 @@ def main() -> int:
                                  "service_churn": churn_totals[name],
                                  "service_engine": engine_svc_totals[name],
                                  "service_overlap": overlap_totals[name],
-                                 "service_audit": audit_totals[name]},
+                                 "service_audit": audit_totals[name],
+                                 "engine-mesh": mesh_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

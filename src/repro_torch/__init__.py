@@ -8,13 +8,17 @@ JAX package on a ported path is a hand-written CUDA C++ kernel for Hopper
 kernel's plain PyTorch version instead.
 
 Ported so far: the paper's formulas (:mod:`.core.wvs`, :mod:`.core.regions`,
-:mod:`.core.stopping`, :mod:`.core.correction`), the topologies, Alg. 1
-(:mod:`.core.lss`), the Sec.-VI experiment driver (:mod:`.core.sim`), the
-multi-tenant monitor service (:mod:`.service`, both backends, synchronous
-and overlapped), the sharded
-engine's single-device path (sync and async, all four halo wires) and its
-sweeps (:mod:`.engine`), the halo quantizer (:mod:`.distributed`), and all
-three kernels: ``lss_state``, ``correction`` and ``region_decide``.
+:mod:`.core.stopping`, :mod:`.core.correction`, :mod:`.core.wvs_cov`), the
+topologies, Alg. 1 (:mod:`.core.lss`), the Sec.-VI experiment driver
+(:mod:`.core.sim`), the event-driven simulator (:mod:`.core.async_sim`),
+the mesh monitor (:mod:`.core.monitor`, one rank a peer over
+``torch.distributed``), the multi-tenant monitor service (:mod:`.service`,
+both backends, synchronous and overlapped, with its observability and
+audit plane, :mod:`.obs`), the sharded engine (:mod:`.engine`: sync and
+async on one device, all four halo wires, its sweeps, and the sync engine
+with one shard a rank over a collective ``all_to_all``), the halo
+quantizer and the rank launcher (:mod:`.distributed`), and all three
+kernels: ``lss_state``, ``correction`` and ``region_decide``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

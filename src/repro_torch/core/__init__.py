@@ -1,2 +1,6 @@
-"""Core of the port: the paper's formulas, topologies, Alg. 1 and the
-Sec.-VI driver (twins of ``repro.core``)."""
+"""Core of the port: the paper's formulas, topologies, Alg. 1, the
+Sec.-VI driver, the event-driven simulator, the covariance-weighted space
+and the mesh monitor (twins of ``repro.core``)."""
+
+from . import (async_sim, correction, lss, monitor, regions, sim,  # noqa: F401
+               stopping, topology, wvs, wvs_cov)

@@ -1,15 +1,17 @@
-"""The sharded simulation engine on one device (port of ``repro.engine``).
+"""The sharded simulation engine (port of ``repro.engine``).
 
 Modules:
   partition — BFS/greedy edge-cut partitioner + per-shard halo tables
-  exchange  — boundary-message halo exchange (the gather fallback), the
+  exchange  — boundary-message halo exchange (the gather fallback on one
+              device, the collective ``all_to_all`` across processes), the
               async mode's bounded-staleness ring and the four wire formats
               (exact / compact / int8 / bf16)
-  engine    — ShardedLSS: the K-cycles-per-dispatch engine, sync or async
+  engine    — ShardedLSS: the K-cycles-per-dispatch engine, sync or async,
+              on one device or one shard a rank (``use_mesh``)
   sweep     — batched multi-seed / multi-config scenario sweeps
 
-Not ported yet: ``autotune`` (ROADMAP A.8) and the collective transport
-(A.5).
+Not ported yet: ``autotune`` (ROADMAP A.8), and under a mesh the async
+ring, the audit and the layout moves (A.5b).
 """
 
 from .engine import (AsyncShardedState, DeviceTopo,  # noqa: F401

@@ -55,9 +55,31 @@ the drop and delay generators advance in place, as in the core, and
 writes only the published slot each cycle.
 ``EngineConfig(profile=True)`` wraps each dispatch's K-cycle loop in a
 :class:`~repro_torch.obs.ProfiledDispatch` (host/device split, fenced by a
-CUDA event on the card).  Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: the mesh transport
-(``use_mesh``, A.5) and ``auto_plan=True`` (A.8).
+CUDA event on the card).
+
+**Collective transport** (:meth:`ShardedLSS.use_mesh`).  JAX drives S
+devices from one program through global sharded arrays; here every
+process is one rank of a ``torch.distributed`` group and holds one shard.
+Each rank builds the same host tables (the partition is deterministic)
+and cycles on its own shard's row of the device tables (the whole tables
+serve the gathered observers); its state is the
+shard's block, a :class:`ShardedState` whose shard axis has length 1 (the
+drop stream is the gather fallback's generator of that shard, ``t`` is
+replicated, ``msgs`` is ``(1,)``).  A cycle (:meth:`ShardedLSS.
+_cycle_block`, the twin of JAX's) all-gathers ``alive``, delivers the
+shard-local edges, gathers and encodes the boundary sends, moves each
+payload tensor with :func:`~repro_torch.engine.exchange.
+collective_all_to_all`, decodes and scatters, and updates the block's B
+rows through the same hooks and do-while: bitwise the gather fallback's
+rows, since no per-row result depends on how many rows a launch holds.
+The observers (:meth:`~ShardedLSS.metrics`, :meth:`~ShardedLSS.
+to_lss_state`, :meth:`~ShardedLSS.total_msgs`) gather the blocks, so every
+rank reads the same global numbers; the data and membership hooks take
+global peer ids and apply those of the rank's shard.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+item: ``auto_plan=True`` (A.8), and under a mesh the async ring, the
+audit and the layout moves (A.5b).
 """
 
 from __future__ import annotations
@@ -70,6 +92,7 @@ import torch
 from .. import resolve_device
 from ..core import lss, regions, stopping, topology, wvs
 from ..core.sim import OBSERVE_EPS
+from ..distributed import collective
 from ..kernels import ops as kernel_ops
 from ..kernels import suite as kernel_suite
 from . import exchange, partition
@@ -80,6 +103,42 @@ __all__ = ["DeviceTopo", "EngineConfig", "MembershipRepair", "ShardedState",
 
 def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class _MeshBinding(NamedTuple):
+    """What :meth:`ShardedLSS.use_mesh` attaches: the mesh, its shard axis,
+    that axis's process group and this process's shard on it."""
+
+    mesh: object  # torch.distributed.device_mesh.DeviceMesh
+    axis: str
+    group: object  # torch.distributed.ProcessGroup
+    rank: int  # this process's shard (its coordinate on ``axis``)
+
+
+class _BlockTables(NamedTuple):
+    """One shard's row of the :class:`DeviceTopo` tables, for a cycle on
+    that shard's ``(1, B, ...)`` block.  ``src`` indexes the block's own
+    ``B*D`` slots (meaningful on ``intra`` slots); ``tgt_pos`` stays the
+    global flat position, for the all-gathered ``alive``; ``topo`` is the
+    block's view for the do-while (which reads its slot count)."""
+
+    mask: torch.Tensor  # bool  (B, D)
+    tgt_pos: torch.Tensor  # int64 (B, D)
+    src: torch.Tensor  # int64 (B, D)
+    intra: torch.Tensor  # bool  (B, D)
+    halo: partition.HaloTables  # (S, H) each
+    topo: lss.TopoArrays  # (B, D)
+
+    @classmethod
+    def of(cls, tables: "DeviceTopo", r: int) -> "_BlockTables":
+        B, D = tables.mask.shape[1:]
+        tgt_pos, rev, mask = tables.tgt_pos[r], tables.rev[r], tables.mask[r]
+        intra = tables.intra[r]
+        local_row = torch.where(intra, tgt_pos - r * B, 0)
+        return cls(mask=mask, tgt_pos=tgt_pos,
+                   src=local_row * D + rev.to(torch.int64), intra=intra,
+                   halo=partition.HaloTables(*(a[r] for a in tables.halo)),
+                   topo=lss.TopoArrays(nbr=tgt_pos, mask=mask, rev=rev))
 
 
 class DeviceTopo(NamedTuple):
@@ -320,6 +379,9 @@ class ShardedLSS:
         self._profiled = (ProfiledDispatch(self._k_cycles, self.tracker,
                                            backend="engine")
                           if ecfg.profile else None)
+        self._mesh = None  # a _MeshBinding once use_mesh attaches one
+        self._block = None  # this rank's _BlockTables under a mesh
+        self.staged_bytes = 0  # halo payload bytes staged through the host
         self.centers = torch.as_tensor(centers).to(self.device)
         if region is not None:
             self.region_slot = regions.PackedSlot(*(
@@ -376,13 +438,43 @@ class ShardedLSS:
         st = self.stopo
         self._tables = tables
         self._flat_topo = tables.flat()
+        if self._mesh is not None:
+            self._block = _BlockTables.of(tables, self._mesh.rank)
         self._pair_counts = np.asarray(st.halo.send_ok).sum(axis=-1)
         self._cuts = (st.mask & ~st.intra).reshape(self.S, -1).sum(axis=1)
 
-    # -- unported surfaces -------------------------------------------------
-    def use_mesh(self, mesh, axis_name: str):
-        raise _unported("use_mesh (the collective all_to_all transport)",
-                        "A.5")
+    # -- mesh attachment ---------------------------------------------------
+    def use_mesh(self, mesh, axis_name: str) -> "ShardedLSS":
+        """Route the halo exchange through ``all_to_all`` over the process
+        group of ``mesh``'s axis ``axis_name`` (a ``torch.distributed.
+        device_mesh.DeviceMesh``): this process becomes the shard at its
+        coordinate on that axis, whose size must equal ``num_shards``.
+
+        Every rank of the group calls it, then :meth:`init` (which returns
+        the rank's block) and :meth:`run` in step with the others.
+        """
+        if self.ecfg.async_mode:
+            raise _unported("async_mode under a mesh", "A.5b")
+        size = collective.axis_size(mesh, axis_name)
+        if size != self.S:
+            raise ValueError(
+                f"mesh axis {axis_name!r} has size {size}, "
+                f"engine has {self.S} shards")
+        from ..obs import ProfiledDispatch  # local: no cycle
+
+        self._mesh = _MeshBinding(mesh, axis_name,
+                                  mesh.get_group(axis_name),
+                                  int(mesh.get_local_rank(axis_name)))
+        self._block = _BlockTables.of(self._tables, self._mesh.rank)
+        if self.ecfg.profile:
+            self._profiled = ProfiledDispatch(self._k_cycles, self.tracker,
+                                              backend="engine-mesh")
+        return self
+
+    def _not_under_mesh(self, what: str) -> None:
+        """The surfaces a mesh does not carry yet (A.5b) raise under one."""
+        if self._mesh is not None:
+            raise _unported(f"{what} under a mesh", "A.5b")
 
     # -- state -------------------------------------------------------------
     def init(self, inputs: wvs.WV, seed: int = 0, alive=None):
@@ -437,12 +529,46 @@ class ShardedLSS:
                                        device=dev),
                 wire_err_c=torch.zeros((S, B, D), dtype=torch.float32,
                                        device=dev))
+        if self._mesh is not None:
+            state = self._block_of(state, self._mesh.rank)
         return state
+
+    @staticmethod
+    def _block_of(state: ShardedState, r: int) -> ShardedState:
+        """Shard ``r``'s block of a full sync state: every per-shard field
+        ``[r:r+1]`` (a copy), ``t`` as is, shard ``r``'s drop stream."""
+        def take(a):
+            if a is None or a.ndim == 0:
+                return a
+            return a[r:r + 1].clone()
+
+        return ShardedState(*(take(a) for a in state[:-3]),
+                            rng=(state.rng[r],),
+                            wire_err_m=take(state.wire_err_m),
+                            wire_err_c=take(state.wire_err_c))
+
+    def gather_state(self, state: ShardedState) -> ShardedState:
+        """Under a mesh, the full ``(S, B, ...)`` state from every rank's
+        block (every rank gets it; ``rng`` stays this rank's one
+        generator).  Without a mesh, ``state`` itself."""
+        if self._mesh is None:
+            return state
+        group = self._mesh.group
+
+        def full(a):
+            if a is None or a.ndim == 0:
+                return a
+            return collective.all_gather(a, group)
+
+        return ShardedState(*(full(a) for a in state[:-3]), rng=state.rng,
+                            wire_err_m=full(state.wire_err_m),
+                            wire_err_c=full(state.wire_err_c))
 
     def init_async(self, inputs: wvs.WV, seed: int = 0,
                    alive=None) -> AsyncShardedState:
         """Async-mode init: the sync state wrapped with cold transport
         books (empty ring, zero clocks and sequence counters)."""
+        self._not_under_mesh("async_mode")
         return self.wrap_async(self.init_sync(inputs, seed=seed, alive=alive))
 
     def wrap_async(self, base: ShardedState) -> AsyncShardedState:
@@ -450,6 +576,7 @@ class ShardedLSS:
         so the first async cycle is the sync cycle from the same state.
         The delay generators are seeded from the drop generators (which
         stay where they are)."""
+        self._not_under_mesh("async_mode")
         S, B, D = self.S, self.B, self.D
         dev = self.device
         # Ring slots follow the WIRE width (trimmed tables): the ring holds
@@ -479,12 +606,24 @@ class ShardedLSS:
         return self._pos[torch.as_tensor(who, dtype=torch.int64,
                                          device=self.device)]
 
+    def _rows(self, who):
+        """Flat row positions of original ids ``who`` in a state, and which
+        entries of ``who`` they are: all of them, or under a mesh those in
+        this rank's shard (positions in its block)."""
+        pos = self._positions(who)
+        if self._mesh is None:
+            return pos, slice(None)
+        r = self._mesh.rank
+        keep = (pos // self.B) == r
+        return pos[keep] - r * self.B, keep
+
     def set_inputs(self, state: ShardedState, who, new_x) -> ShardedState:
         """Resample inputs: ``x_m[who] = new_x`` (moment form, weight kept)."""
         _sync_only(state, "set_inputs")
-        flat = state.x_m.reshape(self.S * self.B, -1).clone()
-        flat[self._positions(who)] = torch.as_tensor(
-            new_x, dtype=flat.dtype, device=self.device)
+        pos, keep = self._rows(who)
+        flat = state.x_m.reshape(-1, state.x_m.shape[-1]).clone()
+        flat[pos] = torch.as_tensor(new_x, dtype=flat.dtype,
+                                    device=self.device)[keep]
         return state._replace(x_m=flat.reshape(state.x_m.shape))
 
     def kill_peers(self, state: ShardedState, who) -> ShardedState:
@@ -495,8 +634,8 @@ class ShardedLSS:
                   ) -> ShardedState:
         """Set the churn mask of original ids ``who`` (True = join)."""
         _sync_only(state, "set_alive")
-        flat = state.alive.reshape(self.S * self.B).clone()
-        flat[self._positions(who)] = bool(value)
+        flat = state.alive.reshape(-1).clone()
+        flat[self._rows(who)[0]] = bool(value)
         return state._replace(alive=flat.reshape(state.alive.shape))
 
     @staticmethod
@@ -521,10 +660,10 @@ class ShardedLSS:
 
     def scrub_slots(self, state: ShardedState, rows, slots) -> ShardedState:
         """:meth:`clear_slots` written into ``state``'s own tensors."""
-        pos = self._positions(rows)
+        pos, keep = self._rows(rows)
         at = _at(len(_lead(state)), pos // self.B, pos % self.B,
                  torch.as_tensor(slots, dtype=torch.int64,
-                                 device=self.device))
+                                 device=self.device)[keep])
         for f in self._slot_fields(state):
             getattr(state, f)[at] = False if f == "pending" else 0.0
         return state
@@ -612,7 +751,7 @@ class ShardedLSS:
 
     # -- per-peer update (flattened rows) ----------------------------------
     def _peer_update(self, flat: lss.LSSState, live, cfg=None, decide=None,
-                     gate=None, regions=None):
+                     gate=None, regions=None, topo=None):
         """Violation test + selective correction on flattened (S*B, ...)
         rows, or (Q, S*B, ...) for stacked tenants: the post-delivery half
         of :func:`repro_torch.core.lss.cycle_impl`, through the same hooks
@@ -620,7 +759,8 @@ class ShardedLSS:
 
         ``cfg``/``decide``/``gate``/``regions`` override the engine's own
         (the service passes per-tenant knobs, the active-tenant gate and
-        the tenants' prepared tables; see :meth:`_cycle_full`).  Returns
+        the tenants' prepared tables; see :meth:`_cycle_full`); ``topo``
+        is the rows' view (default: all ``S*B`` rows).  Returns
         ``(out_m, out_c, pending, last_send, corr_iters)``.
         """
         cfg = self.cfg if cfg is None else cfg
@@ -647,7 +787,8 @@ class ShardedLSS:
         if gate is not None:
             active = active & wvs.lead(gate, active)
         out_m, out_c, v, did_send, corr_iters = lss.correction_loop(
-            decide, flat, self._flat_topo, live, active, cfg,
+            decide, flat, self._flat_topo if topo is None else topo, live,
+            active, cfg,
             status_viol=status_viol, corrected=corrected, entry=entry)
         pending = v & did_send[..., None]
         new_last = torch.where(did_send, flat.t, flat.last_send)
@@ -705,12 +846,13 @@ class ShardedLSS:
 
     def _update(self, state: ShardedState, live, in_m, in_c, t, **over):
         """The peer-local update on the flattened rows, reshaped back to
-        ``(S, B, ...)`` (``(Q, S, B, ...)`` for stacked tenants):
-        ``(out_m, out_c, pending, last_send, corr_iters)``.  ``t`` is the
-        scalar cycle, one clock per row, or one cycle per tenant shaped
-        (Q, 1); ``over`` are :meth:`_peer_update`'s overrides."""
-        S, B = self.S, self.B
+        ``(S, B, ...)`` (``(Q, S, B, ...)`` for stacked tenants, ``(1, B,
+        ...)`` for one rank's block): ``(out_m, out_c, pending, last_send,
+        corr_iters)``.  ``t`` is the scalar cycle, one clock per row, or one
+        cycle per tenant shaped (Q, 1); ``over`` are :meth:`_peer_update`'s
+        overrides."""
         lead = _lead(state)
+        S, B = state.x_c.shape[-2:]
         nl = len(lead)
         fl = lambda a: a.reshape(*lead, S * B, *a.shape[nl + 2:])  # noqa: E731
         flat = lss.LSSState(
@@ -762,6 +904,70 @@ class ShardedLSS:
         if with_stats:
             return state, corr_iters
         return state
+
+    # -- one cycle, collective (this rank's block) --------------------------
+    def _cycle_block(self, state: ShardedState,
+                     blk: _BlockTables) -> ShardedState:
+        """One cycle on this rank's ``(1, B, ...)`` block, the twin of
+        JAX's ``_cycle_block``: ``alive`` all-gathered, shard-local
+        deliveries through ``blk.src``, then the boundary sends gathered,
+        encoded, moved by one :func:`~repro_torch.engine.exchange.
+        collective_all_to_all` per payload tensor, decoded and scattered,
+        then the peer update on the block's B rows.  Adds the payload
+        bytes staged through the host to :attr:`staged_bytes`."""
+        B, D = self.B, self.D
+        group = self._mesh.group
+        h = blk.halo
+        alive = state.alive[0]
+        alive_all = collective.all_gather(alive, group)  # (S*B,)
+        live = blk.mask & alive[:, None] & alive_all[blk.tgt_pos]
+        send = state.pending[0] & live
+        if self.cfg.drop_rate > 0.0:
+            keep = torch.rand((B, D), generator=state.rng[0],
+                              device=send.device)
+            delivered = send & (keep >= self.cfg.drop_rate)
+        else:
+            delivered = send
+        sent = torch.sum(send).reshape(1)
+
+        out_m, out_c = state.out_m[0], state.out_c[0]
+        d = out_m.shape[-1]
+        got = delivered.reshape(B * D)[blk.src] & blk.intra
+        in_m = torch.where(got[..., None],
+                           out_m.reshape(B * D, d)[blk.src], state.in_m[0])
+        in_c = torch.where(got, out_c.reshape(B * D)[blk.src],
+                           state.in_c[0])
+
+        buf_m, buf_c, flag = exchange.gather_block(
+            out_m, out_c, delivered, h.send_row, h.send_slot, h.send_ok)
+        wire = self._wire
+        if wire.stateful:
+            em, ec = state.wire_err_m[0], state.wire_err_c[0]
+            payload, n_em, n_ec = wire.encode(
+                buf_m, buf_c, flag, em[h.send_row, h.send_slot],
+                ec[h.send_row, h.send_slot])
+            em, ec = exchange.scatter_err_block(
+                em, ec, n_em, n_ec, h.send_row, h.send_slot, h.send_ok)
+            err_m, err_c = em[None], ec[None]
+        else:
+            payload, _, _ = wire.encode(buf_m, buf_c, flag)
+            err_m, err_c = state.wire_err_m, state.wire_err_c
+        self.staged_bytes += sum(collective.staged_bytes(p, group)
+                                 for p in payload)
+        payload = tuple(exchange.collective_all_to_all(p, group)
+                        for p in payload)
+        buf_m, buf_c, flag = wire.decode(payload)
+        in_m, in_c = exchange.scatter_block(in_m, in_c, buf_m, buf_c, flag,
+                                            h.recv_row, h.recv_slot)
+
+        out_m, out_c, pending, last_send, _ = self._update(
+            state, live[None], in_m[None], in_c[None], state.t,
+            topo=blk.topo)
+        return state._replace(
+            out_m=out_m, out_c=out_c, in_m=in_m[None], in_c=in_c[None],
+            pending=pending, last_send=last_send, t=state.t + 1,
+            msgs=state.msgs + sent.to(state.msgs.dtype),
+            wire_err_m=err_m, wire_err_c=err_c)
 
     # -- one cycle, asynchronous gossip mode -------------------------------
     def _cycle_async(self, astate: AsyncShardedState,
@@ -894,8 +1100,10 @@ class ShardedLSS:
         caller's state is never written.  Each dispatch is an
         ``engine.dispatch`` span in the tracker with the JAX attributes
         ``k``, ``suite``, ``mode`` ("sync" / "async"), ``transport``
-        ("gather"), ``fused``, ``wire``, ``halo_bytes`` (the active wire's
-        modeled bytes over the dispatch) and ``cut_edges``; a non-noop
+        ("gather", or "all_to_all" under a mesh), ``fused``, ``wire``,
+        ``halo_bytes`` (the active wire's modeled bytes over the dispatch,
+        all shard pairs) and ``cut_edges``, and ``staged_bytes`` when a
+        gloo group moved this rank's payload through the host; a non-noop
         tracker also gets per-shard ``engine_shard_halo_bytes_total``
         counters, ``engine_shard_cut_edges`` gauges and per-pair
         ``engine_halo_padding_frac`` gauges, and after an async run the
@@ -904,21 +1112,25 @@ class ShardedLSS:
         is no ``recompiled`` attribute: the port compiles nothing per
         dispatch.  With ``EngineConfig(profile=True)`` each dispatch's K
         cycles run inside a :class:`~repro_torch.obs.ProfiledDispatch`
-        (``backend="engine"`` gauges in the tracker).
+        (``backend="engine"`` gauges in the tracker, ``"engine-mesh"``
+        under a mesh).
         """
         from ..obs import NoopTracker
 
         is_async = isinstance(state, AsyncShardedState)
         if is_async:
+            self._not_under_mesh("async_mode")
             state = state._replace(ring_m=state.ring_m.clone(),
                                    ring_c=state.ring_c.clone(),
                                    ring_flag=state.ring_flag.clone(),
                                    ring_seq=state.ring_seq.clone())
             cycle = self._cycle_async
+        elif self._mesh is not None:
+            cycle = self._cycle_block
         else:
             cycle = self._cycle_full
         k = max(1, self.ecfg.cycles_per_dispatch)
-        transport = "gather"
+        transport = "all_to_all" if self._mesh is not None else "gather"
         pair = self.wire_pair_bytes(self._base(state).x_m.shape[-1])
         shard_bytes = pair.sum(axis=1)  # per src shard
         total_bytes = int(pair.sum())
@@ -931,8 +1143,11 @@ class ShardedLSS:
                                    suite=self.suite.name,
                                    mode="async" if is_async else "sync",
                                    transport=transport) as sp:
+                staged0 = self.staged_bytes
                 state = (self._profiled or self._k_cycles)(
                     state, cycle, step)
+                if self.staged_bytes > staged0:
+                    sp.set("staged_bytes", self.staged_bytes - staged0)
                 sp.set("fused", self.dispatch_info["fused"])
                 sp.set("wire", self._wire.name)
                 sp.set("halo_bytes", total_bytes * step)
@@ -961,9 +1176,10 @@ class ShardedLSS:
 
     def _k_cycles(self, state, cycle, k: int):
         """One dispatch: ``k`` cycles of ``cycle`` over the installed
-        tables."""
+        tables (this rank's row of them under a mesh)."""
+        tables = self._tables if self._mesh is None else self._block
         for _ in range(k):
-            state = cycle(state, self._tables)
+            state = cycle(state, tables)
         return state
 
     def _publish_halo(self, step, transport, shard_bytes, pair) -> None:
@@ -997,14 +1213,19 @@ class ShardedLSS:
     def drain_msgs(self, state):
         """Read-and-reset the device send counter: (state', exact int)."""
         base = self._base(state)
-        total = int(torch.sum(base.msgs))
+        total = int(self.total_msgs(base))
         base = base._replace(msgs=torch.zeros_like(base.msgs))
         if isinstance(state, AsyncShardedState):
             return state._replace(sync=base), total
         return base, total
 
     def total_msgs(self, state) -> torch.Tensor:
-        return torch.sum(self._base(state).msgs)
+        """All shards' cumulative sends (summed over the ranks under a
+        mesh)."""
+        msgs = self._base(state).msgs
+        if self._mesh is not None:
+            msgs = collective.all_gather(msgs, self._mesh.group)
+        return torch.sum(msgs)
 
     # -- observers ---------------------------------------------------------
     @staticmethod
@@ -1016,13 +1237,14 @@ class ShardedLSS:
 
     def _flat_state(self, state) -> lss.LSSState:
         """The core's view of a sync state: ``(S*B, ...)`` rows, or
-        ``(Q, S*B, ...)`` for stacked tenants; ``msgs`` summed over the
-        shards."""
+        ``(Q, S*B, ...)`` for stacked tenants (``(B, ...)`` for a rank's
+        block); ``msgs`` summed over the shards."""
         state = self._base(state)
         lead = _lead(state)
         nl = len(lead)
+        rows = state.x_c.shape[-2] * self.B  # S*B, or B for a rank's block
         fl = lambda a: a.reshape(  # noqa: E731
-            *lead, self.S * self.B, *a.shape[nl + 2:])
+            *lead, rows, *a.shape[nl + 2:])
         return lss.LSSState(
             out_m=fl(state.out_m), out_c=fl(state.out_c),
             in_m=fl(state.in_m), in_c=fl(state.in_c),
@@ -1064,10 +1286,11 @@ class ShardedLSS:
         suite one ``lss_state`` launch and one global decision launch.
         For an async state the quiescence bit also requires
         :meth:`async_in_flight` to be False: a message still deliverable by
-        a bounded-stale read could wake a peer.
+        a bounded-stale read could wake a peer.  Under a mesh the blocks
+        are gathered first, so every rank reads the same numbers.
         """
-        acc, quiescent, correct, _ = self._metrics_impl(self._base(state),
-                                                        eps)
+        acc, quiescent, correct, _ = self._metrics_impl(
+            self.gather_state(self._base(state)), eps)
         if isinstance(state, AsyncShardedState):
             quiescent = quiescent & ~self.async_in_flight(state)
         return acc, quiescent, correct
@@ -1128,6 +1351,7 @@ class ShardedLSS:
         the seq-monotonicity counters and the cumulative stale-drop total
         (reconciled against ``engine_async_stale_drops_total`` by
         :mod:`repro_torch.obs.audit`)."""
+        self._not_under_mesh("audit")
         raw = dict(self._audit_impl(self._base(state), self._tables,
                                     eps=eps, sample_mod=sample_mod,
                                     sample_phase=sample_phase))
@@ -1139,8 +1363,9 @@ class ShardedLSS:
         """Unpermute into a core :class:`LSSState` (parity tests, debug);
         ``rng`` is shard 0's generator.  Accepts either state kind (the
         async books and the error feedback are dropped), and Q tenants'
-        stacked state (a stacked core state)."""
-        state = self._base(state)
+        stacked state (a stacked core state).  Under a mesh every rank
+        gets the whole state (``rng``: this rank's generator)."""
+        state = self.gather_state(self._base(state))
         lead = _lead(state)
         nl = len(lead)
         take = lambda a: a.reshape(  # noqa: E731
@@ -1166,6 +1391,7 @@ class ShardedLSS:
         copy of ``snap.rng`` (:meth:`migrate_from` between equal shard
         counts carries them verbatim instead).
         """
+        self._not_under_mesh("place_lss_state")
         S, B, D = self.S, self.B, self.D
         dev = self.device
         lead = tuple(snap.alive.shape[:-1])
@@ -1229,6 +1455,8 @@ class ShardedLSS:
         peer's unshipped error must survive the epoch.  Every tenant of a
         stacked state moves (the service's regrow and rebalance epochs).
         """
+        self._not_under_mesh("migrate_from")
+        old._not_under_mesh("migrate_from")
         src, _ = partition.migrate_rows(old.part, self.part)
         src = torch.as_tensor(src, device=old.device)
         lead = _lead(state)

@@ -25,8 +25,17 @@ tenant's discarded entries go there (:func:`_tenant_rows`), none lands in
 another tenant's rows.
 
 :func:`transpose_all_to_all` is the single-device transport: the whole
-buffer lives on one device and the "exchange" is a transpose.  The
-collective transport over several devices is ROADMAP A.5.
+buffer lives on one device and the "exchange" is a transpose.
+:func:`collective_all_to_all` is the transport across processes (one
+shard a rank, :meth:`~repro_torch.engine.ShardedLSS.use_mesh`): each rank
+holds its shard's src-major ``(S, H, ...)`` rows, and one
+``all_to_all_single`` over a ``torch.distributed`` group sends chunk ``t``
+to rank ``t``, so afterwards row ``s`` is what shard ``s`` sent here: the
+dst-major rows :func:`scatter_block` takes.  A collective moves bytes, so
+every dtype of every wire crosses it; a gloo group given CUDA tensors
+moves them through pinned host memory
+(:func:`repro_torch.distributed.collective.staged_bytes` counts them), an
+NCCL group moves device memory.
 
 Async mode publishes each cycle's send buffers into a ring of
 ``R = staleness + 1`` slots per sender (:func:`ring_publish`) and each
@@ -64,8 +73,8 @@ bytes per cycle for every ordered shard pair.
 On one device the transport is a transpose in device memory, so the
 compact and quantized wires save no bytes there: their encode and decode
 are extra launches, and what they change is the trimmed tables and the
-modeled ``pair_bytes``.  The saving is real only once a transport moves
-the payload between devices (A.5).
+modeled ``pair_bytes``.  The saving is real only under the collective
+transport, which moves the encoded payload between processes.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..distributed import collective
 from ..distributed.compression import dequantize_halo, quantize_halo
 from .partition import HaloTables
 
@@ -81,6 +91,7 @@ __all__ = [
     "gather_rows",
     "scatter_halo",
     "transpose_all_to_all",
+    "collective_all_to_all",
     "gather_block",
     "scatter_block",
     "ring_publish",
@@ -202,6 +213,17 @@ def transpose_all_to_all(buf, batch=0):
     """Single-device transport: (src, dst, ...) -> (dst, src, ...), after
     ``batch`` leading tenant axes."""
     return buf.transpose(batch, batch + 1)
+
+
+# -- collective transport (one shard a process) ---------------------------
+
+def collective_all_to_all(buf, group):
+    """Cross-process transport of one shard's src-major ``(S, H, ...)``
+    rows: chunk ``t`` goes to rank ``t`` of ``group``, and row ``s`` of the
+    result is what rank ``s`` sent here (JAX's ``all_to_all`` with
+    ``split_axis=0, concat_axis=0``).  Any dtype; through pinned host
+    memory on a gloo group given CUDA tensors."""
+    return collective.all_to_all(buf, group)
 
 
 # -- bounded-staleness ring (async engine mode) ----------------------------

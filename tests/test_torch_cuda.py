@@ -952,3 +952,52 @@ def test_audited_service_churn_fused_matches_reference(dev, backend,
         frac = tr.registry.gauge("host_overhead_frac").value(
             backend=backend)
         assert frac is not None and 0.0 <= frac <= 1.0
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+@pytest.mark.parametrize("wire", ["exact", "int8"])
+def test_mesh_engine_fused_matches_gather_fallback(dev, tmp_path, wire):
+    """The collective transport at world size 1 on NCCL (``use_mesh`` on a
+    one-rank ``("shards",)`` mesh, S = 1) through the kernels: every
+    ``ShardedState`` field, the send total and the metrics are bitwise the
+    gather fallback's at S = 1 on grid(4,096), dispatch by dispatch, and
+    the kernels launch."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.engine import EngineConfig, ShardedLSS
+
+    topo = topology.grid(4096)
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    ecfg = EngineConfig(num_shards=1, cycles_per_dispatch=10, wire=wire)
+    torch.cuda.set_device(0)  # before the mesh: NCCL's device
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+        on_mesh = ShardedLSS(topo, centers, lss.LSSConfig(), ecfg,
+                             device=dev).use_mesh(mesh, "shards")
+        gather = ShardedLSS(topo, centers, lss.LSSConfig(), ecfg, device=dev)
+        assert on_mesh.suite.name == "fused"
+        a, b = on_mesh.init(inputs, seed=0), gather.init(inputs, seed=0)
+        kernels.reset_counts()
+        for i in range(6):
+            a = on_mesh.run(a, 10)
+            b = gather.run(b, 10)
+            for name, x in a._asdict().items():
+                if isinstance(x, torch.Tensor):
+                    assert _same_bits(x, getattr(b, name)), f"{i}: {name}"
+            assert int(on_mesh.total_msgs(a)) == int(gather.total_msgs(b))
+            for x, y in zip(on_mesh.metrics(a), gather.metrics(b)):
+                assert _same_bits(x, y), f"dispatch {i}: metrics"
+        counts = kernels.counts()
+        assert min(counts[k] for k in ("lss_state", "correction",
+                                       "region_decide")) > 0
+        assert bool(on_mesh.metrics(a)[1])  # quiescent
+    finally:
+        dist.destroy_process_group()

@@ -486,15 +486,18 @@ def test_dynamic_hooks_use_original_ids():
 
 @pytest.mark.parametrize("what", ["use_mesh", "auto_plan"])
 def test_unported_options_raise(what):
+    """``auto_plan`` (A.8) and, since the mesh transport runs
+    (``tests/test_torch_mesh.py``), the async ring under a mesh (A.5b)."""
     topo = t_top.grid(16)
-    item = {"use_mesh": "A.5", "auto_plan": "A.8"}[what]
+    item = {"use_mesh": "A.5b", "auto_plan": "A.8"}[what]
     centers = torch.zeros((3, 2))
     with pytest.raises(NotImplementedError, match=item):
         if what == "auto_plan":
             ShardedLSS(topo, centers, ecfg=EngineConfig(auto_plan=True),
                        device="cpu")
         else:
-            ShardedLSS(topo, centers, device="cpu").use_mesh(None, "shards")
+            ShardedLSS(topo, centers, ecfg=EngineConfig(async_mode=True),
+                       device="cpu").use_mesh(None, "shards")
     with pytest.raises(ValueError, match="unknown wire"):
         t_ex.get_wire("fp4")
 

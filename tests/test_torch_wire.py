@@ -11,9 +11,10 @@ halo values and error buffers within one quantum where an int8 code
 flipped (the halo values themselves are only ``allclose`` across the two
 frameworks, and one ulp at a rounding boundary moves a code by one).
 Free-running quantized trajectories are compared by their ``run_static``
-results, not field by field.  The mesh, audit, autotune and
-service-engine cases of ``tests/test_wire.py`` belong to ROADMAP A.5,
-A.7, A.8 and A.6.
+results, not field by field.  The mesh case of ``tests/test_wire.py`` is
+held in ``tests/test_torch_mesh.py`` (the four wires against the port's
+gather fallback); its audit, autotune and service-engine cases belong to
+ROADMAP A.7, A.8 and A.6.
 """
 
 import jax
