@@ -200,14 +200,39 @@ Phases, in order; any failure exits nonzero:
    ``tests/test_distributed.py:91``'s flip, a 2x2 torus with ``:66``'s
    statistics): decisions equal the same ranks' CPU run at every step,
    the last ones the global mean's region, fewer effective than physical
-   sends, ms a step.
+   sends, ms a step;
+15. the rest of the engine, on grid and Chord at 80,000 peers through
+   the kernels: (a) ``engine.autotune.plan`` around phase 8's
+   ``EngineConfig(8, 10)`` (K 5 / 10 / 20 x ``exact`` / ``compact``, each
+   probe counted by ``launch.cost.analyze``, one warm-up and three timed
+   dispatches), its table (modeled and measured µs a cycle, wire bytes,
+   counted HBM bytes and flops), the Spearman rank correlation of
+   modeled and measured, the plan's wall and its probe builds' share; the
+   chosen plan must be the measured argmin, and on grid an engine built
+   with ``auto_plan=True`` must adopt one of the candidates and give, on
+   ``run_static``'s engine route, the results and every state field of
+   an engine built directly at that config (the kernels held bitwise on
+   its state); (b) the async ring with one shard a process, K = 10, one
+   untimed and five timed dispatches: at world size 1 on NCCL (S = 1,
+   staleness 0 and 2) and on two ranks of the card over gloo (S = 2,
+   staleness 2, ``exact`` and ``int8``), every field, the books and the
+   ring columns (gathered), msgs and metrics bitwise the single-process
+   async engine's after every dispatch; µs a cycle beside that engine
+   and beside phase 14's sync mesh run, staged bytes a cycle, the kernels
+   held bitwise on each rank's block; (c) each run's ``audit`` equal to
+   the fallback's, every monitor holding; (d) on both ranks a rebalance,
+   ``migrate_from`` a BFS onto a stride partition (S = 2) after 20
+   cycles, and 10 cycles after it, bitwise the fallback's.
 
 It prints a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
 churned-service, engine-backed-service, overlapped-service,
 audited-service and collective-engine (``engine-mesh``: phase 14's (a)
-and both ranks of (b)) runs, each path's in ``launches_by_path``;
+and both ranks of (b)) runs, the autotuner's (``autotune``: phase 15
+(a)'s probes and its ``auto_plan`` run) and the async and moved mesh
+engines' (``engine-mesh-async``: phase 15 (b)-(d)), each path's in
+``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -255,6 +280,7 @@ from repro_torch.engine import EngineConfig, exchange  # noqa: E402
 from repro_torch.engine import sweep as engine_sweep  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import correction as kcorr  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import lss_state as kst  # noqa: E402
 from repro_torch.kernels import region_decide as kdec  # noqa: E402
 from repro_torch.obs import audit as obs_audit  # noqa: E402
@@ -274,9 +300,6 @@ KERNELS = ("region_decide", "lss_state", "correction")
 RESULT_KEYS = ("cycles_95", "cycles_100", "quiesced_at", "total_msgs",
                "msgs_per_link", "final_accuracy", "quiescent")
 TIMED_REPEATS = 7
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 RTOL = ATOL = 1e-5
 TIE_REL = 1e-5
 
@@ -394,63 +417,29 @@ def _device_ms(fn, reps, match):
 
 
 def _lss_state_cost(args, k):
-    """(bytes, operations) the fused status/violation function needs (n
-    counts the peers of every slot of a batched call)."""
-    x_m, x_c, out_m, _, _, _, mask = args
-    D, d = out_m.shape[-2:]
-    n = x_c.numel()
-    live = int(mask.sum())
-    nbytes = (4 * n * (d + 1)  # x_m, x_c
-              + n * D  # mask
-              + 4 * live * 2 * (d + 1)  # out and in moments, weights
-              + 4 * n * (d + 1) + n * D + 4 * n)  # s_m, s_c, viol, dec
-    decide = 2 * k * (d + 1)  # dot, scale and norm per candidate
-    ops = (n * (d + 1 + d + decide)  # S, vec(S), f(S)
-           + live * (4 * (d + 1) + 2 * d + 2 * decide))  # A, S-A, vecs, fs
-    return nbytes, ops
+    """:func:`kcost.lss_state_cost` of these inputs (n counts the peers of
+    every slot of a batched call), with their live slots."""
+    _, x_c, out_m, _, _, _, mask = args
+    return kcost.lss_state_cost(x_c.numel(), *out_m.shape[-2:], k,
+                                int(mask.sum()))
 
 
 def _correction_cost(args, v):
-    """(bytes, operations) of the Eq.-10 correction on these inputs.
-
-    The function returns a corrected message for every slot, so every
-    slot's ``in`` and ``a_c`` is read and every slot of ``out'`` written,
-    under the rule ``_lss_state_cost`` follows too: each input read where
-    an output depends on it, each output written once."""
+    """:func:`kcost.correction_cost` of these inputs, with ``v``'s
+    violating slots."""
     _, s_c, a_m, _, _, _, _ = args
-    D, d = a_m.shape[-2:]
-    n = s_c.numel()
-    nv = int(v.sum())
-    nbytes = (4 * n * (d + 1)  # s_m, s_c
-              + 4 * n * D  # a_c
-              + 4 * nv * d  # a_m on the violating set
-              + 4 * n * D * (d + 1)  # in_m, in_c
-              + n * D  # v_set
-              + 4 * n * D * (d + 1))  # out_m', out_c'
-    ops = nv * (d + 1) + n * (d + 5) + n * D * (2 + 2 * (d + 1))
-    return nbytes, ops
+    return kcost.correction_cost(s_c.numel(), *a_m.shape[-2:], int(v.sum()))
 
 
 def _correction_cost_v(args, v):
-    """(bytes, operations) of the part of the correction the main path
-    keeps: ``lss.py`` blends ``out'`` in on the violating set V only, so
-    this reads S, ``v_set``, and ``a`` and ``in`` on V, and writes V."""
+    """:func:`kcost.correction_cost_v`: the part of the correction the
+    main path keeps, on ``v``'s violating slots."""
     _, s_c, a_m, _, _, _, _ = args
-    D, d = a_m.shape[-2:]
-    n = s_c.numel()
-    nv = int(v.sum())
-    nbytes = (4 * n * (d + 1)  # s_m, s_c
-              + n * D  # v_set
-              + 4 * nv * 2 * (d + 1)  # a and in on V
-              + 4 * nv * (d + 1))  # out_m', out_c' on V
-    ops = nv * (d + 1) + n * (d + 5) + nv * (2 + 2 * (d + 1))
-    return nbytes, ops
+    return kcost.correction_cost_v(s_c.numel(), *a_m.shape[-2:],
+                                   int(v.sum()))
 
 
-def _bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+_bound_ms = kcost.bound_ms
 
 
 def _share(bound, ms):
@@ -769,18 +758,14 @@ def _check_batched(label, args, packed, eps, beta, timed):
 
 
 def _region_decide_cost(v, packed):
-    """(bytes, operations) of the packed decision of ``v`` (Q, m, d): each
-    vector read, each id written, each slot's table read once; per vector
-    d products, d - 1 sums, a scale, an add and a compare for each center
-    of a Voronoi slot, d products, d - 1 sums and a compare for a
-    halfspace."""
+    """:func:`kcost.region_decide_cost` of ``v`` (Q, m, d) against the
+    packed families: their live centers on the Voronoi slots, and the
+    other slots."""
     q, m, d = v.shape
-    k = packed.k_max
-    nbytes = 4 * q * m * d + 4 * q * m + 4 * q * (d * (k + 1) + k + 4)
-    centers = packed.cmask.sum(-1)
-    per_vec = torch.where(packed.kind == regions.KIND_VORONOI,
-                          centers * (2 * d + 2), 2 * d)
-    return nbytes, int(per_vec.sum()) * m
+    voronoi = packed.kind == regions.KIND_VORONOI
+    return kcost.region_decide_cost(
+        q, m, d, packed.k_max, int(packed.cmask.sum(-1)[voronoi].sum()),
+        int((~voronoi).sum()))
 
 
 def _check_region_decide(label, v, region, timed, library=None):
@@ -904,15 +889,6 @@ def _global_inputs(q, n, gen, dev, dead=0.1):
     return x_m, x_c, alive, packed
 
 
-def _global_cost(q, n, d, k):
-    """(bytes, float64 adds) of the global decision: x_m, x_c and alive
-    read once, each slot's table and eps read, want and gx written; d + 1
-    adds a peer."""
-    nbytes = (q * n * (4 * d + 5) + 4 * q * (d * (k + 1) + k + 4 + 1)
-              + 4 * q * (d + 2))
-    return nbytes, q * n * (d + 1)
-
-
 def _check_global(label, x_m, x_c, alive, tables, plain, eps):
     """The global decision through its wrapper, with the tables prepared
     once as the main paths prepare them, against its plain version (want
@@ -940,8 +916,9 @@ def _check_global(label, x_m, x_c, alive, tables, plain, eps):
             "plain_ms": _time_ms(
                 lambda: ref.global_decision_ref(x_m, x_c, alive, plain,
                                                 eps), 5),
-            "bound": _bound_ms(*_global_cost(q, n, d, tables.cn.shape[-1]),
-                               ops_per_s=F64_OPS_PER_S)}
+            "bound": _bound_ms(
+                *kcost.global_cost(q, n, d, tables.cn.shape[-1]),
+                ops_per_s=kcost.F64_OPS_PER_S)}
 
 
 def phase_global(topos, dev, eps, gen):
@@ -1158,9 +1135,10 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def _require_launched(label, counts) -> None:
-    """Every kernel launched on the path and no plain version ran."""
-    if min(counts[key] for key in KERNELS) <= 0:
+def _require_launched(label, counts, keys=KERNELS) -> None:
+    """Every kernel of ``keys`` launched on the path and no plain version
+    ran."""
+    if min(counts[key] for key in keys) <= 0:
         raise AssertionError(f"{label}: the path launched no kernel")
     if any(counts[f"{key}_ref"] for key in KERNELS):
         raise AssertionError(f"{label}: the path ran a plain version")
@@ -1424,7 +1402,7 @@ def _check_engine_kernels(name, eng, st0):
         live = lss._live_mask(eng._flat_topo, flat.alive)
     else:  # the block's live slots, as its cycle computes them
         blk = eng._block
-        alive_all = eng.gather_state(st).alive.reshape(-1)
+        alive_all = eng._base(eng.gather_state(st)).alive.reshape(-1)
         live = blk.mask & flat.alive[:, None] & alive_all[blk.tgt_pos]
     cfg, tables = eng.cfg, eng._tables_for(eng.cfg.eps)
     args = (flat.x_m, flat.x_c, flat.out_m, flat.out_c, flat.in_m,
@@ -1926,9 +1904,9 @@ def _check_service_kernels(label, svc, timed=False):
     k = tables.cn.shape[-1]
     bounds = {"lss_state": _bound_ms(*_lss_state_cost(args, k)),
               "correction": _bound_ms(*_correction_cost(cargs, live)),
-              "region_decide": _bound_ms(*_global_cost(q, n, s_m.shape[-1],
-                                                       k),
-                                         ops_per_s=F64_OPS_PER_S)}
+              "region_decide": _bound_ms(
+                  *kcost.global_cost(q, n, s_m.shape[-1], k),
+                  ops_per_s=kcost.F64_OPS_PER_S)}
     for kname, (fused, plain) in calls.items():
         ms = _time_ms(fused, 10)
         print(f"[churn-kernels] {label} {kname}: {ms:.4f} ms a call by "
@@ -2968,15 +2946,16 @@ MONITOR_CASES = {
 }
 
 
-def _mesh_engine(topo, dev, shards, wire, mesh=None):
+def _mesh_engine(topo, dev, shards, wire, mesh=None, **kw):
     """Phase 8's problem on an engine of ``shards`` shards (K = 10,
-    through the kernels on the card), on ``mesh`` when given."""
+    through the kernels on the card; ``kw`` more ``EngineConfig`` fields),
+    on ``mesh`` when given."""
     from repro_torch.engine import ShardedLSS
 
     centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
     eng = ShardedLSS(topo, centers, lss.LSSConfig(),
                      EngineConfig(num_shards=shards, cycles_per_dispatch=MESH_K,
-                                  wire=wire), device=dev)
+                                  wire=wire, **kw), device=dev)
     if mesh is not None:
         eng.use_mesh(mesh, "shards")
     return eng, eng.init(inputs, seed=0)
@@ -3042,8 +3021,9 @@ def _collective_ms(label, eng, st, dev, reps=20):
 
 
 def _digests(eng, st) -> dict:
-    """sha256 of every field of the (gathered) state, the metrics and the
-    send total: what two runs are held to bitwise."""
+    """sha256 of every field of the (gathered) state, an async state's
+    books and rings included, the metrics and the send total: what two
+    runs are held to bitwise."""
     import hashlib
 
     def sha(t):
@@ -3051,8 +3031,9 @@ def _digests(eng, st) -> dict:
                               .tobytes()).hexdigest()
 
     full = eng.gather_state(st)
+    parts = (full,) if full is eng._base(full) else (full.sync, full)
     out = {f"{name} {tuple(t.shape)} {t.dtype}": sha(t)
-           for name, t in full._asdict().items()
+           for part in parts for name, t in part._asdict().items()
            if isinstance(t, torch.Tensor)}
     acc, quiescent, correct = eng.metrics(st)
     out["metrics"] = (float(acc), bool(quiescent), sha(correct))
@@ -3091,9 +3072,10 @@ def _mesh_rank(rank, world, topos, dev):
     return out
 
 
-def _mesh_world1(topos, dev, totals):
+def _mesh_world1(topos, dev, totals, sync_us):
     """Phase 14 (a): ``use_mesh`` on a one-rank NCCL group (S = 1) against
-    the gather fallback at S = 1, bitwise, timed beside it."""
+    the gather fallback at S = 1, bitwise, timed beside it (the median
+    µs/cycle into ``sync_us``)."""
     import os
     import tempfile
 
@@ -3117,6 +3099,7 @@ def _mesh_world1(topos, dev, totals):
                 _sync(dev)
                 counts = kernels.counts()
                 _require_launched(f"mesh S=1 {name}", counts)
+                sync_us[(1, name, "exact")] = float(np.median(us))
                 for key in KERNELS:
                     totals[key] += counts[key]
                 ref_eng, ref0 = _mesh_engine(topo, dev, 1, "exact")
@@ -3145,10 +3128,11 @@ def _mesh_world1(topos, dev, totals):
             dist.destroy_process_group()
 
 
-def _mesh_world2(topos, dev, totals):
+def _mesh_world2(topos, dev, totals, sync_us):
     """Phase 14 (b): two ranks on one device over gloo (the payload
     staged through pinned host memory), S = 2, against the gather
-    fallback at S = 2 on the exact and int8 wires."""
+    fallback at S = 2 on the exact and int8 wires (rank 0's median
+    µs/cycle into ``sync_us``)."""
     from repro_torch.distributed import launch
 
     ranks = launch.spawn(_mesh_rank, 2, timeout_s=MESH_TIMEOUT_S,
@@ -3171,6 +3155,7 @@ def _mesh_world2(topos, dev, totals):
                 for key in KERNELS:
                     totals[key] += run["counts"][key]
             us = runs[0]["us"]
+            sync_us[(2, name, wire)] = float(np.median(us))
             print(f"[mesh] {name} n={topo.n} S=2 gloo world 2 on one "
                   f"device, wire {wire}: every ShardedState field, msgs "
                   f"and metrics bitwise the gather fallback's on both "
@@ -3261,14 +3246,348 @@ def phase_mesh(topos, dev):
     """The multi-process paths: (a) the collective engine at world size 1
     on NCCL, (b) at world size 2 over gloo on one device, (c) the mesh
     monitor on 4 ranks; returns the engine's launches (the
-    ``engine-mesh`` path)."""
+    ``engine-mesh`` path) and its median µs/cycle by ``(S, topology,
+    wire)``."""
     totals = {key: 0 for key in KERNELS}
+    sync_us = {}
     topos = {name: topos[name] for name in ("grid", "chord")}
-    _mesh_world1(topos, dev, totals)
+    _mesh_world1(topos, dev, totals, sync_us)
     torch.cuda.empty_cache()
-    _mesh_world2(topos, dev, totals)
+    _mesh_world2(topos, dev, totals, sync_us)
     _mesh_monitor(dev)
-    return totals
+    return totals, sync_us
+
+
+# --- phase 15: the rest of the engine (autotune; under a mesh the async
+# ring, the audit and the layout moves) ------------------------------------
+
+PLAN_REPEATS = 3  # timed dispatches a candidate, after one warm-up
+ASYNC_STALENESS = (0, 2)  # world size 1; two ranks run STALENESS
+
+
+def _spearman(a, b) -> float:
+    """Spearman's rank correlation of two sequences (no ties expected)."""
+    ra = np.argsort(np.argsort(np.asarray(a)))
+    rb = np.argsort(np.argsort(np.asarray(b)))
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def _plan_lines(label, res, wall):
+    """The plan table, each candidate's model terms, the rank correlation
+    of modeled and measured, the plan's wall and its probe builds'
+    share; fails unless the chosen candidate is the measured argmin."""
+    from repro_torch.engine import autotune
+
+    print(f"[autotune] {label}:\n{autotune.format_table(res)}", flush=True)
+    for e in res.table:
+        c = e.cand
+        print(f"[autotune] {label} S={c.num_shards} K={c.k} wire={c.wire}: "
+              f"modeled_us {e.modeled_us:.3f} measured_us "
+              f"{e.measured_us:.3f} wire_bytes {e.wire_bytes} hbm_bytes "
+              f"{e.hbm_bytes:.0f} flops {e.flops:.0f} build_s "
+              f"{e.build_s:.3f}", flush=True)
+    best = min(res.table, key=lambda e: e.measured_us)
+    if res.chosen != best.cand or res.config.auto_plan:
+        raise AssertionError(f"autotune {label}: chose {res.chosen}, the "
+                             f"measured argmin is {best.cand}")
+    builds = sum(e.build_s for e in res.table)
+    rho = _spearman([e.modeled_us for e in res.table],
+                    [e.measured_us for e in res.table])
+    print(f"[autotune] {label}: chosen {tuple(res.chosen)} = the measured "
+          f"argmin; Spearman(modeled, measured) {rho:.4f}; plan wall "
+          f"{wall:.3f} s, probe builds {builds:.3f} s ({builds / wall:.4f} "
+          f"of it)", flush=True)
+
+
+def _autotune(topos, dev, totals):
+    """Phase 15 (a): ``autotune.plan`` around phase 8's ``EngineConfig(8,
+    10)`` on grid and Chord, measured, then on grid an engine built with
+    ``auto_plan=True`` against one built directly at its adopted config:
+    ``run_static``'s engine route, results and every state field equal."""
+    from repro_torch.engine import autotune
+
+    for name in ("grid", "chord"):
+        topo = topos[name]
+        centers, _, _, _ = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = autotune.plan(topo, centers, base=_engine_cfg(), measure=True,
+                            repeats=PLAN_REPEATS, device=dev)
+        wall = time.perf_counter() - t0
+        counts = kernels.counts()
+        # The probes dispatch and never observe: no global decision.
+        _require_launched(f"autotune {name}", counts,
+                          ("lss_state", "correction"))
+        for key in KERNELS:
+            totals[key] += counts[key]
+        _plan_lines(f"{name} n={topo.n}", res, wall)
+        del res
+        torch.cuda.empty_cache()
+    topo = topos["grid"]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    drv = _set_up(topo, dev, _engine_cfg(auto_plan=True))
+    built = time.perf_counter() - t0
+    got = sim._run_to_quiescence(drv, topo, MAX_CYCLES, 1)
+    _sync(dev)
+    counts = kernels.counts()
+    _require_launched("autotune auto_plan grid", counts)
+    for key in KERNELS:
+        totals[key] += counts[key]
+    adopted = drv._eng.ecfg
+    cand = (adopted.num_shards, adopted.halo_slack,
+            adopted.cycles_per_dispatch, adopted.wire)
+    if adopted.auto_plan or cand not in autotune.default_candidates(
+            _engine_cfg()):
+        raise AssertionError(f"auto_plan grid: adopted {adopted}")
+    direct = _set_up(topo, dev, adopted)
+    want = sim._run_to_quiescence(direct, topo, MAX_CYCLES, 1)
+    if got != want or _digests(drv._eng, drv._st) != _digests(
+            direct._eng, direct._st):
+        raise AssertionError(f"auto_plan grid: {_diffs(got, want)} or the "
+                             f"states differ from the direct engine's")
+    print(f"[autotune] grid auto_plan=True: built (planned) in {built:.3f} "
+          f"s, adopted {cand}, run_static's engine route {got['cycles_100']}"
+          f" cycles to 100 %, quiesced at {got['quiesced_at']}, msgs/link "
+          f"{got['msgs_per_link']!r}: results and every state field equal "
+          f"to an engine built at that config; launches {counts}",
+          flush=True)
+    _check_engine_kernels("autotune grid (the adopted plan)", drv._eng,
+                          drv._eng.init(sim._setup(
+                              topo, sim.ProblemSpec(n=topo.n), dev)[3],
+                              seed=0))
+
+
+def _lockstep(eng, st, dev):
+    """One untimed and ``MESH_TIMED`` timed dispatches of K cycles, the
+    digests after each (outside the timing): (state, µs a cycle of each
+    timed dispatch, digests)."""
+    us, digests = [], []
+    for i in range(MESH_TIMED + 1):
+        _sync(dev)
+        t0 = time.perf_counter()
+        st = eng.run(st, MESH_K)
+        _sync(dev)
+        if i:
+            us.append((time.perf_counter() - t0) * 1e6 / MESH_K)
+        digests.append(_digests(eng, st))
+    return st, us, digests
+
+
+def _audited(label, eng, st):
+    """The audit of ``st``: its dict, failing unless every monitor holds
+    (the stale-drop books reconciled with ``async_lag_stats``)."""
+    raw = eng.audit(st)
+    drops = eng.async_lag_stats(st)["stale_drops"]
+    rep = obs_audit.evaluate(raw, stale_drops_metric=drops)
+    if not rep.ok:
+        raise AssertionError(f"audit {label}: {rep.monitors} {raw}")
+    return raw
+
+
+def _async_world1(topos, dev, totals, sync_us):
+    """Phase 15 (b, c) at world size 1 on NCCL (S = 1): the async engine
+    on the mesh in lockstep with the single-process async engine at S = 1,
+    bitwise after every dispatch; the audits equal and clean."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)  # before the mesh: NCCL's device
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(dev.type, (1,),
+                                    mesh_dim_names=("shards",))
+            for name, topo in topos.items():
+                for stale in ASYNC_STALENESS:
+                    label = f"async-{stale} S=1 {name}"
+                    eng, st0 = _mesh_engine(topo, dev, 1, "exact", mesh,
+                                            async_mode=True, staleness=stale)
+                    kernels.reset_counts()
+                    st, us, got = _lockstep(eng, _replay_state(st0), dev)
+                    _sync(dev)
+                    counts = kernels.counts()
+                    _require_launched(label, counts)
+                    for key in KERNELS:
+                        totals[key] += counts[key]
+                    ref, ref0 = _mesh_engine(topo, dev, 1, "exact",
+                                             async_mode=True,
+                                             staleness=stale)
+                    ref_st, ref_us, want = _lockstep(ref, ref0, dev)
+                    bad = [i for i, (g, w) in enumerate(zip(got, want))
+                           if g != w]
+                    if bad:
+                        raise AssertionError(f"{label}: differs from the "
+                                             f"fallback after dispatches "
+                                             f"{bad}")
+                    audit = _audited(label, eng, st)
+                    if audit != _audited(label, ref, ref_st):
+                        raise AssertionError(f"{label}: audit differs")
+                    sync = sync_us.get((1, name, "exact"), float("nan"))
+                    print(f"[mesh-async] {name} n={topo.n} staleness "
+                          f"{stale} S=1 {backend} world 1: every field, the "
+                          f"books and the ring, msgs and metrics bitwise the "
+                          f"async engine's after each of {MESH_TIMED + 1} "
+                          f"dispatches (metrics {want[-1]['metrics'][:2]}, "
+                          f"msgs {want[-1]['total_msgs']}); us_per_cycle "
+                          f"median {np.median(us):.1f} (min {min(us):.1f} "
+                          f"max {max(us):.1f}), async engine "
+                          f"{np.median(ref_us):.1f}, phase 14's sync mesh "
+                          f"{sync:.1f}; audit equal, every monitor "
+                          f"holds ({audit}); launches {counts}", flush=True)
+                    _check_engine_kernels(label, eng, st0)
+                    del eng, st, ref, ref_st
+                    torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+
+def _async_rank(rank, world, topos, dev):
+    """Phase 15 (b, c, d) on one rank of a gloo mesh: the async engine
+    (staleness ``STALENESS``) on each topology and wire, digests after
+    each dispatch and the audit; then on each topology a rebalance
+    (``migrate_from`` a BFS onto a stride partition, S = 2, after two
+    dispatches) and ``MESH_K`` cycles on it, digests after each."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.engine import ShardedLSS
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("shards",))
+    out = {}
+    for name, topo in topos.items():
+        for wire in MESH_WIRES:
+            eng, st0 = _mesh_engine(topo, dev, world, wire, mesh,
+                                   async_mode=True, staleness=STALENESS)
+            kernels.reset_counts()
+            st, us, digests = _lockstep(eng, _replay_state(st0), dev)
+            audit = _audited(f"mesh-async rank {rank} {name} {wire}", eng,
+                             st)
+            _sync(dev)
+            out[(name, wire)] = {
+                "digests": digests, "us": us, "counts": kernels.counts(),
+                "audit": audit, "staged_per_cycle": eng.staged_bytes / (
+                    MESH_K * (MESH_TIMED + 1)),
+                "pair_bytes": int(eng.wire_pair_bytes(2)[rank].sum())}
+            _check_engine_kernels(f"mesh-async S={world} rank {rank} {name} "
+                                  f"{wire}", eng, st0)
+            del eng, st, st0
+        old, st = _mesh_engine(topo, dev, world, "exact", mesh)
+        new = ShardedLSS(topo, old.centers, old.cfg,
+                         old.ecfg._replace(method="stride"),
+                         device=dev).use_mesh(mesh, "shards")
+        kernels.reset_counts()
+        moved = new.migrate_from(old, old.run(st, 2 * MESH_K))
+        after = new.run(moved, MESH_K)
+        _sync(dev)
+        out[(name, "migrate")] = {
+            "digests": [_digests(new, moved), _digests(new, after)],
+            "counts": kernels.counts()}
+        del old, new, st, moved, after
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _async_world2(topos, dev, totals, sync_us):
+    """Phase 15 (b, c, d) on two ranks of one device over gloo (S = 2),
+    each held to the single-process engine at S = 2 run here."""
+    from repro_torch.distributed import launch
+    from repro_torch.engine import ShardedLSS
+
+    ranks = launch.spawn(_async_rank, 2, timeout_s=MESH_TIMEOUT_S,
+                         args=(topos, str(dev)))
+    for name, topo in topos.items():
+        for wire in MESH_WIRES:
+            label = f"async-{STALENESS} S=2 {name} {wire}"
+            ref, ref0 = _mesh_engine(topo, dev, 2, wire, async_mode=True,
+                                     staleness=STALENESS)
+            ref_st, ref_us, want = _lockstep(ref, ref0, dev)
+            audit = _audited(label, ref, ref_st)
+            runs = [r[(name, wire)] for r in ranks]
+            for rank, run in enumerate(runs):
+                bad = [i for i, (g, w) in enumerate(zip(run["digests"], want))
+                       if g != w]
+                if bad or len(run["digests"]) != len(want):
+                    raise AssertionError(f"{label} rank {rank}: differs from "
+                                         f"the fallback after dispatches "
+                                         f"{bad}")
+                if run["audit"] != audit:
+                    raise AssertionError(f"{label} rank {rank}: audit "
+                                         f"{run['audit']} != {audit}")
+                _require_launched(f"{label} rank {rank}", run["counts"])
+                for key in KERNELS:
+                    totals[key] += run["counts"][key]
+            lag = ref.async_lag_stats(ref_st)
+            us = runs[0]["us"]
+            print(f"[mesh-async] {name} n={topo.n} staleness {STALENESS} S=2 "
+                  f"gloo world 2 on one device, wire {wire}: every field, "
+                  f"the books and the rings, msgs and metrics bitwise the "
+                  f"async engine's on both ranks after each of "
+                  f"{MESH_TIMED + 1} dispatches (metrics "
+                  f"{want[-1]['metrics'][:2]}, msgs {want[-1]['total_msgs']},"
+                  f" lag {lag}); audit equal on both ranks, every monitor "
+                  f"holds; rank 0 us_per_cycle median "
+                  f"{np.median(us):.1f} (min {min(us):.1f} max "
+                  f"{max(us):.1f}), rank 1 median "
+                  f"{np.median(runs[1]['us']):.1f}; async engine S=2 median "
+                  f"{np.median(ref_us):.1f}; phase 14's sync mesh S=2 "
+                  f"{sync_us.get((2, name, wire), float('nan')):.1f}; "
+                  f"staged bytes a cycle rank 0 "
+                  f"{runs[0]['staged_per_cycle']:.0f} rank 1 "
+                  f"{runs[1]['staged_per_cycle']:.0f}; modeled "
+                  f"wire_pair_bytes a cycle rank 0 {runs[0]['pair_bytes']} "
+                  f"rank 1 {runs[1]['pair_bytes']}; launches rank 0 "
+                  f"{runs[0]['counts']} rank 1 {runs[1]['counts']}",
+                  flush=True)
+            del ref, ref_st, ref0
+            torch.cuda.empty_cache()
+        old, st = _mesh_engine(topo, dev, 2, "exact")
+        new = ShardedLSS(topo, old.centers, old.cfg,
+                         old.ecfg._replace(method="stride"), device=dev)
+        moved = new.migrate_from(old, old.run(st, 2 * MESH_K))
+        want = [_digests(new, moved), _digests(new, new.run(moved, MESH_K))]
+        for rank, r in enumerate(ranks):
+            run = r[(name, "migrate")]
+            if run["digests"] != want:
+                raise AssertionError(f"migrate S=2 {name} rank {rank}: "
+                                     f"differs from the fallback's")
+            _require_launched(f"migrate S=2 {name} rank {rank}",
+                              run["counts"])
+            for key in KERNELS:
+                totals[key] += run["counts"][key]
+        print(f"[mesh-layout] {name} n={topo.n} S=2 gloo world 2: "
+              f"migrate_from the BFS onto a stride partition after "
+              f"{2 * MESH_K} cycles, and {MESH_K} cycles after it, bitwise "
+              f"the fallback's on both ranks (cut edges {old._cuts.sum() // 2}"
+              f" -> {new._cuts.sum() // 2}; metrics "
+              f"{want[-1]['metrics'][:2]}); launches rank 0 "
+              f"{ranks[0][(name, 'migrate')]['counts']}", flush=True)
+        del old, new, st, moved
+        torch.cuda.empty_cache()
+
+
+def phase_engine_rest(topos, dev, sync_us):
+    """The rest of the engine: (a) the autotuner, (b)-(c) the async ring
+    and its audit with one shard a process (timed beside phase 14's
+    ``sync_us``), (d) a rebalance under the mesh; returns the launches of
+    (a) (``autotune``) and of (b)-(d) (``engine-mesh-async``)."""
+    plan_totals = {key: 0 for key in KERNELS}
+    mesh_totals = {key: 0 for key in KERNELS}
+    topos = {name: topos[name] for name in ("grid", "chord")}
+    _autotune(topos, dev, plan_totals)
+    torch.cuda.empty_cache()
+    _async_world1(topos, dev, mesh_totals, sync_us)
+    _async_world2(topos, dev, mesh_totals, sync_us)
+    return plan_totals, mesh_totals
 
 
 def main() -> int:
@@ -3327,7 +3646,9 @@ def main() -> int:
     overlap_totals = phase("phase 12", phase_overlap, topos, dev, gpu)
     audit_totals = phase("phase 13", phase_observability, topos, dev, gpu,
                          churn_runs)
-    mesh_totals = phase("phase 14", phase_mesh, topos, dev)
+    mesh_totals, sync_us = phase("phase 14", phase_mesh, topos, dev)
+    plan_totals, mesh_async_totals = phase("phase 15", phase_engine_rest,
+                                           topos, dev, sync_us)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -3391,7 +3712,8 @@ def main() -> int:
                          + sum(t[name] for t in aq_totals.values())
                          + churn_totals[name] + engine_svc_totals[name]
                          + overlap_totals[name] + audit_totals[name]
-                         + mesh_totals[name]),
+                         + mesh_totals[name] + plan_totals[name]
+                         + mesh_async_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
@@ -3402,7 +3724,10 @@ def main() -> int:
                                  "service_engine": engine_svc_totals[name],
                                  "service_overlap": overlap_totals[name],
                                  "service_audit": audit_totals[name],
-                                 "engine-mesh": mesh_totals[name]},
+                                 "engine-mesh": mesh_totals[name],
+                                 "autotune": plan_totals[name],
+                                 "engine-mesh-async":
+                                     mesh_async_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

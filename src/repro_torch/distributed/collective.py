@@ -8,13 +8,16 @@ per leading index, so every dtype crosses it (``bool`` flags, ``int8`` and
 moves device memory.  A gloo group given a CUDA tensor moves it through
 pinned host buffers: :func:`staged` says when, and :func:`staged_bytes`
 counts what a call copies to the host.  :func:`axis_size` reads a named
-axis of a ``DeviceMesh``.
+axis of a ``DeviceMesh``.  Under :func:`repro_torch.launch.cost.analyze`
+each call counts the payload bytes this rank sends, by op.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ..launch import cost
 
 __all__ = ["axis_size", "staged", "staged_bytes", "host_buffer", "to_host",
            "all_to_all", "all_gather"]
@@ -80,7 +83,8 @@ def all_to_all(buf, group=None) -> torch.Tensor:
     def op(out, send):
         dist.all_to_all_single(out, send, group=group)
 
-    return _run(buf, group, op, buf.shape[0])
+    with cost.collective("all-to-all", buf.numel() * buf.element_size()):
+        return _run(buf, group, op, buf.shape[0])
 
 
 def all_gather(buf, group=None) -> torch.Tensor:
@@ -91,5 +95,6 @@ def all_gather(buf, group=None) -> torch.Tensor:
     def op(out, send):
         dist.all_gather(list(out.chunk(world)), send, group=group)
 
-    rows = _run(buf.reshape(1, *buf.shape), group, op, world)
+    with cost.collective("all-gather", buf.numel() * buf.element_size()):
+        rows = _run(buf.reshape(1, *buf.shape), group, op, world)
     return rows.reshape(world * buf.shape[0], *buf.shape[1:])

@@ -8,12 +8,13 @@ Modules:
               (exact / compact / int8 / bf16)
   engine    — ShardedLSS: the K-cycles-per-dispatch engine, sync or async,
               on one device or one shard a rank (``use_mesh``)
+  autotune  — plan enumeration scored by the counted dispatch cost
+              (``repro_torch.launch.cost``) and timed probes
+              (EngineConfig.auto_plan)
   sweep     — batched multi-seed / multi-config scenario sweeps
-
-Not ported yet: ``autotune`` (ROADMAP A.8), and under a mesh the async
-ring, the audit and the layout moves (A.5b).
 """
 
+from . import autotune  # noqa: F401
 from .engine import (AsyncShardedState, DeviceTopo,  # noqa: F401
                      EngineConfig, ShardedLSS, ShardedState)
 from .partition import (Partition, ShardedTopo, make_partition,  # noqa: F401

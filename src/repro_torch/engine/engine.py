@@ -73,13 +73,19 @@ collective_all_to_all`, decodes and scatters, and updates the block's B
 rows through the same hooks and do-while: bitwise the gather fallback's
 rows, since no per-row result depends on how many rows a launch holds.
 The observers (:meth:`~ShardedLSS.metrics`, :meth:`~ShardedLSS.
-to_lss_state`, :meth:`~ShardedLSS.total_msgs`) gather the blocks, so every
-rank reads the same global numbers; the data and membership hooks take
-global peer ids and apply those of the rank's shard.
+to_lss_state`, :meth:`~ShardedLSS.total_msgs`, :meth:`~ShardedLSS.audit`)
+gather the blocks, so every rank reads the same global numbers; the data
+and membership hooks take global peer ids and apply those of the rank's
+shard.  The async ring runs on the block too (:meth:`ShardedLSS.
+_cycle_async_block`): a rank keeps its own clock, sequence books and the
+ring column of the messages addressed to it, and its delay generator is
+the gather fallback's of its shard.  The layout moves
+(:meth:`~ShardedLSS.place_lss_state`, :meth:`~ShardedLSS.migrate_from`)
+build the fallback's layout on every rank and keep the rank's block.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``auto_plan=True`` (A.8), and under a mesh the async ring, the
-audit and the layout moves (A.5b).
+``EngineConfig(auto_plan=True)`` plans the configuration at construction
+(:mod:`.autotune`: probe engines counted by
+:func:`repro_torch.launch.cost.analyze` and timed on the engine's device).
 """
 
 from __future__ import annotations
@@ -99,10 +105,6 @@ from . import exchange, partition
 
 __all__ = ["DeviceTopo", "EngineConfig", "MembershipRepair", "ShardedState",
            "AsyncShardedState", "ShardedLSS"]
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class _MeshBinding(NamedTuple):
@@ -228,7 +230,7 @@ class EngineConfig(NamedTuple):
     async_mode: bool = False  # per-shard clocks + the bounded-stale ring
     staleness: int = 0  # halo reads may lag the sender by <= this many cycles
     wire: str = "exact"  # "exact" | "compact" | "int8" | "bf16"
-    auto_plan: bool = False  # not ported (ROADMAP A.8)
+    auto_plan: bool = False  # plan (S, slack, K, wire) at construction
 
 
 class ShardedState(NamedTuple):
@@ -268,7 +270,10 @@ class AsyncShardedState(NamedTuple):
     ring slots of the wire's halo width keep a publication for exactly
     the read window that may still target it.  ``delay_rng`` (not in the
     JAX twin, whose delay keys split off ``rng``) holds the per-shard
-    generators of the receivers' delay draws.
+    generators of the receivers' delay draws.  Under a mesh a rank holds
+    its shard's part: books of length 1 on the shard axis, the ring column
+    ``(R, S, 1, H, ...)`` of the messages addressed to it, its shard's
+    delay generator.
     """
 
     sync: ShardedState  # the paper state, (S, B, ...)
@@ -283,6 +288,12 @@ class AsyncShardedState(NamedTuple):
     applied: torch.Tensor  # (S,) cross-shard messages applied
     delay_sum: torch.Tensor  # (S,) total realized delay of applied messages
     delay_rng: tuple  # S torch.Generators: per-shard delay streams
+
+
+# An async state's per-shard books and its rings (ring axis, src, dst, H).
+_BOOKS = ("clock", "out_seq", "last_seq", "stale_drops", "applied",
+          "delay_sum")
+_RINGS = ("ring_m", "ring_c", "ring_flag", "ring_seq")
 
 
 def _copy_generator(g: torch.Generator) -> torch.Generator:
@@ -369,10 +380,16 @@ class ShardedLSS:
                  region=None, tracker=None, device=None):
         from ..obs import NoopTracker, ProfiledDispatch  # local: no cycle
 
-        if ecfg.auto_plan:
-            raise _unported("auto_plan=True (engine autotuning)", "A.8")
-        self._wire = exchange.get_wire(ecfg.wire)
         self.device = resolve_device(device)
+        if ecfg.auto_plan:
+            # Enumerate (S, slack, K, wire) candidates around this config,
+            # count and time a probe dispatch of each on this device, adopt
+            # the winner.  The probes build with auto_plan=False.
+            from . import autotune  # local: autotune constructs engines
+
+            ecfg = autotune.plan(topo, centers, cfg=cfg, base=ecfg,
+                                 device=self.device).config
+        self._wire = exchange.get_wire(ecfg.wire)
         self.cfg = cfg
         self.ecfg = ecfg
         self.tracker = tracker if tracker is not None else NoopTracker()
@@ -451,10 +468,9 @@ class ShardedLSS:
         coordinate on that axis, whose size must equal ``num_shards``.
 
         Every rank of the group calls it, then :meth:`init` (which returns
-        the rank's block) and :meth:`run` in step with the others.
+        the rank's block, sync or async) and :meth:`run` in step with the
+        others.
         """
-        if self.ecfg.async_mode:
-            raise _unported("async_mode under a mesh", "A.5b")
         size = collective.axis_size(mesh, axis_name)
         if size != self.S:
             raise ValueError(
@@ -470,11 +486,6 @@ class ShardedLSS:
             self._profiled = ProfiledDispatch(self._k_cycles, self.tracker,
                                               backend="engine-mesh")
         return self
-
-    def _not_under_mesh(self, what: str) -> None:
-        """The surfaces a mesh does not carry yet (A.5b) raise under one."""
-        if self._mesh is not None:
-            raise _unported(f"{what} under a mesh", "A.5b")
 
     # -- state -------------------------------------------------------------
     def init(self, inputs: wvs.WV, seed: int = 0, alive=None):
@@ -547,37 +558,52 @@ class ShardedLSS:
                             wire_err_m=take(state.wire_err_m),
                             wire_err_c=take(state.wire_err_c))
 
-    def gather_state(self, state: ShardedState) -> ShardedState:
+    def gather_state(self, state):
         """Under a mesh, the full ``(S, B, ...)`` state from every rank's
         block (every rank gets it; ``rng`` stays this rank's one
-        generator).  Without a mesh, ``state`` itself."""
+        generator).  An async block also gathers its books and its ring
+        column into the fallback's ``(R, S_src, S_dst, H, ...)`` ring
+        (``delay_rng``: this rank's).  Without a mesh, ``state`` itself."""
         if self._mesh is None:
             return state
-        group = self._mesh.group
-
-        def full(a):
-            if a is None or a.ndim == 0:
-                return a
-            return collective.all_gather(a, group)
-
+        full = self._full
+        if isinstance(state, AsyncShardedState):
+            return state._replace(
+                sync=self.gather_state(state.sync),
+                **{f: full(getattr(state, f)) for f in _BOOKS},
+                **{f: self._full_ring(getattr(state, f)) for f in _RINGS})
         return ShardedState(*(full(a) for a in state[:-3]), rng=state.rng,
                             wire_err_m=full(state.wire_err_m),
                             wire_err_c=full(state.wire_err_c))
+
+    def _full(self, a):
+        """Every rank's per-shard ``a`` concatenated on the shard axis
+        (None and scalars as they are)."""
+        if a is None or a.ndim == 0:
+            return a
+        return collective.all_gather(a, self._mesh.group)
+
+    def _full_ring(self, a):
+        """Every rank's ring column ``(R, S, 1, H, ...)`` (the fallback's
+        ``[:, :, r]``) as the fallback's ``(R, S_src, S_dst, H, ...)``."""
+        return self._full(a.movedim(2, 0)).movedim(0, 2).contiguous()
 
     def init_async(self, inputs: wvs.WV, seed: int = 0,
                    alive=None) -> AsyncShardedState:
         """Async-mode init: the sync state wrapped with cold transport
         books (empty ring, zero clocks and sequence counters)."""
-        self._not_under_mesh("async_mode")
         return self.wrap_async(self.init_sync(inputs, seed=seed, alive=alive))
 
     def wrap_async(self, base: ShardedState) -> AsyncShardedState:
         """Wrap a sync state for async execution.  The ring starts empty,
         so the first async cycle is the sync cycle from the same state.
         The delay generators are seeded from the drop generators (which
-        stay where they are)."""
-        self._not_under_mesh("async_mode")
+        stay where they are).  Under a mesh ``base`` is the rank's block:
+        the books are its shard's (``(1, ...)``), the ring its column
+        ``(R, S, 1, H, ...)``, the delay generator the fallback's of its
+        shard."""
         S, B, D = self.S, self.B, self.D
+        own = base.x_c.shape[-2]  # S, or 1 for a rank's block
         dev = self.device
         # Ring slots follow the WIRE width (trimmed tables): the ring holds
         # what the transport ships.
@@ -592,13 +618,15 @@ class ShardedLSS:
 
         return AsyncShardedState(
             sync=base,
-            clock=base.t.to(i32).expand(S).clone(),
-            out_seq=zeros((S, B, D), i32), last_seq=zeros((S, B, D), i32),
-            ring_m=zeros((R, S, S, H, d), dt), ring_c=zeros((R, S, S, H), dt),
-            ring_flag=zeros((R, S, S, H), torch.bool),
-            ring_seq=zeros((R, S, S, H), i32),
-            stale_drops=zeros((S,), cnt), applied=zeros((S,), cnt),
-            delay_sum=zeros((S,), cnt),
+            clock=base.t.to(i32).repeat(own),
+            out_seq=zeros((own, B, D), i32),
+            last_seq=zeros((own, B, D), i32),
+            ring_m=zeros((R, S, own, H, d), dt),
+            ring_c=zeros((R, S, own, H), dt),
+            ring_flag=zeros((R, S, own, H), torch.bool),
+            ring_seq=zeros((R, S, own, H), i32),
+            stale_drops=zeros((own,), cnt), applied=zeros((own,), cnt),
+            delay_sum=zeros((own,), cnt),
             delay_rng=_delay_generators(base.rng))
 
     # -- dynamic-data hooks (original peer ids) ------------------------------
@@ -906,20 +934,15 @@ class ShardedLSS:
         return state
 
     # -- one cycle, collective (this rank's block) --------------------------
-    def _cycle_block(self, state: ShardedState,
-                     blk: _BlockTables) -> ShardedState:
-        """One cycle on this rank's ``(1, B, ...)`` block, the twin of
-        JAX's ``_cycle_block``: ``alive`` all-gathered, shard-local
-        deliveries through ``blk.src``, then the boundary sends gathered,
-        encoded, moved by one :func:`~repro_torch.engine.exchange.
-        collective_all_to_all` per payload tensor, decoded and scattered,
-        then the peer update on the block's B rows.  Adds the payload
-        bytes staged through the host to :attr:`staged_bytes`."""
+    def _deliver_block(self, state: ShardedState, blk: _BlockTables):
+        """A block cycle's start, the same in both modes: ``alive``
+        all-gathered, the block's live slots, its drop draw (its shard's
+        generator) and the shard-local deliveries through ``blk.src``.
+        Returns ``(live, delivered, sent, in_m, in_c)`` of the B rows
+        (``sent`` shaped (1,))."""
         B, D = self.B, self.D
-        group = self._mesh.group
-        h = blk.halo
         alive = state.alive[0]
-        alive_all = collective.all_gather(alive, group)  # (S*B,)
+        alive_all = collective.all_gather(alive, self._mesh.group)  # (S*B,)
         live = blk.mask & alive[:, None] & alive_all[blk.tgt_pos]
         send = state.pending[0] & live
         if self.cfg.drop_rate > 0.0:
@@ -937,26 +960,52 @@ class ShardedLSS:
                            out_m.reshape(B * D, d)[blk.src], state.in_m[0])
         in_c = torch.where(got, out_c.reshape(B * D)[blk.src],
                            state.in_c[0])
+        return live, delivered, sent, in_m, in_c
 
-        buf_m, buf_c, flag = exchange.gather_block(
-            out_m, out_c, delivered, h.send_row, h.send_slot, h.send_ok)
+    def _encode_block(self, state: ShardedState, blk: _BlockTables,
+                      delivered):
+        """The block's boundary sends gathered into ``(S_dst, H)`` buffers
+        and encoded in the active wire; a stateful wire reads and updates
+        the block's error feedback.  Returns ``(payload, wire_err_m,
+        wire_err_c)``."""
+        h = blk.halo
+        bufs = exchange.gather_block(state.out_m[0], state.out_c[0],
+                                     delivered, h.send_row, h.send_slot,
+                                     h.send_ok)
         wire = self._wire
-        if wire.stateful:
-            em, ec = state.wire_err_m[0], state.wire_err_c[0]
-            payload, n_em, n_ec = wire.encode(
-                buf_m, buf_c, flag, em[h.send_row, h.send_slot],
-                ec[h.send_row, h.send_slot])
-            em, ec = exchange.scatter_err_block(
-                em, ec, n_em, n_ec, h.send_row, h.send_slot, h.send_ok)
-            err_m, err_c = em[None], ec[None]
-        else:
-            payload, _, _ = wire.encode(buf_m, buf_c, flag)
-            err_m, err_c = state.wire_err_m, state.wire_err_c
+        if not wire.stateful:
+            payload, _, _ = wire.encode(*bufs)
+            return payload, state.wire_err_m, state.wire_err_c
+        em, ec = state.wire_err_m[0], state.wire_err_c[0]
+        payload, n_em, n_ec = wire.encode(
+            *bufs, em[h.send_row, h.send_slot], ec[h.send_row, h.send_slot])
+        em, ec = exchange.scatter_err_block(
+            em, ec, n_em, n_ec, h.send_row, h.send_slot, h.send_ok)
+        return payload, em[None], ec[None]
+
+    def _all_to_all(self, payload) -> tuple:
+        """Each tensor of ``payload`` through one
+        :func:`~repro_torch.engine.exchange.collective_all_to_all`, the
+        bytes staged through the host added to :attr:`staged_bytes`."""
+        group = self._mesh.group
         self.staged_bytes += sum(collective.staged_bytes(p, group)
                                  for p in payload)
-        payload = tuple(exchange.collective_all_to_all(p, group)
-                        for p in payload)
-        buf_m, buf_c, flag = wire.decode(payload)
+        return tuple(exchange.collective_all_to_all(p, group)
+                     for p in payload)
+
+    def _cycle_block(self, state: ShardedState,
+                     blk: _BlockTables) -> ShardedState:
+        """One cycle on this rank's ``(1, B, ...)`` block, the twin of
+        JAX's ``_cycle_block``: ``alive`` all-gathered, shard-local
+        deliveries through ``blk.src``, then the boundary sends gathered,
+        encoded, moved by one :func:`~repro_torch.engine.exchange.
+        collective_all_to_all` per payload tensor, decoded and scattered,
+        then the peer update on the block's B rows.  Adds the payload
+        bytes staged through the host to :attr:`staged_bytes`."""
+        h = blk.halo
+        live, delivered, sent, in_m, in_c = self._deliver_block(state, blk)
+        payload, err_m, err_c = self._encode_block(state, blk, delivered)
+        buf_m, buf_c, flag = self._wire.decode(self._all_to_all(payload))
         in_m, in_c = exchange.scatter_block(in_m, in_c, buf_m, buf_c, flag,
                                             h.recv_row, h.recv_slot)
 
@@ -968,6 +1017,85 @@ class ShardedLSS:
             pending=pending, last_send=last_send, t=state.t + 1,
             msgs=state.msgs + sent.to(state.msgs.dtype),
             wire_err_m=err_m, wire_err_c=err_c)
+
+    def _cycle_async_block(self, astate: AsyncShardedState,
+                           blk: _BlockTables) -> AsyncShardedState:
+        """One async cycle on this rank's block: :meth:`_cycle_async`'s
+        row of shard r, bitwise.
+
+        The rank's boundary sends and their ``out_seq`` stamps go to every
+        destination by one all-to-all per tensor (on a lossy wire the
+        encoded payload crosses and the receiver decodes it: decoding is
+        deterministic, so the values are the fallback's decode at the
+        sender).  Each sender's rows land in the rank's ring column at the
+        sender's ``clock % R`` (the clocks all-gathered); the rank reads
+        each sender at ``(clock_src - delay) % R`` with its own delay draw
+        (the fallback's row r), applies the sequence guard, scatters, and
+        runs the peer update against its clock.  WRITES the published
+        slots of ``astate``'s ring column in place (:meth:`run` hands it
+        a copy it owns)."""
+        state = astate.sync
+        B = self.B
+        staleness = int(self.ecfg.staleness)
+        R = max(1, staleness + 1)
+        h = blk.halo
+        live, delivered, sent, in_m, in_c = self._deliver_block(state, blk)
+
+        if self._wire.lossy:
+            payload, err_m, err_c = self._encode_block(state, blk, delivered)
+            state = state._replace(wire_err_m=err_m, wire_err_c=err_c)
+        else:
+            payload = exchange.gather_block(
+                state.out_m[0], state.out_c[0], delivered, h.send_row,
+                h.send_slot, h.send_ok)
+        stamps = astate.out_seq[0][h.send_row, h.send_slot]  # (S_dst, H)
+        *payload, seq = self._all_to_all((*payload, stamps))
+        buf_m, buf_c, flag = (self._wire.decode(tuple(payload))
+                              if self._wire.lossy else payload)
+        clock = astate.clock  # (1,)
+        clock_all = collective.all_gather(clock, self._mesh.group)  # (S,)
+        ring = exchange.ring_publish(
+            astate.ring_m, astate.ring_c, astate.ring_flag, astate.ring_seq,
+            clock_all % R, buf_m[:, None], buf_c[:, None], flag[:, None],
+            seq[:, None])
+
+        if staleness > 0:
+            g = astate.delay_rng[0]
+            delay = torch.randint(0, staleness + 1, (self.S,), generator=g,
+                                  device=g.device, dtype=torch.int32)
+            delay = torch.minimum(delay, clock_all)  # (S_src,)
+        else:
+            delay = torch.zeros((self.S,), dtype=torch.int32,
+                                device=clock.device)
+        got_m, got_c, got_flag, got_seq = exchange.ring_read_column(
+            *ring, (clock_all - delay) % R)
+
+        cur = astate.last_seq[0][h.recv_row, h.recv_slot]  # (S_src, H)
+        ok = got_flag & (got_seq >= cur)
+        in_m, in_c = exchange.scatter_block(in_m, in_c, got_m, got_c, ok,
+                                            h.recv_row, h.recv_slot)
+        last_seq = exchange.scatter_seq_block(astate.last_seq[0], got_seq,
+                                              ok, h.recv_row, h.recv_slot)
+        cnt = astate.applied.dtype
+        stale = torch.sum(got_flag & ~ok).to(cnt).reshape(1)
+        applied = torch.sum(ok).to(cnt).reshape(1)
+        lag = torch.sum(torch.where(ok, delay[:, None], 0)).to(cnt).reshape(1)
+
+        out_m, out_c, pending, last_send, _ = self._update(
+            state, live[None], in_m[None], in_c[None],
+            clock.repeat_interleave(B), topo=blk.topo)
+        state = state._replace(
+            out_m=out_m, out_c=out_c, in_m=in_m[None], in_c=in_c[None],
+            pending=pending, last_send=last_send, t=state.t + 1,
+            msgs=state.msgs + sent.to(state.msgs.dtype))
+        return astate._replace(
+            sync=state, clock=clock + 1,
+            out_seq=torch.where(pending, astate.out_seq + 1, astate.out_seq),
+            last_seq=last_seq[None], ring_m=ring[0], ring_c=ring[1],
+            ring_flag=ring[2], ring_seq=ring[3],
+            stale_drops=astate.stale_drops + stale,
+            applied=astate.applied + applied,
+            delay_sum=astate.delay_sum + lag)
 
     # -- one cycle, asynchronous gossip mode -------------------------------
     def _cycle_async(self, astate: AsyncShardedState,
@@ -1066,8 +1194,19 @@ class ShardedLSS:
         lingers.  (That slot holds the publication of ``clock + 1 - R``,
         which the next cycle may still read at delay ``staleness``, while
         the aged-out one sits at ``clock % R``: ROADMAP C lists this as a
-        fault of the reference, kept here for parity.)
+        fault of the reference, kept here for parity.)  Under a mesh the
+        clocks and ring flags are gathered first, so every rank reads the
+        fallback's bit.
         """
+        if self._mesh is not None:
+            astate = astate._replace(
+                clock=self._full(astate.clock),
+                ring_flag=self._full_ring(astate.ring_flag))
+        return self._in_flight(astate)
+
+    @staticmethod
+    def _in_flight(astate: AsyncShardedState) -> torch.Tensor:
+        """:meth:`async_in_flight` on a full (gathered) state."""
         R = astate.ring_flag.shape[0]
         if R == 1:
             return torch.zeros((), dtype=torch.bool,
@@ -1077,15 +1216,21 @@ class ShardedLSS:
                 != oldest[None, :])  # (R, S_src)
         return torch.any(astate.ring_flag & live[:, :, None, None])
 
+    def _shard_sum(self, a) -> torch.Tensor:
+        """The sum of a per-shard counter over all shards (over the ranks
+        under a mesh)."""
+        return torch.sum(a if self._mesh is None else self._full(a))
+
     def async_lag_stats(self, astate: AsyncShardedState) -> dict:
         """Host-side staleness summary (one device sync): applied
         cross-shard messages, their mean realized delay in cycles, and the
-        cumulative seq-guarded stale-drop count."""
-        applied = int(torch.sum(astate.applied))
+        cumulative seq-guarded stale-drop count (every shard's, under a
+        mesh too)."""
+        applied = int(self._shard_sum(astate.applied))
         return {
             "applied": applied,
-            "stale_drops": int(torch.sum(astate.stale_drops)),
-            "mean_delay": (float(torch.sum(astate.delay_sum)) / applied
+            "stale_drops": int(self._shard_sum(astate.stale_drops)),
+            "mean_delay": (float(self._shard_sum(astate.delay_sum)) / applied
                            if applied else 0.0),
         }
 
@@ -1119,12 +1264,12 @@ class ShardedLSS:
 
         is_async = isinstance(state, AsyncShardedState)
         if is_async:
-            self._not_under_mesh("async_mode")
             state = state._replace(ring_m=state.ring_m.clone(),
                                    ring_c=state.ring_c.clone(),
                                    ring_flag=state.ring_flag.clone(),
                                    ring_seq=state.ring_seq.clone())
-            cycle = self._cycle_async
+            cycle = (self._cycle_async if self._mesh is None
+                     else self._cycle_async_block)
         elif self._mesh is not None:
             cycle = self._cycle_block
         else:
@@ -1222,10 +1367,7 @@ class ShardedLSS:
     def total_msgs(self, state) -> torch.Tensor:
         """All shards' cumulative sends (summed over the ranks under a
         mesh)."""
-        msgs = self._base(state).msgs
-        if self._mesh is not None:
-            msgs = collective.all_gather(msgs, self._mesh.group)
-        return torch.sum(msgs)
+        return self._shard_sum(self._base(state).msgs)
 
     # -- observers ---------------------------------------------------------
     @staticmethod
@@ -1330,6 +1472,7 @@ class ShardedLSS:
         receiver's last applied seq may exceed it (``seq_bad``), and no
         live ring publication may carry a stamp beyond it (``ring_bad``).
         Also the cumulative ``stale_drops`` and :meth:`async_in_flight`.
+        ``astate`` is a full (gathered) state.
         """
         S = self.S
         h = tables.halo
@@ -1342,7 +1485,7 @@ class ShardedLSS:
                              & (astate.ring_seq > snd[None]))
         return dict(seq_bad=seq_bad, ring_bad=ring_bad,
                     stale_drops=torch.sum(astate.stale_drops),
-                    in_flight=self.async_in_flight(astate))
+                    in_flight=self._in_flight(astate))
 
     def audit(self, state, eps: float = 1e-9, sample_mod: int = 1,
               sample_phase: int = 0) -> dict:
@@ -1350,8 +1493,10 @@ class ShardedLSS:
         Python scalars.  Accepts either state kind; an async state adds
         the seq-monotonicity counters and the cumulative stale-drop total
         (reconciled against ``engine_async_stale_drops_total`` by
-        :mod:`repro_torch.obs.audit`)."""
-        self._not_under_mesh("audit")
+        :mod:`repro_torch.obs.audit`).  Under a mesh every rank gathers
+        the blocks (and an async state's books and ring columns) and reads
+        the gather fallback's dict."""
+        state = self.gather_state(state)
         raw = dict(self._audit_impl(self._base(state), self._tables,
                                     eps=eps, sample_mod=sample_mod,
                                     sample_phase=sample_phase))
@@ -1389,9 +1534,17 @@ class ShardedLSS:
         Not carried row-for-row: the aggregate send counter lands on shard
         0, and the per-shard drop generators are seeded from draws of a
         copy of ``snap.rng`` (:meth:`migrate_from` between equal shard
-        counts carries them verbatim instead).
+        counts carries them verbatim instead).  Under a mesh every rank
+        builds the fallback's layout from the same ``snap`` and keeps its
+        block.
         """
-        self._not_under_mesh("place_lss_state")
+        placed = self._place(snap)
+        if self._mesh is not None:
+            placed = self._block_of(placed, self._mesh.rank)
+        return placed
+
+    def _place(self, snap: lss.LSSState) -> ShardedState:
+        """:meth:`place_lss_state` in the full ``(S, B, ...)`` layout."""
         S, B, D = self.S, self.B, self.D
         dev = self.device
         lead = tuple(snap.alive.shape[:-1])
@@ -1454,9 +1607,19 @@ class ShardedLSS:
         a stateful wire the quantization debt rides along row for row: a
         peer's unshipped error must survive the epoch.  Every tenant of a
         stacked state moves (the service's regrow and rebalance epochs).
+
+        Under a mesh both engines must be attached to the same process
+        group (so their shard counts are equal): ``old``'s blocks are
+        gathered, every rank builds the fallback's migrated layout and
+        keeps its block, with a copy of its own shard's generator.
         """
-        self._not_under_mesh("migrate_from")
-        old._not_under_mesh("migrate_from")
+        if (self._mesh is None) != (old._mesh is None) or (
+                self._mesh is not None
+                and self._mesh.group is not old._mesh.group):
+            raise ValueError(
+                "migrate_from: both engines must be attached to the same "
+                "process group (use_mesh), or neither to one")
+        state = old.gather_state(state)
         src, _ = partition.migrate_rows(old.part, self.part)
         src = torch.as_tensor(src, device=old.device)
         lead = _lead(state)
@@ -1473,7 +1636,7 @@ class ShardedLSS:
             pending=move(state.pending), last_send=move(state.last_send),
             alive=move(state.alive), t=state.t,
             msgs=torch.sum(state.msgs, dim=-1), rng=self._shard0(state.rng))
-        placed = self.place_lss_state(snap)
+        placed = self._place(snap)
         if self._wire.stateful and state.wire_err_m is not None:
             # Into the fresh zero buffers place_lss_state made.
             at = _at(nl, self._pos[:snap.alive.shape[-1]],
@@ -1482,6 +1645,8 @@ class ShardedLSS:
                            (placed.wire_err_c, state.wire_err_c)):
                 new.reshape(*lead, self.S * self.B,
                             *new.shape[nl + 2:])[at] = move(a).to(new.device)
+        if self._mesh is not None:  # state.rng: this rank's shard's
+            placed = self._block_of(placed, self._mesh.rank)
         if old.S == self.S:
             copy = lambda gs: tuple(_copy_generator(g)  # noqa: E731
                                     for g in gs)

@@ -102,6 +102,8 @@ __all__ = [
     "gather_err",
     "scatter_err",
     "scatter_err_block",
+    "ring_read_column",
+    "scatter_seq_block",
     "get_wire",
     "WIRE_FORMATS",
 ]
@@ -270,6 +272,25 @@ def ring_read(ring_m, ring_c, ring_flag, ring_seq, slot):
     slot = slot.to(torch.int64)
     return (ring_m[slot, src, dst], ring_c[slot, src, dst],
             ring_flag[slot, src, dst], ring_seq[slot, src, dst])
+
+
+def ring_read_column(ring_m, ring_c, ring_flag, ring_seq, slot):
+    """One receiver's row of :func:`ring_read`: its ring column ``(R,
+    S_src, 1, H[, d])`` (the messages addressed to it) read at
+    ``slot[src]``.  Returns src-major ``(S_src, H[, d])`` buffers, the
+    layout :func:`scatter_block` consumes."""
+    src = torch.arange(slot.shape[0], device=slot.device)
+    slot = slot.to(torch.int64)
+    return tuple(r[slot, src, 0] for r in (ring_m, ring_c, ring_flag,
+                                            ring_seq))
+
+
+def scatter_seq_block(last_seq, seq, flag, recv_row, recv_slot):
+    """:func:`scatter_seq` of ONE shard: ``last_seq (B, D)``, received
+    ``(S_src, H)`` entries.  Returns a new tensor."""
+    B, D = last_seq.shape
+    idx = _block_index(flag, recv_row, recv_slot, B, D)
+    return _scatter_flat(last_seq.reshape(-1), idx, seq).reshape(B, D)
 
 
 def scatter_seq(last_seq, seq, flag, recv_row, recv_slot):

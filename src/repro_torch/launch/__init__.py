@@ -1,0 +1,7 @@
+"""Launch-side tooling (port of ``repro.launch``).
+
+Modules:
+  cost — the roofline inputs of one call (flops, HBM bytes, collective
+         bytes by op), counted while it runs: the torch stand-in for
+         ``repro.launch.hlo_cost.analyze``, which reads optimized XLA HLO
+"""

@@ -22,9 +22,8 @@ Components:
 
 Ported: the core and engine backends, synchronous and overlapped
 (:mod:`.overlap`: a worker thread per service, staged epoch builds), on a
-static topology and under membership churn (:mod:`.membership`).  The
-profiling / alert / audit hooks are not ported yet (ROADMAP A.7);
-:class:`Service` raises on them.
+static topology and under membership churn (:mod:`.membership`), with
+the profiling, alert and audit hooks.
 """
 
 from .admission import AdmissionQueue

@@ -1001,3 +1001,88 @@ def test_mesh_engine_fused_matches_gather_fallback(dev, tmp_path, wire):
         assert bool(on_mesh.metrics(a)[1])  # quiescent
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_mesh_async_engine_fused_matches_gather_fallback(dev, tmp_path,
+                                                         staleness):
+    """The async ring with one shard a rank at world size 1 on NCCL
+    (S = 1) through the kernels: after every dispatch every field of the
+    gathered state, the books and the ring column, the send total and the
+    metrics are bitwise the single-process async engine's on grid(4,096),
+    and so is the audit of the last state."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.engine import EngineConfig, ShardedLSS
+
+    topo = topology.grid(4096)
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    ecfg = EngineConfig(num_shards=1, cycles_per_dispatch=10,
+                        async_mode=True, staleness=staleness)
+    torch.cuda.set_device(0)  # before the mesh: NCCL's device
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+        on_mesh = ShardedLSS(topo, centers, lss.LSSConfig(), ecfg,
+                             device=dev).use_mesh(mesh, "shards")
+        gather = ShardedLSS(topo, centers, lss.LSSConfig(), ecfg, device=dev)
+        a, b = on_mesh.init(inputs, seed=0), gather.init(inputs, seed=0)
+        kernels.reset_counts()
+        for i in range(4):
+            a = on_mesh.run(a, 10)
+            b = gather.run(b, 10)
+            full = on_mesh.gather_state(a)
+            for got, want in ((full.sync, b.sync), (full, b)):
+                for name, x in got._asdict().items():
+                    if isinstance(x, torch.Tensor):
+                        assert _same_bits(x, getattr(want, name)), \
+                            f"{i}: {name}"
+            assert int(on_mesh.total_msgs(a)) == int(gather.total_msgs(b))
+            for x, y in zip(on_mesh.metrics(a), gather.metrics(b)):
+                assert _same_bits(x, y), f"dispatch {i}: metrics"
+        counts = kernels.counts()
+        assert min(counts[k] for k in ("lss_state", "correction",
+                                       "region_decide")) > 0
+        assert on_mesh.audit(a) == gather.audit(b)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cost_counter_suites_agree(dev):
+    """``cost.analyze`` of one engine dispatch on the card counts the same
+    ``hbm_bytes`` and ``flops`` on the fused and the reference suites (the
+    kernels by their models, the torch ops around them alike)."""
+    from repro_torch.engine import EngineConfig, ShardedLSS
+    from repro_torch.launch import cost
+
+    topo = topology.grid(4096)
+    centers, _, _, inputs = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    counted = {}
+    for use_kernels in (True, False):
+        eng = ShardedLSS(topo, centers, lss.LSSConfig(), EngineConfig(
+            num_shards=4, cycles_per_dispatch=8, use_kernels=use_kernels),
+            device=dev)
+        c = cost.analyze(eng.run, eng.init(inputs, seed=0), 8)
+        counted[use_kernels] = (c["hbm_bytes"], c["flops"])
+    assert counted[True] == counted[False] and counted[True][0] > 0
+
+
+def test_autotune_plan_on_card_chooses_measured_argmin(dev):
+    """``autotune.plan`` on the card around ``EngineConfig(4, 8)`` on
+    grid(4,096): every candidate counted and timed, the chosen one the
+    measured argmin, its config adopted with ``auto_plan=False``."""
+    import math
+
+    from repro_torch.engine import EngineConfig, autotune
+
+    topo = topology.grid(4096)
+    centers, _, _, _ = sim._setup(topo, sim.ProblemSpec(n=topo.n), dev)
+    res = autotune.plan(topo, centers, base=EngineConfig(4, 8), device=dev)
+    assert len(res.table) == 6
+    for e in res.table:
+        assert math.isfinite(e.measured_us) and e.measured_us > 0
+        assert e.hbm_bytes > 0 and e.flops > 0
+    best = min(res.table, key=lambda e: e.measured_us)
+    assert res.chosen == best.cand and res.config.auto_plan is False

@@ -485,19 +485,49 @@ def test_dynamic_hooks_use_original_ids():
 
 
 @pytest.mark.parametrize("what", ["use_mesh", "auto_plan"])
-def test_unported_options_raise(what):
-    """``auto_plan`` (A.8) and, since the mesh transport runs
-    (``tests/test_torch_mesh.py``), the async ring under a mesh (A.5b)."""
+def test_unported_options_raise(what, tmp_path):
+    """The two options this test once held to ``NotImplementedError`` run:
+    an async engine attaches to a mesh (one gloo rank in this process,
+    S = 1) and its dispatches are bitwise the gather fallback's, books and
+    audit included; ``auto_plan=True`` adopts one of the default
+    candidates with ``auto_plan=False`` (``tests/test_torch_autotune.py``
+    holds the planner to JAX's)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.engine import autotune
+
     topo = t_top.grid(16)
-    item = {"use_mesh": "A.5b", "auto_plan": "A.8"}[what]
-    centers = torch.zeros((3, 2))
-    with pytest.raises(NotImplementedError, match=item):
-        if what == "auto_plan":
-            ShardedLSS(topo, centers, ecfg=EngineConfig(auto_plan=True),
-                       device="cpu")
-        else:
-            ShardedLSS(topo, centers, ecfg=EngineConfig(async_mode=True),
-                       device="cpu").use_mesh(None, "shards")
+    centers, _, _, inputs = t_sim._setup(topo, t_sim.ProblemSpec(n=16),
+                                         "cpu")
+    if what == "auto_plan":
+        base = EngineConfig(num_shards=2, cycles_per_dispatch=4)
+        eng = ShardedLSS(topo, centers, ecfg=base._replace(auto_plan=True),
+                         device="cpu")
+        assert eng.ecfg.auto_plan is False
+        assert (eng.ecfg.num_shards, eng.ecfg.halo_slack,
+                eng.ecfg.cycles_per_dispatch, eng.ecfg.wire) in \
+            autotune.default_candidates(base)
+        return
+    ecfg = EngineConfig(num_shards=1, cycles_per_dispatch=3,
+                        async_mode=True, staleness=1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("shards",))
+        on_mesh = ShardedLSS(topo, centers, ecfg=ecfg,
+                             device="cpu").use_mesh(mesh, "shards")
+        gather = ShardedLSS(topo, centers, ecfg=ecfg, device="cpu")
+        a, b = on_mesh.init(inputs, seed=0), gather.init(inputs, seed=0)
+        for _ in range(3):
+            a, b = on_mesh.run(a, 3), gather.run(b, 3)
+            for name, x in on_mesh.gather_state(a).sync._asdict().items():
+                if isinstance(x, torch.Tensor):
+                    assert_exact(x, getattr(b.sync, name), name)
+            assert_exact(a.clock, b.clock, "clock")
+            assert on_mesh.audit(a) == gather.audit(b)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="unknown wire"):
         t_ex.get_wire("fp4")
 

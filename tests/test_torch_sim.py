@@ -108,10 +108,10 @@ def test_default_device_is_cuda_or_raises():
         t_sim.run_dynamic(topo, spec, cycles=2)
 
 
-def test_engine_unported_options_raise():
-    """The engine route runs (async and quantized too), and what of the
-    engine is not ported yet raises naming its ROADMAP item."""
-    from repro_torch.engine import EngineConfig
+def test_engine_unported_options_raise(monkeypatch):
+    """The engine route runs (async and quantized too, profiled, and
+    auto-planned: every option of the engine is ported)."""
+    from repro_torch.engine import EngineConfig, autotune
 
     topo, spec = t_top.grid(16), t_sim.ProblemSpec(n=16)
     for ecfg in (2, EngineConfig(async_mode=True, staleness=1),
@@ -123,9 +123,21 @@ def test_engine_unported_options_raise():
                              device="cpu")
             == t_sim.run_static(topo, spec, engine=EngineConfig(),
                                 device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        t_sim.run_static(topo, spec, engine=EngineConfig(auto_plan=True),
-                         device="cpu")
+    # auto_plan=True (A.8) runs: its result is that of the plan it adopts.
+    planned = {}
+    plan = autotune.plan
+
+    def record(*args, **kw):
+        planned["result"] = plan(*args, **kw)
+        return planned["result"]
+
+    monkeypatch.setattr(autotune, "plan", record)
+    res = t_sim.run_static(topo, spec, engine=EngineConfig(auto_plan=True),
+                           device="cpu")
+    assert res["engine_shards"] == 2 and res["quiescent"]
+    assert res == t_sim.run_static(topo, spec,
+                                   engine=planned["result"].config,
+                                   device="cpu")
 
 
 def _imported_roots(path: Path):

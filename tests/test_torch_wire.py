@@ -13,8 +13,8 @@ frameworks, and one ulp at a rounding boundary moves a code by one).
 Free-running quantized trajectories are compared by their ``run_static``
 results, not field by field.  The mesh case of ``tests/test_wire.py`` is
 held in ``tests/test_torch_mesh.py`` (the four wires against the port's
-gather fallback); its audit, autotune and service-engine cases belong to
-ROADMAP A.7, A.8 and A.6.
+gather fallback); its autotune cases in ``tests/test_torch_autotune.py``,
+its audit and service-engine cases beside ROADMAP A.7's and A.6's tests.
 """
 
 import jax

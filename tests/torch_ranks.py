@@ -16,13 +16,23 @@ import torch
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.core import lss, monitor, sim, topology, wvs
-from repro_torch.engine import EngineConfig, ShardedLSS, ShardedState
+from repro_torch.engine import (AsyncShardedState, EngineConfig, ShardedLSS,
+                                ShardedState)
+from repro_torch.launch import cost
 from repro_torch.obs import InMemoryTracker
 
 # -- the collective engine ---------------------------------------------------
 
 ENGINE_K = 4  # cycles a dispatch
 ENGINE_DISPATCHES = 6
+# The async ring on a mesh: (topology, staleness, wire, drop rate).
+ASYNC_CASES = (("grid", 0, "exact", 0.0), ("grid", 0, "int8", 0.0),
+               ("grid", 2, "exact", 0.0), ("grid", 2, "int8", 0.0),
+               ("chord", 2, "exact", 0.1))
+# The layout moves on a mesh: (topology, drop rate, wire).
+LAYOUT_CASES = (("grid", 0.1, "int8"), ("chord", 0.0, "exact"))
+LAYOUT_CYCLES = 10  # cycles after a move
+COST_KS = (1, 4)  # cycles of the dispatches cost.analyze counts
 
 
 def engine_case(topo: str, shards: int, drop: float, wire: str):
@@ -50,21 +60,76 @@ def engine_case(topo: str, shards: int, drop: float, wire: str):
     return eng, inputs, graph
 
 
+def async_case(topo: str, staleness: int, wire: str, drop: float,
+               shards: int):
+    """:func:`engine_case`'s engine in async mode at ``staleness``."""
+    eng, inputs, graph = engine_case(topo, shards, drop, wire)
+    eng = ShardedLSS(graph, eng.centers, eng.cfg,
+                     eng.ecfg._replace(async_mode=True, staleness=staleness),
+                     device="cpu")
+    return eng, inputs
+
+
 def checkpoint(eng: ShardedLSS, state) -> dict:
     """What a run is held to at a dispatch boundary: every
     :class:`ShardedState` field (the full state; gathered under a mesh),
-    the metrics, the send total and the unpermuted core state."""
+    the metrics, the send total and the unpermuted core state; for an
+    async state also its books and rings (gathered) and the lag stats."""
     full = eng.gather_state(state)
+    base = eng._base(full)
     acc, quiescent, correct = eng.metrics(state)
     core = eng.to_lss_state(state)
-    return {
-        "state": {f: getattr(full, f) for f in ShardedState._fields
-                  if f != "rng" and getattr(full, f) is not None},
+    out = {
+        "state": {f: getattr(base, f) for f in ShardedState._fields
+                  if f != "rng" and getattr(base, f) is not None},
         "metrics": (float(acc), bool(quiescent), correct),
         "total_msgs": int(eng.total_msgs(state)),
         "lss": {f: getattr(core, f) for f in lss.LSSState._fields
                 if f != "rng"},
     }
+    if isinstance(full, AsyncShardedState):
+        out["books"] = {f: getattr(full, f)
+                        for f in AsyncShardedState._fields
+                        if f not in ("sync", "delay_rng")}
+        out["lag"] = eng.async_lag_stats(state)
+    return out
+
+
+def drive_async(eng: ShardedLSS, inputs) -> dict:
+    """``ENGINE_DISPATCHES`` async dispatches with a checkpoint after
+    each, then the audit of the last state."""
+    state = eng.init(inputs, seed=0)
+    runs = []
+    for _ in range(ENGINE_DISPATCHES):
+        state = eng.run(state, eng.ecfg.cycles_per_dispatch)
+        runs.append(checkpoint(eng, state))
+    return {"runs": runs, "audit": eng.audit(state)}
+
+
+def drive_layout(case, shards: int, mesh=None) -> list:
+    """The layout moves of ``case`` at ``shards`` shards (on ``mesh`` when
+    given): two dispatches on the BFS partition, ``migrate_from`` onto a
+    stride partition (a rebalance with the same S), ``LAYOUT_CYCLES``
+    cycles; then ``place_lss_state`` of a core snapshot every rank builds
+    alike (a single-process engine's, two dispatches in), and as many
+    cycles.  A checkpoint and the audit after each move and each run."""
+    topo, drop, wire = case
+    old, inputs, graph = engine_case(topo, shards, drop, wire)
+    ref = ShardedLSS(graph, old.centers, old.cfg, old.ecfg, device="cpu")
+    new = ShardedLSS(graph, old.centers, old.cfg,
+                     old.ecfg._replace(method="stride"), device="cpu")
+    if mesh is not None:
+        old.use_mesh(mesh, "shards")
+        new.use_mesh(mesh, "shards")
+    k2 = 2 * old.ecfg.cycles_per_dispatch
+    moved = new.migrate_from(old, old.run(old.init(inputs, seed=0), k2))
+    snap = ref.to_lss_state(ref.run(ref.init(inputs, seed=0), k2))
+    out = []
+    for state in (moved, new.place_lss_state(snap)):
+        for _ in range(2):
+            out.append({**checkpoint(new, state), "audit": new.audit(state)})
+            state = new.run(state, LAYOUT_CYCLES)
+    return out
 
 
 def drive_engine(eng: ShardedLSS, inputs, graph) -> list:
@@ -77,6 +142,7 @@ def drive_engine(eng: ShardedLSS, inputs, graph) -> list:
         for _ in range(ENGINE_DISPATCHES):
             state = eng.run(state, eng.ecfg.cycles_per_dispatch)
             out.append(checkpoint(eng, state))
+        out[-1]["audit"] = eng.audit(state)
         return out
     state = eng.init(inputs, seed=0, alive=graph.present.copy())
     state = eng.run(state, 6)
@@ -97,16 +163,19 @@ def drive_engine(eng: ShardedLSS, inputs, graph) -> list:
     state = eng.set_alive(state, [22], False)
     out.append(checkpoint(eng, state))
     state = eng.run(state, 8)
-    out.append(checkpoint(eng, state))
+    out.append({**checkpoint(eng, state), "audit": eng.audit(state)})
     return out
 
 
 def engine_mesh_body(rank, world, cases):
-    """Every case of ``cases`` (``(topo, drop, wire)``) on this rank's
-    shard of a ``("shards",)`` mesh; returns ``{case: checkpoints}``, the
-    first case's dispatch span attributes, and the errors a mis-sized
-    mesh and the unported surfaces raise, and the profiled engine's
-    gauge label."""
+    """Every case of ``cases`` (``(topo, drop, wire)``), of
+    :data:`ASYNC_CASES` and of :data:`LAYOUT_CASES` on this rank's shard
+    of a ``("shards",)`` mesh; returns ``{case: checkpoints}`` of each
+    kind, the first case's dispatch span attributes, the errors a
+    mis-sized mesh and a migration between a mesh and no mesh raise, the
+    profiled engine's gauge label, and the all-to-all bytes
+    :func:`repro_torch.launch.cost.analyze` counts in a dispatch of each
+    of :data:`COST_KS` cycles."""
     torch.set_num_threads(1)  # several ranks share the host's cores
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("shards",))
     runs, spans = {}, None
@@ -120,31 +189,33 @@ def engine_mesh_body(rank, world, cases):
         if spans is None:
             spans = [dict(sp.attrs)
                      for sp in eng.tracker.spans_named("engine.dispatch")]
+    async_runs = {}
+    for case in ASYNC_CASES:
+        eng, inputs = async_case(*case, world)
+        async_runs[case] = drive_async(eng.use_mesh(mesh, "shards"), inputs)
+    layout = {case: drive_layout(case, world, mesh) for case in LAYOUT_CASES}
     errors = {}
     eng, inputs, _ = engine_case("grid", world + 1, 0.0, "exact")
     try:
         eng.use_mesh(mesh, "shards")
     except ValueError as e:
         errors["mis-sized"] = str(e)
-    eng, inputs, _ = engine_case("grid", world, 0.0, "exact")
-    eng = ShardedLSS(topology.grid(64), eng.centers, eng.cfg,
-                     eng.ecfg._replace(async_mode=True), device="cpu")
-    try:
-        eng.use_mesh(mesh, "shards")
-    except NotImplementedError as e:
-        errors["async"] = str(e)
-    eng, inputs, _ = engine_case("grid", world, 0.0, "exact")
+    eng, inputs, graph = engine_case("grid", world, 0.0, "exact")
     state = eng.use_mesh(mesh, "shards").init(inputs)
     try:
-        eng.audit(state)
-    except NotImplementedError as e:
-        errors["audit"] = str(e)
+        ShardedLSS(graph, eng.centers, eng.cfg, eng.ecfg,
+                   device="cpu").migrate_from(eng, state)
+    except ValueError as e:
+        errors["migrate"] = str(e)
+    a2a = {k: cost.analyze(eng.run, state, k)["collective_bytes"]
+           for k in COST_KS}
     tracker = InMemoryTracker()
     prof = ShardedLSS(topology.grid(64), eng.centers, eng.cfg,
                       eng.ecfg._replace(profile=True), tracker=tracker,
                       device="cpu").use_mesh(mesh, "shards")
     prof.run(prof.init(inputs), eng.ecfg.cycles_per_dispatch)
-    return {"runs": runs, "spans": spans, "errors": errors,
+    return {"runs": runs, "async": async_runs, "layout": layout,
+            "spans": spans, "errors": errors, "collective_bytes": a2a,
             "block": tuple(state.out_m.shape), "msgs": tuple(
                 state.msgs.shape),
             "profile": (prof._profiled.backend, prof._profiled.calls,
