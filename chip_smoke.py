@@ -222,9 +222,29 @@ Phases, in order; any failure exits nonzero:
    held bitwise on each rank's block; (c) each run's ``audit`` equal to
    the fallback's, every monitor holding; (d) on both ranks a rebalance,
    ``migrate_from`` a BFS onto a stride partition (S = 2) after 20
-   cycles, and 10 cycles after it, bitwise the fallback's.
+   cycles, and 10 cycles after it, bitwise the fallback's;
+16. the model zoo (``repro_torch.models``, A.10a), the launch counters
+   zeroed before and required to read 0 after (the models launch none of
+   the three kernels): (a) each arch's smoke config in float32 on the
+   card, ``logits_train`` (or the encoder) and ``loss``, a 40-token
+   prefill, 8 decode steps and the caches ``allclose`` (1e-4) to the same
+   code on the CPU from the same parameters; (b) each arch at its
+   published widths with only the depth cut (2 layers; zamba2 one
+   6-layer group; whisper 2 + 2), in bf16: a (1, 4096) prefill (the
+   chunked attention path) and 32 greedy decode steps, each after an
+   untimed run, with prefill ms, decode ms a token, peak memory, the
+   share of the bf16 tensor-core peak (``_zoo_flops``: the products the
+   tokens need, causal query-key pairs, the routed experts) and decode's
+   share of its byte bound (``_zoo_decode_bytes``); qwen3, mixtral and
+   zamba2 profiled (a prefill and 8 decode steps); (c) in float32 at
+   published widths (depth cut; the MoE's capacity factor raised to
+   n_experts / top_k, so no token drops) qwen3-14b, mixtral-8x7b,
+   mamba2-370m and zamba2-2.7b: prefill of 4,160 tokens (past mixtral's
+   4,096 window: its ring prefill and ring decode run) and one decode
+   step equal to ``logits_train`` at those positions within 2e-2.
 
-It prints a JSON line with one entry per kernel (its numbers at the
+It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), then a
+JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
 churned-service, engine-backed-service, overlapped-service,
@@ -3590,6 +3610,393 @@ def phase_engine_rest(topos, dev, sync_us):
     return plan_totals, mesh_totals
 
 
+# --- phase 16: the model zoo (A.10a) on the card ---------------------------
+
+ZOO_STEPS = 8  # (a): decode steps after the smoke prefill
+ZOO_SMOKE_PROMPT, ZOO_SMOKE_CACHE = 40, 64  # past mixtral-smoke's window
+ZOO_PROMPT = 4096  # (b): configs.SHAPES' train_4k length (chunked attention)
+ZOO_DECODE = 32  # (b): greedy decode steps, timed after one untimed
+ZOO_TF_PROMPT = 4160  # (c): past mixtral's 4,096 window: its ring runs
+ZOO_TF_ARCHS = ("qwen3-14b", "mixtral-8x7b", "mamba2-370m", "zamba2-2.7b")
+ZOO_PROFILED = ("qwen3-14b", "mixtral-8x7b", "zamba2-2.7b")  # (b): traced
+ZOO_PROFILED_STEPS = 8  # decode steps under the profiler
+ZOO_TOL = 1e-4  # (a): card against the CPU, float32
+ZOO_TF_TOL = 2e-2  # (c): tests/test_models.py's decode-vs-teacher tolerance
+
+
+def _zoo_cut(cfg):
+    """Published widths, depth cut: (config, the cut as printed)."""
+    import dataclasses
+
+    from repro_torch.models import EncDecConfig
+
+    if isinstance(cfg, EncDecConfig):
+        return (dataclasses.replace(cfg, n_enc=2, n_dec=2),
+                f"n_enc=n_dec=2 of {cfg.n_enc}/{cfg.n_dec}")
+    if cfg.block == "hybrid":  # one shared-attention group
+        return (dataclasses.replace(cfg, n_layers=cfg.attn_every),
+                f"n_layers={cfg.attn_every} of {cfg.n_layers} (one group)")
+    return (dataclasses.replace(cfg, n_layers=2),
+            f"n_layers=2 of {cfg.n_layers}")
+
+
+def _attn_pairs(new, past, window):
+    """Query-key pairs a causal attention of ``new`` queries after ``past``
+    cached positions scores (within ``window`` when nonzero)."""
+    keys = np.arange(past + 1, past + new + 1, dtype=np.int64)
+    if window:
+        keys = np.minimum(keys, window)
+    return int(keys.sum())
+
+
+def _zoo_flops(cfg, new, past, enc_len=0):
+    """Matrix-product flops of one prefill of ``new`` tokens after ``past``
+    cached ones (a decode step: ``new`` = 1): 2 a weight a token for the
+    weights the tokens use (the experts they are routed to), 4 H dh a
+    scored query-key pair, the SSD's chunked contractions, and the head
+    for the one row of logits these calls return.  The embedding is a
+    gather, no flops."""
+    from repro_torch.models import EncDecConfig
+
+    D, V = cfg.d_model, cfg.vocab
+    head = 2 * D * V
+    if isinstance(cfg, EncDecConfig):
+        H, dh, F = cfg.n_heads, cfg.d_head, cfg.d_ff
+        per = (2 * (4 * D * H * dh + 2 * D * H * dh + 2 * D * F) * new
+               + 4 * H * dh * (_attn_pairs(new, past, 0) + new * enc_len))
+        return cfg.n_dec * per + head
+
+    def attn():
+        H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+        return (2 * (D * (H + 2 * K) * dh + H * dh * D) * new
+                + 4 * H * dh * _attn_pairs(new, past, cfg.window))
+
+    def ffn(d_ff):
+        return 2 * 3 * D * d_ff * new
+
+    def ssm_layer():
+        s = cfg.ssm
+        H, P, N, G = s.n_heads, s.headdim, s.d_state, s.n_groups
+        proj = D * (2 * s.d_inner + 2 * G * N + H) + s.d_inner * D
+        if new == 1:  # the recurrence
+            mix = 6 * H * P * N
+        else:  # the chunked dual form at the chunk fwd_train picks
+            Q = min(s.chunk, new)
+            while new % Q:
+                Q -= 1
+            mix = 2 * new * Q * (G * N + H * P) + 4 * new * H * P * N
+        return 2 * proj * new + 2 * s.conv_kernel * s.conv_dim * new + mix
+
+    if cfg.block == "dense":
+        per = (attn() + ffn(cfg.d_ff)) * cfg.n_layers
+    elif cfg.block == "moe":
+        m = cfg.moe
+        per = (attn() + 2 * D * m.n_experts * new
+               + ffn(m.d_ff) * m.top_k) * cfg.n_layers
+    elif cfg.block == "ssm":
+        per = ssm_layer() * cfg.n_layers
+    else:  # hybrid: the shared block once a group
+        per = (ssm_layer() * cfg.n_layers
+               + (attn() + ffn(cfg.d_ff)) * cfg.n_groups)
+    return per + head
+
+
+def _zoo_decode_bytes(cfg, past, enc_len=0):
+    """Bytes one bf16 decode step after ``past`` cached tokens must move:
+    the weights the token uses (the routed experts; the head, not the
+    embedding table), each read once, and the caches it reads (K/V of
+    the visible positions, the cross K/V, the SSM states read and
+    written in float32)."""
+    from repro_torch.models import EncDecConfig
+
+    D, V = cfg.d_model, cfg.vocab
+    if isinstance(cfg, EncDecConfig):
+        H, dh = cfg.n_heads, cfg.d_head
+        weights = cfg.n_dec * (6 * D * H * dh + 2 * D * cfg.d_ff) + V * D
+        cache = cfg.n_dec * 2 * H * dh * (past + 1 + enc_len)
+        return 2 * (weights + cache)
+    emb = V * D * (1 if cfg.tie_embed else 2)
+    weights = cfg.active_param_count() - emb + V * D
+    nbytes = 2 * weights
+    if cfg.block != "ssm":
+        n_attn = cfg.n_groups if cfg.block == "hybrid" else cfg.n_layers
+        keys = min(past + 1, cfg.window) if cfg.window else past + 1
+        nbytes += 2 * n_attn * 2 * keys * cfg.n_kv * cfg.d_head
+    if cfg.block in ("ssm", "hybrid"):
+        s = cfg.ssm
+        nbytes += cfg.n_layers * 2 * 4 * s.n_heads * s.headdim * s.d_state
+    return nbytes
+
+
+def _zoo_inputs(cfg, dev, gen, batch, length):
+    from repro_torch.models import EncDecConfig
+
+    toks = torch.randint(0, cfg.vocab, (batch, length), generator=gen,
+                         device=dev)
+    frames = None
+    if isinstance(cfg, EncDecConfig):
+        frames = torch.randn((batch, cfg.enc_len, cfg.d_model), generator=gen,
+                             device=dev)
+    return toks, frames
+
+
+def _zoo_cache(model, params, frames, batch, max_len):
+    if frames is None:
+        return model.init_cache(batch, max_len)
+    return model.init_cache(params, model.encode(params, frames), batch,
+                            max_len)
+
+
+def _zoo_run(model, params, toks, frames, prompt, steps):
+    """Logits and loss of the whole sequence (``loss`` alone for the
+    enc-dec), then prefill of ``prompt`` tokens and ``steps`` decode steps
+    teacher-forced: every output as a list of tensors."""
+    outs = []
+    labels = torch.roll(toks, -1, dims=1)
+    if frames is None:
+        outs.append(model.logits_train(params, toks)[0])
+        outs.append(model.loss(params, toks, labels)[0])
+    else:
+        outs.append(model.encode(params, frames))
+        outs.append(model.loss(params, frames, toks, labels)[0])
+    cache = _zoo_cache(model, params, frames, toks.shape[0],
+                       ZOO_SMOKE_CACHE)
+    logits, cache = model.prefill(params, toks[:, :prompt], cache)
+    outs.append(logits)
+    for t in range(prompt, prompt + steps):
+        logits, cache = model.decode_step(params, toks[:, t], cache)
+        outs.append(logits)
+    outs.extend(f for part in cache for f in
+                (part if isinstance(part, tuple) else (part,))
+                if isinstance(f, torch.Tensor))
+    return outs
+
+
+def _zoo_smoke(dev):
+    """(a) every arch's smoke config (float32) on the card against the same
+    port code on the CPU, from the same parameters and inputs."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_smoke(arch)
+        gen = torch.Generator().manual_seed(16)
+        cpu_model = build(cfg, "cpu")
+        params = cpu_model.init(gen)
+        toks, frames = _zoo_inputs(cfg, torch.device("cpu"), gen, 2,
+                                   ZOO_SMOKE_PROMPT + ZOO_STEPS)
+        want = _zoo_run(cpu_model, params, toks, frames, ZOO_SMOKE_PROMPT,
+                        ZOO_STEPS)
+        got = _zoo_run(build(cfg, dev), copy.deepcopy(params).to(dev),
+                       toks.to(dev), None if frames is None
+                       else frames.to(dev), ZOO_SMOKE_PROMPT, ZOO_STEPS)
+        err = 0.0
+        for g, w in zip(got, want, strict=True):
+            g = g.cpu()
+            if not torch.allclose(g.float(), w.float(), rtol=ZOO_TOL,
+                                  atol=ZOO_TOL) or g.dtype != w.dtype:
+                raise AssertionError(f"zoo {arch} smoke: the card differs "
+                                     f"from the CPU")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        print(f"[zoo-smoke] {arch} ({cfg.name}): logits/loss, prefill "
+              f"{ZOO_SMOKE_PROMPT}, {ZOO_STEPS} decode steps and "
+              f"{len(got) - ZOO_STEPS - 3} cache tensors on the card == the "
+              f"CPU (float32, max abs err {err:.3g}, tol {ZOO_TOL})",
+              flush=True)
+
+
+def _timed(dev, fn):
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _zoo_profile(arch, dev, model, params, toks, frames, max_len, pf_ms,
+                 tok_ms):
+    """One prefill and ``ZOO_PROFILED_STEPS`` decode steps under
+    ``torch.profiler``: device time by kernel, device events a token and
+    the idle share of each profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    cache = _zoo_cache(model, params, frames, 1, max_len)
+    box = {}
+
+    def prefill():
+        box["logits"], box["cache"] = model.prefill(params, toks, cache)
+
+    def decode():
+        tok = torch.argmax(box["logits"], -1).to(torch.int32)
+        c = box["cache"]
+        for _ in range(ZOO_PROFILED_STEPS):
+            lg, c = model.decode_step(params, tok, c)
+            tok = torch.argmax(lg, -1).to(torch.int32)
+
+    for name, fn, steps, unprof in (("prefill", prefill, 1, pf_ms),
+                                    ("decode", decode, ZOO_PROFILED_STEPS,
+                                     tok_ms * ZOO_PROFILED_STEPS)):
+        _sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        got = _print_profile(f"zoo {arch} {name}", prof, wall, unprof,
+                             steps, "token" if name == "decode" else name)
+        out[f"{name}_idle_profiled"] = None if got is None else got["idle"]
+        out[f"{name}_device_events"] = None if got is None else got["events"]
+    return out
+
+
+def _zoo_full(dev, gpu):
+    """(b) every arch at its published widths, depth cut, in bf16: a
+    (1, 4096) prefill and 32 greedy decode steps, timed; returns the rows."""
+    from repro_torch import configs
+    from repro_torch.models import EncDecConfig, build
+
+    rows = []
+    for arch in configs.ARCH_IDS:
+        cfg, cut = _zoo_cut(configs.get(arch))
+        model = build(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        params = model.init(gen)
+        n_params = sum(p.numel() for p in params.parameters())
+        toks, frames = _zoo_inputs(cfg, dev, gen, 1, ZOO_PROMPT)
+        max_len = ZOO_PROMPT + max(ZOO_DECODE, ZOO_PROFILED_STEPS) + 2
+        enc_len = cfg.enc_len if isinstance(cfg, EncDecConfig) else 0
+        torch.cuda.reset_peak_memory_stats()
+        cache0, enc_ms = _timed(dev, lambda: _zoo_cache(
+            model, params, frames, 1, max_len))
+        model.prefill(params, toks, cache0)  # untimed: first launches
+        (logits, cache), pf_ms = _timed(
+            dev, lambda: model.prefill(params, toks, cache0))
+        del cache0
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, cache = model.decode_step(params, tok, cache)  # untimed
+        tok = torch.argmax(logits, -1).to(torch.int32)
+
+        def decode(tok=tok, cache=cache):
+            out = []
+            for _ in range(ZOO_DECODE):
+                lg, cache = model.decode_step(params, tok, cache)
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                out.append(tok)
+            return torch.stack(out, 1), lg
+
+        (gen_toks, last), dec_ms = _timed(dev, decode)
+        peak = torch.cuda.max_memory_allocated()
+        if not (torch.isfinite(logits.float()).all()
+                and torch.isfinite(last.float()).all()):
+            raise AssertionError(f"zoo {arch}: non-finite logits")
+        if not ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all():
+            raise AssertionError(f"zoo {arch}: a token out of the vocab")
+        pf_flops = _zoo_flops(cfg, ZOO_PROMPT, 0, enc_len)
+        dec_flops = sum(_zoo_flops(cfg, 1, ZOO_PROMPT + 1 + j, enc_len)
+                        for j in range(ZOO_DECODE))
+        dec_bytes = sum(_zoo_decode_bytes(cfg, ZOO_PROMPT + 1 + j, enc_len)
+                        for j in range(ZOO_DECODE))
+        dec_bound_ms = max(dec_bytes / kcost.HBM_BYTES_PER_S,
+                           dec_flops / kcost.BF16_OPS_PER_S) * 1e3
+        row = {"arch": arch, "cut": cut, "params": n_params,
+               "prefill_ms": pf_ms,
+               "prefill_share_bf16": pf_flops / (pf_ms * 1e-3
+                                                 * kcost.BF16_OPS_PER_S),
+               "decode_ms_per_token": dec_ms / ZOO_DECODE,
+               "decode_share_bf16": dec_flops / (dec_ms * 1e-3
+                                                 * kcost.BF16_OPS_PER_S),
+               "decode_bound_ms_per_token": dec_bound_ms / ZOO_DECODE,
+               "decode_share_of_bound": dec_bound_ms / dec_ms,
+               "peak_gb": peak / 1e9, "prefill_tflop": pf_flops / 1e12}
+        if frames is not None:
+            row["encode_and_cross_kv_ms"] = enc_ms
+        if arch in ZOO_PROFILED:
+            row.update(_zoo_profile(arch, dev, model, params, toks, frames,
+                                    max_len, pf_ms, dec_ms / ZOO_DECODE))
+        rows.append(row)
+        print(f"[zoo] {arch} bf16, {cut}, {n_params / 1e9:.3f} B params: "
+              f"prefill (1, {ZOO_PROMPT}) {pf_ms:.3f} ms "
+              f"({pf_flops / 1e12:.3f} TFLOP, share of the bf16 peak "
+              f"{row['prefill_share_bf16']:.4f}); decode "
+              f"{row['decode_ms_per_token']:.3f} ms/token over {ZOO_DECODE} "
+              f"greedy steps (share of the bf16 peak "
+              f"{row['decode_share_bf16']:.5f}; of its byte bound "
+              f"{row['decode_bound_ms_per_token']:.3f} ms: "
+              f"{row['decode_share_of_bound']:.4f}); peak "
+              f"{row['peak_gb']:.2f} GB"
+              + (f"; encoder + cross K/V {enc_ms:.3f} ms"
+                 if frames is not None else "") + f"; {gpu}", flush=True)
+        del model, params, cache, logits, last
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _zoo_teacher(dev):
+    """(c) float32 at published widths (depth cut): one decode step after a
+    4,160-token prefill equals ``logits_train`` at that position (mixtral
+    past its window: ring prefill and ring decode).  The MoE's capacity
+    factor is raised to n_experts / top_k, so no token drops."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    for arch in ZOO_TF_ARCHS:
+        cfg, cut = _zoo_cut(configs.get(arch))
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        if cfg.moe is not None:
+            cf = cfg.moe.n_experts / cfg.moe.top_k
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+            cut += f", capacity_factor {cf:g} (no drops)"
+        model = build(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        params = model.init(gen)
+        L = ZOO_TF_PROMPT
+        toks, _ = _zoo_inputs(cfg, dev, gen, 1, L + 1)
+        want = model.logits_train(params, toks)[0][:, L - 1:].clone()
+        cache = model.init_cache(1, L + 8)
+        ring = cache.kv is not None and cache.kv.k.shape[2] < L
+        logits_pf, cache = model.prefill(params, toks[:, :L], cache)
+        logits_dec, cache = model.decode_step(params, toks[:, L], cache)
+        errs = []
+        for got, ref_ in ((logits_pf, want[:, 0]), (logits_dec, want[:, 1])):
+            if not torch.allclose(got, ref_, rtol=ZOO_TF_TOL, atol=ZOO_TF_TOL):
+                raise AssertionError(f"zoo {arch}: decode differs from "
+                                     f"teacher forcing")
+            errs.append(float((got - ref_).abs().max()))
+        print(f"[zoo-teacher] {arch} float32, {cut}: prefill {L} + 1 decode "
+              f"step == logits_train at {L - 1} and {L} (max abs err "
+              f"{errs[0]:.3g}, {errs[1]:.3g}; tol {ZOO_TF_TOL})"
+              + (f"; ring cache of {cache.kv.k.shape[2]} slots" if ring
+                 else ""), flush=True)
+        del model, params, cache, want
+        torch.cuda.empty_cache()
+
+
+def phase_zoo(dev, gpu):
+    """The model zoo: (a) smoke configs card == CPU, (b) published widths
+    in bf16, timed, (c) decode against teacher forcing in float32.  The
+    models launch none of the three kernels: the counters, zeroed before,
+    must read 0 after.  Returns (b)'s rows."""
+    kernels.reset_counts()
+    with torch.inference_mode():
+        _zoo_smoke(dev)
+        rows = _zoo_full(dev, gpu)
+        _zoo_teacher(dev)
+    _sync(dev)
+    counts = kernels.counts()
+    if any(counts[key] for key in KERNELS):
+        raise AssertionError(f"zoo: the models launched a kernel: {counts}")
+    print(f"[zoo] launches of {', '.join(KERNELS)} over phase 16: "
+          f"{', '.join(str(counts[key]) for key in KERNELS)}", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3649,6 +4056,7 @@ def main() -> int:
     mesh_totals, sync_us = phase("phase 14", phase_mesh, topos, dev)
     plan_totals, mesh_async_totals = phase("phase 15", phase_engine_rest,
                                            topos, dev, sync_us)
+    zoo = phase("phase 16", phase_zoo, dev, gpu)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -3729,6 +4137,7 @@ def main() -> int:
                                  "engine-mesh-async":
                                      mesh_async_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
+    print(json.dumps({"zoo": zoo, "gpu": gpu}), flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

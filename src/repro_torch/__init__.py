@@ -15,10 +15,16 @@ the mesh monitor (:mod:`.core.monitor`, one rank a peer over
 ``torch.distributed``), the multi-tenant monitor service (:mod:`.service`,
 both backends, synchronous and overlapped, with its observability and
 audit plane, :mod:`.obs`), the sharded engine (:mod:`.engine`: sync and
-async on one device, all four halo wires, its sweeps, and the sync engine
-with one shard a rank over a collective ``all_to_all``), the halo
-quantizer and the rank launcher (:mod:`.distributed`), and all three
-kernels: ``lss_state``, ``correction`` and ``region_decide``.
+async, all four halo wires, its sweeps and its autotuner
+(:mod:`.engine.autotune`, counted by :mod:`.launch.cost`), on one device
+or with one shard a rank over collective ``all_to_all``s, sync and async,
+with its audits and layout moves), the halo quantizer and the rank
+launcher (:mod:`.distributed`), all three kernels: ``lss_state``,
+``correction`` and ``region_decide``, and the model zoo of the
+training-monitor substrate (:mod:`.models`: the dense, MoE, SSM and hybrid
+LMs and the encoder-decoder, with their configs in :mod:`.configs`; plain
+torch ops, no kernel of their own, as the JAX models reach no Pallas
+kernel).  Still to port: the optimizer, data, checkpoints and trainer.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

@@ -4,9 +4,10 @@ The port never imports JAX; a caller that holds a JAX ``LSSState``,
 engine ``ShardedState`` or ``AsyncShardedState``, ``TopoArrays``,
 ``PackedSlot`` or service ``QuerySpec`` hands its fields
 over as numpy arrays (``{f: np.asarray(getattr(s, f)) for f in
-s._fields}``) and gets the port's twin back on ``device``.  This is how
-the parity tests start both packages from the same state and the same
-tenants.
+s._fields}``) and gets the port's twin back on ``device``; a model's
+parameters and caches go across as ``jax.tree.map(np.asarray, tree)``.
+This is how the parity tests start both packages from the same state,
+the same tenants and the same weights.
 """
 
 from __future__ import annotations
@@ -16,12 +17,18 @@ import torch
 
 from .core import lss, regions
 from .engine import engine as engine_lib
+from .models import attention, build, ssm
+from .models.common import ParamTree
+from .models.encdec import EncDecCache
+from .models.transformer import LMCache
 from .service.controlplane import SLOSpec
 from .service.query import QuerySpec
 
 __all__ = ["state_from_jax_numpy", "states_from_jax_numpy", "state_to_numpy",
            "sharded_state_from_jax_numpy", "async_state_from_jax_numpy",
-           "topo_from_numpy", "slot_from_numpy", "query_spec_from_numpy"]
+           "topo_from_numpy", "slot_from_numpy", "query_spec_from_numpy",
+           "model_params_from_jax_numpy", "lm_cache_from_jax_numpy",
+           "encdec_cache_from_jax_numpy"]
 
 _STATE_DTYPES = {
     "out_m": torch.float32, "out_c": torch.float32,
@@ -172,3 +179,54 @@ def query_spec_from_numpy(region, inputs, weights=None, beta=None, ell=None,
                               else np.asarray(weights, np.float32)),
                      beta=beta, ell=ell, eps=eps, seed=seed,
                      priority=priority, slo=slo)
+
+
+def _array(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included) as a tensor on ``device``,
+    in its own dtype or ``dtype``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # no numpy dtype torch reads
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def model_params_from_jax_numpy(cfg, tree, device) -> ParamTree:
+    """The port's parameters for ``cfg`` from JAX's parameter tree as numpy
+    (``jax.tree.map(np.asarray, params)``): a copy by path.  The tree must
+    have the port's paths and shapes; each leaf takes the port's dtype."""
+    def carry(want, got, path):
+        if isinstance(want, dict):
+            if set(want) != set(got):
+                raise ValueError(f"{path or 'params'}: keys {sorted(got)} "
+                                 f"!= {sorted(want)}")
+            return {k: carry(want[k], got[k], f"{path}.{k}".lstrip("."))
+                    for k in want}
+        a = np.asarray(got)
+        if a.shape != tuple(want.shape):
+            raise ValueError(f"{path}: shape {a.shape} != {tuple(want.shape)}")
+        return _array(a, device, want.dtype)
+
+    return ParamTree(carry(build(cfg, "meta").init().tree(), tree, ""))
+
+
+def _kv_cache(kv, device):
+    return attention.KVCache(*(_array(f, device) for f in kv))
+
+
+def lm_cache_from_jax_numpy(cache, device) -> LMCache:
+    """The port's :class:`~repro_torch.models.LMCache` from JAX's as numpy
+    (``jax.tree.map(np.asarray, cache)``), each field in its own dtype."""
+    return LMCache(
+        kv=None if cache.kv is None else _kv_cache(cache.kv, device),
+        ssm=None if cache.ssm is None else ssm.SSMState(
+            *(_array(f, device) for f in cache.ssm)))
+
+
+def encdec_cache_from_jax_numpy(cache, device) -> EncDecCache:
+    """The port's :class:`~repro_torch.models.EncDecCache` from JAX's as
+    numpy, as :func:`lm_cache_from_jax_numpy`."""
+    return EncDecCache(kv=_kv_cache(cache.kv, device),
+                       cross_k=_array(cache.cross_k, device),
+                       cross_v=_array(cache.cross_v, device))

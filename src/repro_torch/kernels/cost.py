@@ -13,12 +13,14 @@ every slot live and in V, as an HLO cost reading counts shapes.
 from __future__ import annotations
 
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "F64_OPS_PER_S",
+           "BF16_OPS_PER_S",
            "lss_state_cost", "correction_cost", "correction_cost_v",
            "region_decide_cost", "global_cost", "bound_ms"]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 
 def lss_state_cost(n, D, d, k, live):

@@ -1,0 +1,374 @@
+"""Grouped-query attention with qk-norm, RoPE, sliding-window and KV cache.
+
+Port of ``repro/models/attention.py``: MHA (kv == heads), GQA (kv < heads),
+qk_norm (qwen3), sliding window (mixtral), no-bias (command-r),
+cross-attention (whisper decoder), as plain torch ops; no fused library
+attention.
+
+**Float32 scores on bf16 inputs.**  JAX's flash-style path contracts the
+storage dtype with ``preferred_element_type=float32``: bf16 operands,
+float32 products and sums, and a float32 result.  Torch has no such
+argument (a bf16 ``einsum`` rounds its result to bf16), so :func:`_dot32`
+casts both operands to float32 first.  A bf16 value is exact in float32
+and so is the product of two, so the scores reach the softmax in float32
+with JAX's arithmetic, and so do the probability-times-V sums; only the
+order of the float32 additions may differ.  The dense path casts to
+float32 explicitly, as JAX's does.
+
+The window ring cache and the chunk constants (:data:`CHUNK_Q`,
+:data:`CHUNK_KV`, :data:`DENSE_MAX`) are JAX's; :func:`attend` reads the
+constants when it is called, so a test can make them small.  Functions are
+pure: a cache passed in is never written, the new cache is a new tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import common
+from .common import DATA, shard
+
+__all__ = ["AttnConfig", "init", "param_specs", "attend", "fwd_train",
+           "fwd_prefill", "fwd_decode", "fwd_cross_decode", "cross_kv",
+           "KVCache", "init_cache"]
+
+NEG = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    qk_norm: bool = False
+    bias: bool = False
+    window: int = 0  # sliding-window size; 0 = full causal
+    rope_theta: float = 10_000.0
+    causal: bool = True  # False for encoder self-attn
+    cross: bool = False  # cross-attention (kv from encoder output)
+    shard_cache_seq: bool = False  # SP decode: KV cache seq dim on 'data'
+
+
+def init(gen, cfg: AttnConfig, dtype=torch.float32):
+    D, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+    p = {
+        "wq": common.normal_init(gen, (D, H * dh), dtype),
+        "wk": common.normal_init(gen, (D, K * dh), dtype),
+        "wv": common.normal_init(gen, (D, K * dh), dtype),
+        "wo": common.normal_init(gen, (H * dh, D), dtype),
+    }
+    dev = common.init_device(gen)
+    if cfg.bias:
+        p |= {
+            "bq": torch.zeros((H * dh,), dtype=dtype, device=dev),
+            "bk": torch.zeros((K * dh,), dtype=dtype, device=dev),
+            "bv": torch.zeros((K * dh,), dtype=dtype, device=dev),
+            "bo": torch.zeros((D,), dtype=dtype, device=dev),
+        }
+    if cfg.qk_norm:
+        p |= {"q_norm": torch.ones((dh,), dtype=dtype, device=dev),
+              "k_norm": torch.ones((dh,), dtype=dtype, device=dev)}
+    return p
+
+
+def param_specs(cfg: AttnConfig, fsdp: bool = False):
+    d0 = DATA if fsdp else None
+    p = {
+        "wq": common.pspec(d0, "model"),
+        "wk": common.pspec(d0, "model"),
+        "wv": common.pspec(d0, "model"),
+        "wo": common.pspec("model", d0),
+    }
+    if cfg.bias:
+        p |= {"bq": common.pspec("model"), "bk": common.pspec("model"),
+              "bv": common.pspec("model"), "bo": common.pspec(None)}
+    if cfg.qk_norm:
+        p |= {"q_norm": common.pspec(None), "k_norm": common.pspec(None)}
+    return p
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S, K, dh)
+    v: torch.Tensor  # (B, S, K, dh)
+    length: torch.Tensor  # (B,) int32 — filled prefix length
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    K, dh = cfg.n_kv, cfg.d_head
+    return KVCache(
+        k=torch.zeros((batch, max_len, K, dh), dtype=dtype, device=device),
+        v=torch.zeros((batch, max_len, K, dh), dtype=dtype, device=device),
+        length=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _proj(x, w, b):
+    y = torch.einsum("bld,df->blf", x, w)
+    return y + b if b is not None else y
+
+
+def _heads(x, n, dh):
+    return x.reshape(*x.shape[:-1], n, dh)
+
+
+def _qkv(params, cfg: AttnConfig, x, kv_src, positions):
+    """Project to (q, k, v) with qk-norm and RoPE applied."""
+    H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    q = _heads(_proj(x, params["wq"], params.get("bq")), H, dh)
+    k = _heads(_proj(kv_src, params["wk"], params.get("bk")), K, dh)
+    v = _heads(_proj(kv_src, params["wv"], params.get("bv")), K, dh)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, params["q_norm"])
+        k = common.rms_norm(k, params["k_norm"])
+    if not cfg.cross:
+        cos, sin = common.rope(positions, dh, cfg.rope_theta)
+        q = common.apply_rope(q, cos, sin)
+        k = common.apply_rope(k, cos, sin)
+    q = shard(q, DATA, None, "model", None)
+    k = shard(k, DATA, None, "model" if K > 1 else None, None)
+    v = shard(v, DATA, None, "model" if K > 1 else None, None)
+    return q, k, v
+
+
+# Chunk sizes for the flash-style path (JAX's).
+CHUNK_Q = 512
+CHUNK_KV = 1024
+DENSE_MAX = 2048  # use the dense path when Lq*Lk is small enough
+
+
+def _divisor_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (1500 -> 750 for target 1024)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+def _mask(qpos, kpos, causal, window, kv_len):
+    """(B, Lq, Lk) validity mask from absolute positions."""
+    m = torch.ones((qpos.shape[0], qpos.shape[1], kpos.shape[-1]),
+                   dtype=torch.bool, device=qpos.device)
+    kp = kpos[None, None, :] if kpos.ndim == 1 else kpos[:, None, :]
+    qp = qpos[:, :, None]
+    if causal:
+        m &= kp <= qp
+    if window:
+        m &= kp > (qp - window)
+    if kv_len is not None:
+        m &= kp < kv_len[:, None, None]
+    return m
+
+
+def _offsets(q_offset, batch, device):
+    """q_offset (a scalar or (B,)) as a (B, 1) int tensor."""
+    off = torch.as_tensor(q_offset, device=device)
+    return torch.broadcast_to(off[..., None], (batch, 1))
+
+
+def _dot32(eq, a, b):
+    """``einsum`` with float32 products and sums (see the module docstring)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def _attend_dense(q, k, v, *, causal, window, q_offset, kv_len,
+                  kv_seq_shard=False):
+    B, Lq, H, dh = q.shape
+    Lk, K = k.shape[1], k.shape[2]
+    g = H // K
+    qg = q.reshape(B, Lq, K, g, dh)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), device=q.device))
+    logits = torch.einsum("blkgh,bskh->bklgs", qg.float() * scale,
+                          k.float())  # (B, K, Lq, g, Lk)
+    qpos = _offsets(q_offset, B, q.device) + torch.arange(Lq, device=q.device)
+    m = _mask(qpos, torch.arange(Lk, device=q.device), causal, window, kv_len)
+    logits = torch.where(m[:, None, :, None, :], logits, NEG)
+    if kv_seq_shard:
+        logits = shard(logits, DATA, None, None, None, "data")
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bklgs,bskh->blkgh", probs.to(v.dtype), v)
+    return out.reshape(B, Lq, H, dh)
+
+
+def _attend_chunked(q, k, v, *, causal, window, q_offset, kv_len):
+    """Online-softmax (flash-style) two-level loop; memory O(Cq*Ck).
+
+    The q/k/v blocks and the probabilities stay at the storage dtype and
+    are contracted by :func:`_dot32`; the softmax statistics (max,
+    normalizer, accumulator) are float32, as JAX's.
+    """
+    B, Lq, H, dh = q.shape
+    Lk, K = k.shape[1], k.shape[2]
+    g = H // K
+    cq, ck = _divisor_chunk(Lq, CHUNK_Q), _divisor_chunk(Lk, CHUNK_KV)
+    nq, nk = Lq // cq, Lk // ck
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=q.dtype, device=q.device)
+
+    qs = q.reshape(B, nq, cq, K, g, dh) * scale
+    ks = k.reshape(B, nk, ck, K, dh)
+    vs = v.reshape(B, nk, ck, K, dh)
+    qpos0 = _offsets(q_offset, B, q.device)
+    outs = []
+    for qi in range(nq):
+        qb = qs[:, qi]  # (B, cq, K, g, dh)
+        qpos = qpos0 + qi * cq + torch.arange(cq, device=q.device)[None, :]
+        m_run = torch.full((B, K, cq, g), NEG, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((B, K, cq, g), dtype=torch.float32,
+                            device=q.device)
+        acc = torch.zeros((B, K, cq, g, dh), dtype=torch.float32,
+                          device=q.device)
+        for ki in range(nk):
+            s = _dot32("blkgh,bskh->bklgs", qb, ks[:, ki])
+            kpos = ki * ck + torch.arange(ck, device=q.device)
+            msk = _mask(qpos, kpos, causal, window, kv_len)
+            s = torch.where(msk[:, None, :, None, :], s, NEG)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _dot32(
+                "bklgs,bskh->bklgh", p.to(v.dtype), vs[:, ki])
+            m_run = m_new
+        out = acc / torch.clamp_min(l_run, 1e-30)[..., None]  # (B,K,cq,g,dh)
+        outs.append(out.permute(0, 2, 1, 3, 4).reshape(B, cq, H, dh))
+    return torch.cat(outs, dim=1).to(v.dtype)
+
+
+def attend(q, k, v, *, causal: bool, window: int, q_offset, kv_len=None,
+           kv_seq_shard: bool = False):
+    """softmax(QK^T) V with GQA head-group expansion.
+
+    q: (B, Lq, H, dh); k/v: (B, Lk, K, dh); q_offset: scalar/(B,) — absolute
+    position of q[0] (for causal masking of cached decode).
+    kv_len: (B,) valid cache length, None = all valid.
+    Dispatches to a dense path for small problems / decode, and to a
+    flash-style chunked loop otherwise.
+    """
+    Lq, Lk = q.shape[1], k.shape[1]
+    if Lq <= 1 or (Lq <= DENSE_MAX and Lk <= DENSE_MAX):
+        return _attend_dense(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len,
+                             kv_seq_shard=kv_seq_shard)
+    return _attend_chunked(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, kv_len=kv_len)
+
+
+def _expand_kv(k, v, n_heads: int):
+    """Repeat KV heads to the full q-head count (JAX's layout for sharded
+    attention; decode keeps the compact K-head cache)."""
+    g = n_heads // k.shape[2]
+    if g == 1:
+        return k, v
+    k = shard(torch.repeat_interleave(k, g, dim=2), DATA, None, "model", None)
+    v = shard(torch.repeat_interleave(v, g, dim=2), DATA, None, "model", None)
+    return k, v
+
+
+def _out(params, o, B, L):
+    y = torch.einsum("blf,fd->bld", o.reshape(B, L, -1), params["wo"])
+    if params.get("bo") is not None:
+        y = y + params["bo"]
+    return y
+
+
+def _zeros_b(B, device):
+    return torch.zeros((B,), dtype=torch.int32, device=device)
+
+
+def fwd_train(params, cfg: AttnConfig, x, kv_src=None, positions=None):
+    B, L, _ = x.shape
+    kv_src = x if kv_src is None else kv_src
+    if positions is None:
+        positions = torch.arange(L, device=x.device)[None, :]
+    q, k, v = _qkv(params, cfg, x, kv_src, positions)
+    k, v = _expand_kv(k, v, cfg.n_heads)
+    o = attend(q, k, v, causal=cfg.causal and not cfg.cross, window=cfg.window,
+               q_offset=_zeros_b(B, x.device))
+    return shard(_out(params, o, B, L), DATA, None, None)
+
+
+def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
+    """Self-attn over the prompt; writes the cache. Returns (y, cache')."""
+    B, L, _ = x.shape
+    if positions is None:
+        positions = torch.arange(L, device=x.device)[None, :]
+    q, k, v = _qkv(params, cfg, x, x, positions)
+    ke, ve = _expand_kv(k, v, cfg.n_heads)
+    o = attend(q, ke, ve, causal=True, window=cfg.window,
+               q_offset=_zeros_b(B, x.device))
+    y = _out(params, o, B, L)
+    Sc = cache.k.shape[1]
+    length = torch.full((B,), L, dtype=torch.int32, device=x.device)
+    if L >= Sc:
+        # Window-capped ring cache: keep the last Sc tokens, placing absolute
+        # position p at slot p % Sc so decode's ring writes line up.
+        shift = L % Sc
+        kw = torch.roll(k[:, L - Sc:], shift, dims=1)
+        vw = torch.roll(v[:, L - Sc:], shift, dims=1)
+        newc = KVCache(k=kw.to(cache.k.dtype), v=vw.to(cache.v.dtype),
+                       length=length)
+    else:
+        newk, newv = cache.k.clone(), cache.v.clone()
+        newk[:, :L] = k
+        newv[:, :L] = v
+        newc = KVCache(k=newk, v=newv, length=length)
+    return shard(y, DATA, None, None), newc
+
+
+def fwd_decode(params, cfg: AttnConfig, x, cache: KVCache):
+    """One-token decode step against the cache. x: (B, 1, D)."""
+    B = x.shape[0]
+    pos = cache.length[:, None]  # (B, 1)
+    q, k, v = _qkv(params, cfg, x, x, pos)
+    # When kv heads don't divide the model axis, the cache is d_head-
+    # sharded (see cache_specs); q follows the same split.
+    if cfg.n_kv and cfg.n_kv % max(common.axis_size("model"), 1) != 0:
+        q = shard(q, DATA, None, None, "model")
+        k = shard(k, DATA, None, None, "model")
+        v = shard(v, DATA, None, None, "model")
+    if cfg.window:
+        # Ring-buffer write at pos % window keeps the cache O(window).
+        slot = (cache.length % cache.k.shape[1])[:, None]
+    else:
+        slot = cache.length[:, None]
+    bidx = torch.arange(B, device=x.device)[:, None]
+    newk, newv = cache.k.clone(), cache.v.clone()
+    newk[bidx, slot.long()] = k.to(cache.k.dtype)
+    newv[bidx, slot.long()] = v.to(cache.v.dtype)
+    if cfg.window:
+        # The ring holds only the last `window` positions by construction;
+        # kv_len masks the slots not yet written during warm-up.
+        kv_len = torch.clamp_max(cache.length + 1, cache.k.shape[1])
+        o = attend(q, newk, newv, causal=False, window=0,
+                   q_offset=cache.length, kv_len=kv_len)
+    else:
+        o = attend(q, newk, newv, causal=True, window=0,
+                   q_offset=cache.length, kv_len=cache.length + 1,
+                   kv_seq_shard=cfg.shard_cache_seq)
+    return _out(params, o, B, 1), KVCache(newk, newv, cache.length + 1)
+
+
+def fwd_cross_decode(params, cfg: AttnConfig, x, enc_k, enc_v, enc_len=None):
+    """Cross-attention for decode/train: kv precomputed from encoder."""
+    B, Lq, _ = x.shape
+    H, dh = cfg.n_heads, cfg.d_head
+    q = _heads(_proj(x, params["wq"], params.get("bq")), H, dh)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, params["q_norm"])
+    o = attend(q, enc_k, enc_v, causal=False, window=0,
+               q_offset=_zeros_b(B, x.device), kv_len=enc_len)
+    return _out(params, o, B, Lq)
+
+
+def cross_kv(params, cfg: AttnConfig, enc_out):
+    """Precompute cross-attention K/V from encoder output."""
+    K, dh = cfg.n_kv, cfg.d_head
+    k = _heads(_proj(enc_out, params["wk"], params.get("bk")), K, dh)
+    v = _heads(_proj(enc_out, params["wv"], params.get("bv")), K, dh)
+    return k, v

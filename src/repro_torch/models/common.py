@@ -1,0 +1,264 @@
+"""Shared model building blocks: norms, RoPE, init, parameter trees and the
+sharding helpers.
+
+Port of ``repro/models/common.py``.  Models are plain functions over
+parameter trees, as in JAX: nested dicts of tensors whose paths, shapes
+and orientation are JAX's (``wq`` is (D, H*dh) and is used as ``x @ w``).
+:class:`ParamTree` holds such a tree as an ``nn.Module``, so its
+``named_parameters()`` are the JAX paths joined by dots (``blocks.attn.wq``)
+and ``state_dict()`` / ``.to()`` / optimizers work on it.
+
+**Sharding helpers.**  JAX expresses sharding as ``PartitionSpec``s over
+the mesh axes that :func:`axis_env` installs.  Here:
+
+* :func:`axis_env` records the axis names and sizes of a ``DeviceMesh``
+  (``mesh_dim_names``, ``mesh.shape``) or of a bare sequence of names
+  (sizes 1), for the current thread, as JAX's does;
+* :func:`pspec` returns a plain tuple with the absent axes dropped, entry
+  for entry ``tuple(P(...))`` of JAX's (a one-name group collapses to the
+  name, as ``PartitionSpec`` normalises it);
+* :func:`shard` is the identity: the models run on one device.  The
+  training substrate maps these tuples onto ``DeviceMesh`` placements.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import Any
+
+import torch
+from torch import nn
+
+__all__ = [
+    "axis_env",
+    "axis_size",
+    "shard",
+    "pspec",
+    "DATA",
+    "rms_norm",
+    "layer_norm",
+    "rope",
+    "apply_rope",
+    "normal_init",
+    "init_device",
+    "ParamTree",
+    "as_tree",
+    "tree_index",
+    "stack_trees",
+    "stack_specs",
+    "stack",
+    "layer",
+    "default_generator",
+    "Params",
+]
+
+Params = Any  # nested dict of tensors, or a ParamTree
+
+# Batch-sharding axes: pod (if present) composes with data.
+DATA = ("pod", "data")
+
+_env = threading.local()
+
+
+@contextlib.contextmanager
+def axis_env(mesh_or_names):
+    """Install the available mesh axes (and sizes) for shard()/pspec().
+
+    Accepts a ``DeviceMesh`` (its ``mesh_dim_names`` and ``shape``) or a
+    bare sequence of axis names (sizes default to 1).
+    """
+    prev = getattr(_env, "axes", None)
+    prev_sizes = getattr(_env, "sizes", None)
+    names = getattr(mesh_or_names, "mesh_dim_names", None)
+    if names is not None:
+        _env.axes = tuple(names)
+        _env.sizes = dict(zip(_env.axes, tuple(mesh_or_names.shape)))
+    else:
+        _env.axes = tuple(mesh_or_names)
+        _env.sizes = {a: 1 for a in _env.axes}
+    try:
+        yield
+    finally:
+        _env.axes = prev
+        _env.sizes = prev_sizes
+
+
+def _avail() -> tuple[str, ...]:
+    return getattr(_env, "axes", None) or ()
+
+
+def axis_size(name) -> int:
+    """Product of mesh sizes of the given axis name(s); 1 if absent."""
+    sizes = getattr(_env, "sizes", None) or {}
+    if isinstance(name, str):
+        name = (name,)
+    out = 1
+    for a in name:
+        out *= sizes.get(a, 1)
+    return out
+
+
+def _filter(axis):
+    """Drop axis names absent from the current mesh; () -> None."""
+    avail = _avail()
+    if axis is None:
+        return None
+    if isinstance(axis, str):
+        return axis if axis in avail else None
+    kept = tuple(a for a in axis if a in avail)
+    if not kept:
+        return None
+    return kept[0] if len(kept) == 1 else kept
+
+
+def pspec(*axes) -> tuple:
+    """The spec tuple with unavailable axes dropped (None-padded dims kept)."""
+    return tuple(_filter(a) for a in axes)
+
+
+def shard(x: torch.Tensor, *axes) -> torch.Tensor:
+    """The identity on one device (see the module docstring)."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(positions, d_head: int, theta: float = 10_000.0):
+    """cos/sin tables for rotary embedding: (..., L, d_head/2) each."""
+    half = d_head // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * freqs  # (..., L, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., L, H, d_head); cos/sin: (..., L, d_head/2), broadcast over H."""
+    half = x.shape[-1] // 2
+    c = cos.unsqueeze(-2)  # (..., L, 1, half)
+    s = sin.unsqueeze(-2)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_device(gen: torch.Generator | None) -> torch.device:
+    """Where the init functions put their tensors: the generator's device,
+    or ``meta`` (shapes and dtypes alone) when ``gen`` is None."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def default_generator(device, seed: int = 0):
+    """A seeded generator on ``device`` (None on ``meta``: shapes alone)."""
+    if device.type == "meta":
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def normal_init(gen, shape, dtype=torch.float32, scale: float | None = None):
+    """``scale * N(0, 1)`` drawn in float32 from ``gen``, then cast; the
+    scale defaults to 1/sqrt(fan_in), as JAX's.  JAX's threefry stream has
+    no torch counterpart: the distribution is JAX's, the numbers are not."""
+    fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(fan_in)
+    x = torch.randn(shape, generator=gen, device=init_device(gen),
+                    dtype=torch.float32)
+    return (scale * x).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as an ``nn.Module``: each dict a child
+    module under its key, each tensor a parameter under its key, so the
+    parameter names are the tree's paths.  Parameters are made with
+    ``requires_grad=False`` (serving); a trainer turns it on."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, ParamTree(val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def tree(self) -> dict:
+        """The nested dict of this module's parameters (no copies)."""
+        out = {key: mod.tree() for key, mod in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        return out
+
+
+def as_tree(params: Params) -> dict:
+    """A nested dict of tensors from a ParamTree or a nested dict."""
+    return params.tree() if isinstance(params, ParamTree) else params
+
+
+def tree_index(tree: dict, i) -> dict:
+    """Layer ``i`` of a stacked tree (views of every leaf's leading axis)."""
+    return {k: tree_index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def stack_trees(trees):
+    """Like trees of tensors -> one tree, each leaf stacked on a new
+    leading (layer) axis."""
+    return {k: stack_trees([t[k] for t in trees])
+            if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees])
+            for k in trees[0]}
+
+
+def stack_specs(tree):
+    """Blocks are stacked along a leading layer dim -> prepend None."""
+    return {k: stack_specs(v) if isinstance(v, dict) else (None,) + v
+            for k, v in tree.items()}
+
+
+def stack(items):
+    """A list of like NamedTuples of tensors (caches) -> one NamedTuple,
+    each field stacked on a new leading axis."""
+    return type(items[0])(*(torch.stack(f) for f in zip(*items)))
+
+
+def layer(tup, *idx):
+    """Entry ``idx`` of every field of a stacked NamedTuple."""
+    return type(tup)(*(f[idx] for f in tup))

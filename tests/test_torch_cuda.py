@@ -1086,3 +1086,61 @@ def test_autotune_plan_on_card_chooses_measured_argmin(dev):
         assert e.hbm_bytes > 0 and e.flops > 0
     best = min(res.table, key=lambda e: e.measured_us)
     assert res.chosen == best.cand and res.config.auto_plan is False
+
+
+ZOO_ARCHS = ("mamba2-370m", "chameleon-34b", "qwen3-14b",
+             "command-r-plus-104b", "codeqwen1.5-7b", "yi-9b",
+             "qwen3-moe-235b-a22b", "mixtral-8x7b", "zamba2-2.7b",
+             "whisper-large-v3")
+
+
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_model_zoo_smoke_on_card_matches_cpu(dev, arch):
+    """Each arch's smoke config (float32) on the card: the forward
+    (logits or encoder and loss), a 40-token prefill (past mixtral-smoke's
+    32-slot window) and 4 decode steps, with the caches, ``allclose``
+    (1e-4) to the same code on the CPU from the same parameters."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    assert configs.ARCH_IDS == ZOO_ARCHS
+    cfg = configs.get_smoke(arch)
+    gen = torch.Generator().manual_seed(0)
+    cpu = build(cfg, "cpu")
+    params = cpu.init(gen)
+    toks = torch.randint(0, cfg.vocab, (2, 44), generator=gen)
+    frames = (torch.randn((2, cfg.enc_len, cfg.d_model), generator=gen)
+              if hasattr(cfg, "enc_len") else None)
+
+    def run(model, p, toks, frames):
+        labels = torch.roll(toks, -1, dims=1)
+        if frames is None:
+            outs = [model.logits_train(p, toks)[0],
+                    model.loss(p, toks, labels)[0]]
+            cache = model.init_cache(2, 64)
+        else:
+            enc = model.encode(p, frames)
+            outs = [enc, model.loss(p, frames, toks, labels)[0]]
+            cache = model.init_cache(p, enc, 2, 64)
+        logits, cache = model.prefill(p, toks[:, :40], cache)
+        outs.append(logits)
+        for t in range(40, 44):
+            logits, cache = model.decode_step(p, toks[:, t], cache)
+            outs.append(logits)
+        for part in cache:
+            if isinstance(part, tuple):
+                outs.extend(part)
+            elif part is not None:
+                outs.append(part)
+        return outs
+
+    with torch.inference_mode():
+        want = run(cpu, params, toks, frames)
+        got = run(build(cfg, dev), copy.deepcopy(params).to(dev),
+                  toks.to(dev), None if frames is None else frames.to(dev))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

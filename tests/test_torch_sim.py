@@ -151,8 +151,11 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
     assert len(files) > 10
+    assert PORT / "models" / "attention.py" in files
+    assert PORT / "configs" / "zamba2_27b.py" in files
     for path in files:
         bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
@@ -165,6 +168,12 @@ def test_port_import_leaves_jax_unloaded():
             "import repro_torch.engine, repro_torch.engine.sweep\n"
             "import repro_torch.service, repro_torch.obs.validate\n"
             "import repro_torch.obs.forensics, repro_torch.obs.audit\n"
+            "import repro_torch.models, repro_torch.configs as cfgs\n"
+            "[cfgs.get(a) for a in cfgs.ARCH_IDS]\n"
+            "import importlib.util\n"
+            f"spec = importlib.util.spec_from_file_location('serve', "
+            f"{str(ROOT / 'examples' / 'serve_lm_torch.py')!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'repro' not in sys.modules, 'repro was imported'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
