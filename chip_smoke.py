@@ -243,8 +243,33 @@ Phases, in order; any failure exits nonzero:
    4,096 window: its ring prefill and ring decode run) and one decode
    step equal to ``logits_train`` at those positions within 2e-2.
 
-It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), then a
-JSON line with one entry per kernel (its numbers at the
+17. the single-process training path (``repro_torch.optim``, ``data``,
+   ``checkpoint``, ``training``; A.10b), the launch counters zeroed before
+   and required to read 0 after (the training path launches none of the
+   three kernels): (a) each arch's smoke config in float32, one train
+   step with ``accum_steps=2`` and ``warmup=0`` on the card against the
+   same code on the CPU from the same parameters and batch: loss and
+   gnorm within rtol 1e-4, ``m`` and ``v`` within rtol 1e-4 and 1e-4 of
+   the leaf's largest value (at least 1e-9), the parameters within rtol
+   1e-5 / atol 1e-6 where the CPU's |g| is above ten times the grads'
+   noise (AdamW's
+   first step is about ±lr a coordinate, and one whose grad lies in the
+   noise may flip sign); (b) ``Trainer`` on yi-9b smoke for 30 steps
+   with a ``RuntimeError`` injected at step 17: restored from step 10,
+   ends at step 30, the loss falls as ``tests/test_system.py`` asks;
+   (c) mamba2 smoke: 10 steps, a save, 2 more; the load and the same 2
+   steps land bitwise on the uninterrupted run, under
+   ``torch.use_deterministic_algorithms(True)`` (the embedding's backward
+   and other scatters accumulate with atomics otherwise); (d) qwen3-14b
+   at published widths with 2 layers and mamba2-370m whole, in bf16 with
+   float32 moments and remat on: (1, 4096) ``TokenSource`` batches (the
+   train_4k length, the global batch cut from 256 to 1), one untimed and
+   three timed steps, with ms a step, tokens/s, peak memory and the share
+   of the bf16 peak (3x the forward's products, ``_train_flops``); one
+   qwen3 step profiled.  No full-width checkpoint is written.
+
+It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), phase 17's
+(``{"train": [...]}``), then a JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
 churned-service, engine-backed-service, overlapped-service,
@@ -280,14 +305,20 @@ order (``slot_sum``), and a sum rounded otherwise would show there.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# Phase 17 (c) runs under torch.use_deterministic_algorithms, which needs
+# cuBLAS's workspace fixed before the first cuBLAS call (Hopper's default
+# size, so the other phases see no change).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -3997,6 +4028,345 @@ def phase_zoo(dev, gpu):
     return rows
 
 
+# --- phase 17: the single-process training path (A.10b) on the card --------
+
+TRAIN_TOL = 1e-4  # (a): loss / gnorm rtol; m / v rtol and leaf-relative atol
+TRAIN_MOM_ATOL = 1e-9  # (a): m / v atol floor (whisper's key biases: grads
+#                        of rounding noise alone, as softmax ignores them)
+TRAIN_GRAD_TOL = (1e-4, 1e-6)  # the grads' noise: leaf-relative, absolute
+TRAIN_NOISE = 10.0  # (a): parameters compared where |g| > 10x that noise
+TRAIN_PARAM_TOL = (1e-5, 1e-6)  # (a): rtol, atol of the parameters (lr 1e-3)
+TRAIN_TRAINER_STEPS, TRAIN_FAULT_AT = 30, 17  # (b)
+TRAIN_LEN = 4096  # (d): configs.SHAPES' train_4k length; global batch 1
+TRAIN_TIMED = 3  # (d): timed steps after one untimed
+TRAIN_FULL = ("qwen3-14b", "mamba2-370m")  # (d): 2 layers; whole
+
+
+def _train_batch(cfg, gen, rows, length):
+    from repro_torch.models import EncDecConfig
+
+    out = {"tokens": torch.randint(0, cfg.vocab, (rows, length),
+                                   generator=gen, dtype=torch.int32),
+           "labels": torch.randint(0, cfg.vocab, (rows, length),
+                                   generator=gen, dtype=torch.int32)}
+    if isinstance(cfg, EncDecConfig):
+        out["frames"] = torch.randn((rows, cfg.enc_len, cfg.d_model),
+                                    generator=gen)
+    return out
+
+
+def _leaf_err(label, got, want, rtol, leaf_atol, atol=0.0):
+    """Largest |got - want| of two like trees (``got`` on the card), each
+    leaf held to rtol and ``leaf_atol`` of its largest |value| (or
+    ``atol``, where larger)."""
+    from repro_torch import tree
+
+    err = 0.0
+    for name, g, w in zip(*tree.leaves_with_names(got), tree.leaves(want),
+                          strict=False):
+        g, w = g.detach().cpu().float(), w.detach().float()
+        tol = max(atol, leaf_atol * float(w.abs().max()))
+        if not torch.allclose(g, w, rtol=rtol, atol=tol):
+            raise AssertionError(f"{label}{name}: the card differs from the "
+                                 f"CPU (max abs err "
+                                 f"{float((g - w).abs().max()):.3g})")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def _train_smoke(dev):
+    """(a) one train step of every smoke arch on the card against the CPU."""
+    import copy
+
+    from repro_torch import configs, tree
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (TrainHParams, build_for_cell,
+                                      loss_and_grads)
+
+    hp = TrainHParams(lr=1e-3, warmup=0, accum_steps=2)
+    cell = configs.ShapeCell("t", "train", 32, 4)
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_smoke(arch)
+        gen = torch.Generator().manual_seed(17)
+        cpu_model = build(cfg, "cpu")
+        params = cpu_model.init(gen)
+        batch = _train_batch(cfg, gen, cell.global_batch, cell.seq_len)
+        dev_params = copy.deepcopy(params).to(dev)
+        grads = loss_and_grads(cpu_model, params, batch, hp.accum_steps)[2]
+        p_c, o_c, m_c = build_for_cell(cpu_model, None, cell, hp)[0](
+            params, adamw_init(params), batch)
+        p_d, o_d, m_d = build_for_cell(build(cfg, dev), None, cell, hp)[0](
+            dev_params, adamw_init(dev_params),
+            {k: v.to(dev) for k, v in batch.items()})
+        for key in ("loss", "gnorm"):
+            if not torch.allclose(m_d[key].cpu(), m_c[key], rtol=TRAIN_TOL,
+                                  atol=0.0):
+                raise AssertionError(f"train {arch}: {key} "
+                                     f"{float(m_d[key])} on the card, "
+                                     f"{float(m_c[key])} on the CPU")
+        if int(o_d.step) != 1:
+            raise AssertionError(f"train {arch}: opt.step {int(o_d.step)}")
+        err = max(_leaf_err(f"train {arch} m", o_d.m, o_c.m, TRAIN_TOL,
+                            TRAIN_TOL, TRAIN_MOM_ATOL),
+                  _leaf_err(f"train {arch} v", o_d.v, o_c.v, TRAIN_TOL,
+                            TRAIN_TOL, TRAIN_MOM_ATOL))
+        kept = total = 0
+        p_err = 0.0
+        for name, pd, pc, g in zip(*tree.leaves_with_names(p_d),
+                                   tree.leaves(p_c), tree.leaves(grads)):
+            g = g.abs()
+            noise = max(TRAIN_GRAD_TOL[1],
+                        TRAIN_GRAD_TOL[0] * float(g.max()))
+            sure = g > TRAIN_NOISE * noise
+            got, want = pd.detach().cpu()[sure], pc.detach()[sure]
+            if not torch.allclose(got, want, rtol=TRAIN_PARAM_TOL[0],
+                                  atol=TRAIN_PARAM_TOL[1]):
+                raise AssertionError(f"train {arch} params{name}: the card "
+                                     f"differs from the CPU")
+            if got.numel():
+                p_err = max(p_err, float((got - want).abs().max()))
+            kept += int(sure.sum())
+            total += g.numel()
+        if kept < total // 2:
+            raise AssertionError(f"train {arch}: only {kept} of {total} "
+                                 f"parameters above the grads' noise")
+        print(f"[train-smoke] {arch} ({cfg.name}) float32, accum 2: loss "
+              f"{float(m_d['loss']):.6f} (CPU {float(m_c['loss']):.6f}), "
+              f"gnorm {float(m_d['gnorm']):.6f} (CPU "
+              f"{float(m_c['gnorm']):.6f}), m/v max abs err {err:.3g}, "
+              f"params max abs err {p_err:.3g} at {kept} of {total} "
+              f"coordinates (the rest within the grads' noise); card == "
+              f"CPU (tol {TRAIN_TOL})", flush=True)
+
+
+def _train_ckpt_dir(name):
+    import shutil
+
+    path = ROOT / "build" / "chip_smoke_ckpt" / name
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _train_trainer(dev):
+    """(b) ``Trainer`` on the card with an injected fault."""
+    import shutil
+
+    from repro_torch import checkpoint, configs
+    from repro_torch.data import TokenSource, make_batch_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (Trainer, TrainerConfig, TrainHParams,
+                                      build_for_cell)
+
+    cfg = configs.get_smoke("yi-9b")
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    step = build_for_cell(model, None, configs.ShapeCell("t", "train", 64, 8),
+                          TrainHParams(lr=3e-3, warmup=5,
+                                       total_steps=100))[0]
+    batches = make_batch_fn(TokenSource(vocab=cfg.vocab, seq_len=64,
+                                        global_batch=8, seed=0), device=dev)
+    ckpt = _train_ckpt_dir("trainer")
+    armed = [True]
+
+    def fault(s):
+        if s == TRAIN_FAULT_AT and armed[0]:
+            armed[0] = False
+            raise RuntimeError("injected device failure")
+
+    trainer = Trainer(
+        TrainerConfig(total_steps=TRAIN_TRAINER_STEPS, ckpt_every=10,
+                      ckpt_dir=str(ckpt), log_every=1),
+        lambda p, o, b: step(p, o, {"tokens": b.tokens, "labels": b.labels}),
+        batches)
+    t0 = time.perf_counter()
+    _, opt = trainer.run(params, adamw_init(params), fault_injector=fault)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    events = [r for r in trainer.metrics_log if "event" in r]
+    losses = [r["loss"] for r in trainer.metrics_log if "event" not in r]
+    latest = checkpoint.latest_step(ckpt)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if [(r["event"], r["step"]) for r in events] != [("restored", 10)]:
+        raise AssertionError(f"trainer: events {events}")
+    if int(opt.step) != TRAIN_TRAINER_STEPS or latest != TRAIN_TRAINER_STEPS:
+        raise AssertionError(f"trainer: ended at opt.step {int(opt.step)}, "
+                             f"LATEST {latest}")
+    if not (np.all(np.isfinite(losses))
+            and np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2):
+        raise AssertionError(f"trainer: the loss did not fall: {losses}")
+    print(f"[train-trainer] yi-9b smoke on the card: {TRAIN_TRAINER_STEPS} "
+          f"steps, RuntimeError injected at step {TRAIN_FAULT_AT}, "
+          f"'restored' from step 10, ended at step {int(opt.step)} (LATEST "
+          f"{latest}); loss {np.mean(losses[:5]):.4f} over the first 5 "
+          f"logged steps, {np.mean(losses[-5:]):.4f} over the last 5; "
+          f"{wall:.1f} s", flush=True)
+
+
+def _train_resume(dev):
+    """(c) save, load and two more steps land bitwise on the run that was
+    not interrupted (deterministic algorithms on)."""
+    import shutil
+
+    from repro_torch import checkpoint, configs, tree
+    from repro_torch.data import TokenSource, make_batch_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    cfg = configs.get_smoke("mamba2-370m")
+    model = build(cfg, dev)
+    step = build_for_cell(model, None, configs.ShapeCell("t", "train", 32, 4),
+                          TrainHParams())[0]
+    batches = make_batch_fn(TokenSource(vocab=cfg.vocab, seq_len=32,
+                                        global_batch=4, seed=1), device=dev)
+
+    def run(p, o, steps):
+        for s in steps:
+            b = batches(s)
+            p, o, _ = step(p, o, {"tokens": b.tokens, "labels": b.labels})
+        return p, o
+
+    ckpt = _train_ckpt_dir("resume")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        params = model.init(torch.Generator(device=dev).manual_seed(17))
+        params, opt = run(params, adamw_init(params), range(10))
+        checkpoint.save(ckpt, 10, (params, opt))
+        p_ref, o_ref = run(params, opt, (10, 11))
+        p2, o2 = run(*checkpoint.load(ckpt, 10, (params, opt)), (10, 11))
+        _sync(dev)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    n = 0
+    for name, a, b in zip(*tree.leaves_with_names((p_ref, o_ref)),
+                          tree.leaves((p2, o2))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"resume: {name} differs after the load")
+        n += a.numel()
+    print(f"[train-resume] mamba2 smoke on the card: 10 steps, save, load, "
+          f"2 steps == 2 uninterrupted steps, bitwise on all {n} values "
+          f"(params and AdamW state; deterministic algorithms on), "
+          f"opt.step {int(o2.step)}", flush=True)
+
+
+def _train_flops(cfg, length):
+    """Matrix-product flops of one train step on one sequence of
+    ``length`` tokens: 3x the forward's (the backward takes two products
+    for each of the forward's), the forward's as ``_zoo_flops`` counts a
+    prefill but with the head over every position.  Remat's recompute is
+    not counted: the share is of the work the step needs."""
+    head = 2 * cfg.d_model * cfg.vocab
+    return 3 * (_zoo_flops(cfg, length, 0) - head + head * length)
+
+
+def _train_full(dev, gpu):
+    """(d) published widths in bf16, float32 moments, remat on: one untimed
+    and ``TRAIN_TIMED`` timed steps on (1, 4096) batches; returns the
+    rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, tree
+    from repro_torch.data import TokenSource, make_batch_fn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    rows = []
+    for arch in TRAIN_FULL:
+        cfg = configs.get(arch)
+        cut = "whole"
+        if arch != "mamba2-370m":
+            cfg, cut = _zoo_cut(cfg)
+        assert cfg.remat and cfg.dtype == torch.bfloat16
+        torch.cuda.reset_peak_memory_stats()
+        model = build(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(17))
+        opt = adamw_init(params)
+        n_params = sum(p.numel() for p in tree.leaves(params))
+        step = build_for_cell(model, None, configs.ShapeCell(
+            "train_4k_b1", "train", TRAIN_LEN, 1), TrainHParams(warmup=0))[0]
+        batches = make_batch_fn(TokenSource(vocab=cfg.vocab,
+                                            seq_len=TRAIN_LEN,
+                                            global_batch=1, seed=17),
+                                device=dev)
+
+        def one(s):
+            nonlocal params, opt
+            b = batches(s)
+            params, opt, m = step(params, opt, {"tokens": b.tokens,
+                                                "labels": b.labels})
+            return m
+
+        one(0)  # untimed: first launches, allocator warm-up
+        ms, metrics = [], None
+        for s in range(1, 1 + TRAIN_TIMED):
+            metrics, t = _timed(dev, lambda s=s: one(s))
+            ms.append(t)
+        peak = torch.cuda.max_memory_allocated()
+        loss, gnorm = float(metrics["loss"]), float(metrics["gnorm"])
+        if int(opt.step) != 1 + TRAIN_TIMED or not (
+                np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"train {arch}: opt.step {int(opt.step)}, "
+                                 f"loss {loss}, gnorm {gnorm}")
+        flops = _train_flops(cfg, TRAIN_LEN)
+        step_ms = float(np.median(ms))
+        row = {"arch": arch, "cut": cut, "params": n_params,
+               "dtype": "bfloat16, float32 moments", "remat": True,
+               "tokens": [1, TRAIN_LEN], "step_ms": step_ms,
+               "step_ms_all": ms, "tokens_per_s": TRAIN_LEN / step_ms * 1e3,
+               "peak_gb": peak / 1e9, "train_tflop": flops / 1e12,
+               "share_bf16": flops / (step_ms * 1e-3
+                                      * kcost.BF16_OPS_PER_S),
+               "opt_step": int(opt.step), "loss": loss, "gnorm": gnorm}
+        if arch == "qwen3-14b":
+            _sync(dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = _timed(dev, lambda: one(1 + TRAIN_TIMED))
+            got = _print_profile(f"train {arch}", prof, wall, step_ms, 1,
+                                 "step")
+            row["idle_profiled"] = None if got is None else got["idle"]
+            row["device_events"] = None if got is None else got["events"]
+        rows.append(row)
+        print(f"[train] {arch} bf16 (float32 moments, remat), {cut}, "
+              f"{n_params / 1e9:.3f} B params, (1, {TRAIN_LEN}) tokens: "
+              f"{step_ms:.3f} ms a step (median of {TRAIN_TIMED}: "
+              f"{', '.join(f'{t:.3f}' for t in ms)}), "
+              f"{row['tokens_per_s']:.1f} tokens/s, {flops / 1e12:.3f} "
+              f"TFLOP a step, share of the bf16 peak "
+              f"{row['share_bf16']:.4f}; peak {row['peak_gb']:.2f} GB; "
+              f"opt.step {row['opt_step']}, loss {loss:.4f}, gnorm "
+              f"{gnorm:.4f}; {gpu}", flush=True)
+        del model, params, opt, metrics, step
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train(dev, gpu):
+    """The single-process training path: (a) smoke archs card == CPU, (b)
+    the trainer's fault recovery, (c) bitwise resume, (d) published
+    widths in bf16, timed.  The training path launches none of the three
+    kernels: the counters, zeroed before, must read 0 after.  Returns
+    (d)'s rows."""
+    kernels.reset_counts()
+    _train_smoke(dev)
+    _train_trainer(dev)
+    _train_resume(dev)
+    rows = _train_full(dev, gpu)
+    _sync(dev)
+    counts = kernels.counts()
+    if any(counts[key] for key in KERNELS):
+        raise AssertionError(f"train: the training path launched a kernel: "
+                             f"{counts}")
+    print(f"[train] launches of {', '.join(KERNELS)} over phase 17: "
+          f"{', '.join(str(counts[key]) for key in KERNELS)}", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4057,6 +4427,7 @@ def main() -> int:
     plan_totals, mesh_async_totals = phase("phase 15", phase_engine_rest,
                                            topos, dev, sync_us)
     zoo = phase("phase 16", phase_zoo, dev, gpu)
+    train = phase("phase 17", phase_train, dev, gpu)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -4138,6 +4509,7 @@ def main() -> int:
                                      mesh_async_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps({"zoo": zoo, "gpu": gpu}), flush=True)
+    print(json.dumps({"train": train, "gpu": gpu}), flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,13 @@ launcher (:mod:`.distributed`), all three kernels: ``lss_state``,
 training-monitor substrate (:mod:`.models`: the dense, MoE, SSM and hybrid
 LMs and the encoder-decoder, with their configs in :mod:`.configs`; plain
 torch ops, no kernel of their own, as the JAX models reach no Pallas
-kernel).  Still to port: the optimizer, data, checkpoints and trainer.
+kernel), and its single-process training path: AdamW and the LR schedule
+(:mod:`.optim`), the token stream (:mod:`.data`), checkpoints in JAX's
+layout (:mod:`.checkpoint`), the train / prefill / decode steps and the
+fault-tolerant trainer (:mod:`.training`).  Still to port (ROADMAP
+A.10c): LSS-gated LocalSGD, the checkpoint's restore onto ``DeviceMesh``
+placements with elastic remesh, the stage pipeline, the production mesh
+and the dry-run.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

@@ -5,7 +5,8 @@ engine ``ShardedState`` or ``AsyncShardedState``, ``TopoArrays``,
 ``PackedSlot`` or service ``QuerySpec`` hands its fields
 over as numpy arrays (``{f: np.asarray(getattr(s, f)) for f in
 s._fields}``) and gets the port's twin back on ``device``; a model's
-parameters and caches go across as ``jax.tree.map(np.asarray, tree)``.
+parameters, its AdamW state and its caches go across as
+``jax.tree.map(np.asarray, tree)``.
 This is how the parity tests start both packages from the same state,
 the same tenants and the same weights.
 """
@@ -15,12 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tree as tree_lib
 from .core import lss, regions
 from .engine import engine as engine_lib
 from .models import attention, build, ssm
-from .models.common import ParamTree
+from .models.common import ParamTree, as_tree
 from .models.encdec import EncDecCache
 from .models.transformer import LMCache
+from .optim import AdamWState
 from .service.controlplane import SLOSpec
 from .service.query import QuerySpec
 
@@ -209,6 +212,32 @@ def model_params_from_jax_numpy(cfg, tree, device) -> ParamTree:
         return _array(a, device, want.dtype)
 
     return ParamTree(carry(build(cfg, "meta").init().tree(), tree, ""))
+
+
+def adamw_state_from_jax_numpy(cfg_or_params, state, device) -> AdamWState:
+    """The port's :class:`~repro_torch.optim.AdamWState` from JAX's as numpy
+    (``jax.tree.map(np.asarray, opt)``): moments as float32 nested dicts
+    of the parameters' paths, ``step`` a 0-d int32 tensor.
+    ``cfg_or_params`` is a model config or the port's parameters, whose
+    tree the moments must match leaf for leaf (JAX's order)."""
+    like = as_tree(cfg_or_params if isinstance(cfg_or_params,
+                                               (dict, ParamTree))
+                   else build(cfg_or_params, "meta").init())
+
+    def moments(tree, field):
+        flat = tree_lib.leaves(tree)
+        want = tree_lib.leaves(like)
+        if len(flat) != len(want):
+            raise ValueError(f"{field}: {len(flat)} leaves != {len(want)}")
+        for a, w in zip(flat, want):
+            if np.shape(a) != tuple(w.shape):
+                raise ValueError(f"{field}: shape {np.shape(a)} != "
+                                 f"{tuple(w.shape)}")
+        return tree_lib.unflatten_like(
+            like, [_array(a, device, torch.float32) for a in flat])
+
+    return AdamWState(m=moments(state.m, "m"), v=moments(state.v, "v"),
+                      step=_array(state.step, device, torch.int32))
 
 
 def _kv_cache(kv, device):

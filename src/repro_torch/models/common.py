@@ -24,6 +24,7 @@ the mesh axes that :func:`axis_env` installs.  Here:
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Any
@@ -51,6 +52,7 @@ __all__ = [
     "stack",
     "layer",
     "default_generator",
+    "remat",
     "Params",
 ]
 
@@ -262,3 +264,46 @@ def stack(items):
 def layer(tup, *idx):
     """Entry ``idx`` of every field of a stacked NamedTuple."""
     return type(tup)(*(f[idx] for f in tup))
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+
+def _weight_product(func, *args, **kwargs) -> bool:
+    """A matrix product without batch dims: ``mm`` / ``addmm``, or the
+    batch-1 ``bmm`` that ``einsum`` makes of a product with a weight."""
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default):
+        return True
+    return func is aten.bmm.default and args[0].shape[0] == 1
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if _weight_product(func, *args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, cfg):
+    """A block body as JAX's ``jax.checkpoint`` makes it, in torch terms.
+
+    When ``cfg.remat`` is set and grads are on, ``fn``'s activations are
+    not kept for the backward pass but recomputed there
+    (``torch.utils.checkpoint``, non-reentrant).  ``cfg.remat_policy ==
+    "dots"`` keeps the outputs of the products with weights (JAX's
+    ``checkpoint_dots_with_no_batch_dims``) through selective activation
+    checkpointing.  Otherwise ``fn`` itself.
+    """
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    from torch.utils import checkpoint
+
+    kw = {}
+    if getattr(cfg, "remat_policy", None) == "dots":
+        kw["context_fn"] = functools.partial(
+            checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False,
+                             **kw)

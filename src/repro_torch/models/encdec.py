@@ -7,6 +7,8 @@ positions on the decoder, MHA self/cross attention, tied softmax head.
 
 Serving: the encoder runs once; decoder prefill/decode carry a self-attn
 KV cache plus per-layer cross K/V computed once from the encoder output.
+``remat`` acts on each encoder block and each training decoder block when
+grads are on, as JAX's ``jax.checkpoint`` there.
 """
 
 from __future__ import annotations
@@ -164,12 +166,16 @@ class EncDec:
         ang = pos[:, None] * freq[None, :]
         pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(cfg.dtype)
         x = shard(frames.to(cfg.dtype) + pe[None], DATA, None, None)
-        for i in range(cfg.n_enc):
-            bp = common.tree_index(p["enc"], i)
+
+        def body(x, bp):
             h = _ln(x, bp["ln1"], cfg.norm_eps)
             x = x + attention.fwd_train(bp["attn"], cfg.enc_attn, h)
             h = _ln(x, bp["ln2"], cfg.norm_eps)
-            x = x + mlp.gelu_mlp(bp["mlp"], h)
+            return x + mlp.gelu_mlp(bp["mlp"], h)
+
+        body = common.remat(body, cfg)
+        for i in range(cfg.n_enc):
+            x = body(x, common.tree_index(p["enc"], i))
         return _ln(x, p["enc_ln"], cfg.norm_eps)
 
     # ------------- decoder ---------------------------------------------------
@@ -196,10 +202,15 @@ class EncDec:
 
     def _dec_body(self, p, x, enc_out, mode, cache=None):
         kvs = []
+
+        def train_body(x, bp):
+            return self._dec_layer(bp, x, enc_out, "train")[0]
+
+        train_body = common.remat(train_body, self.cfg)
         for i in range(self.cfg.n_dec):
             bp = common.tree_index(p["dec"], i)
             if mode == "train":
-                x, _ = self._dec_layer(bp, x, enc_out, mode)
+                x = train_body(x, bp)
             else:
                 x, kv = self._dec_layer(bp, x, None, mode,
                                         common.layer(cache.kv, i),

@@ -175,7 +175,12 @@ def fwd_train(params, cfg: SSMConfig, x, state: SSMState | None = None):
     dt_store = x.dtype
     seg = _segsum(ac.permute(0, 1, 3, 2))  # (B, nc, H, Q, Q) = cum_i - cum_j
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay = torch.where(tri, torch.exp(seg), 0.0)
+    # Masked before the exp, not after it as JAX does: above the diagonal
+    # the sums are positive and overflow float32 past a chunk of ~100
+    # positions (mamba2's published chunk is 256).  The forward's values
+    # are JAX's either way (exp(-inf) = 0), but JAX's backward takes
+    # 0 * exp(inf) there, a NaN that reaches every grad.
+    decay = torch.exp(torch.where(tri, seg, float("-inf")))
     # scores[b,c,h,i,j] = (C_i . B_j) * decay[h,i,j]
     cb = _dot32("bcigm,bcjgm->bcgij", Cc.to(dt_store), Bc.to(dt_store))
     cb = torch.repeat_interleave(cb, rep, dim=2)  # (B, nc, H, Q, Q)

@@ -13,8 +13,9 @@ arch:
 
 The layer parameters are stacked on a leading (n_layers, ...) axis, as
 JAX's, and the forward loops over that axis in Python where JAX scans.
-``remat`` / ``remat_policy`` have no effect on a forward pass; they wait
-for the training substrate.  Parameters are a
+``remat`` / ``remat_policy`` act where JAX's ``jax.checkpoint`` does, on
+each block body of ``logits_train`` (a hybrid group's body as one) when
+grads are on (:func:`~repro_torch.models.common.remat`).  Parameters are a
 :class:`~repro_torch.models.common.ParamTree` (or the nested dict it
 holds) at JAX's paths, so ``convert.model_params_from_jax_numpy`` is a
 copy by path.
@@ -263,21 +264,33 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         blocks = p["blocks"]
         if cfg.block in ("dense", "moe"):
+            def body(x, aux, bp):
+                x, _, aux2 = self._attn_mlp_block(bp, x, "train", None, aux)
+                return x, aux2 if aux2 is not None else aux
+
+            body = common.remat(body, cfg)
             for i in range(cfg.n_layers):
-                x, _, aux2 = self._attn_mlp_block(
-                    common.tree_index(blocks, i), x, "train", None, aux)
-                aux = aux2 if aux2 is not None else aux
+                x, aux = body(x, aux, common.tree_index(blocks, i))
         elif cfg.block == "ssm":
+            def body(x, bp):
+                return self._ssm_block(bp, x, "train")[0]
+
+            body = common.remat(body, cfg)
             for i in range(cfg.n_layers):
-                x, _ = self._ssm_block(common.tree_index(blocks, i), x,
-                                       "train")
-        else:  # hybrid
+                x = body(x, common.tree_index(blocks, i))
+        else:  # hybrid: one body a group (the shared block, then g SSMs)
             g = cfg.attn_every
-            for j in range(cfg.n_groups):
+
+            def body(x, j):
                 x, _, _ = self._attn_mlp_block(p["shared"], x, "train")
                 for i in range(j * g, (j + 1) * g):
                     x, _ = self._ssm_block(common.tree_index(blocks, i), x,
                                            "train")
+                return x
+
+            body = common.remat(body, cfg)
+            for j in range(cfg.n_groups):
+                x = body(x, j)
 
         x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
         logits = torch.einsum("bld,dv->blv", x, self._head(p))

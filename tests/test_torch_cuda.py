@@ -1144,3 +1144,90 @@ def test_model_zoo_smoke_on_card_matches_cpu(dev, arch):
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == w.dtype
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b",
+                                  "mamba2-370m", "whisper-large-v3"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """One train step (float32 smoke config, ``accum_steps`` 2,
+    ``warmup=0``) on the card against the same code on the CPU from the
+    same parameters and batch: loss and gnorm rtol 1e-4; ``m`` and ``v``
+    rtol 1e-4 and atol 1e-4 of the leaf's largest value, at least 1e-9
+    (whisper's key biases get grads of rounding noise alone: softmax
+    ignores them); the parameters
+    rtol 1e-5 / atol 1e-6 where the CPU's |g| is above ten times the
+    grads' noise (1e-4 of the leaf's largest |g|, at least 1e-6): AdamW's
+    first step moves a coordinate by about ±lr, whose sign a grad within
+    the noise may flip."""
+    import copy
+
+    from repro_torch import configs, tree
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (TrainHParams, build_for_cell,
+                                      loss_and_grads)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke(arch)
+    gen = torch.Generator().manual_seed(0)
+    cpu = build(cfg, "cpu")
+    params = cpu.init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (4, 32), generator=gen)}
+    if hasattr(cfg, "enc_len"):
+        batch["frames"] = torch.randn((4, cfg.enc_len, cfg.d_model),
+                                      generator=gen)
+    dev_params = copy.deepcopy(params).to(dev)
+    cell = configs.ShapeCell("t", "train", 32, 4)
+    hp = TrainHParams(lr=1e-3, warmup=0, accum_steps=2)
+    grads = loss_and_grads(cpu, params, batch, 2)[2]
+    p_c, o_c, m_c = build_for_cell(cpu, None, cell, hp)[0](
+        params, adamw_init(params), batch)
+    p_d, o_d, m_d = build_for_cell(build(cfg, dev), None, cell, hp)[0](
+        dev_params, adamw_init(dev_params),
+        {k: v.to(dev) for k, v in batch.items()})
+    for key in ("loss", "gnorm"):
+        assert m_d[key].is_cuda
+        torch.testing.assert_close(m_d[key].cpu(), m_c[key], rtol=1e-4,
+                                   atol=0.0)
+    assert int(o_d.step) == 1 and o_d.step.dtype == torch.int32
+    for got, want in ((o_d.m, o_c.m), (o_d.v, o_c.v)):
+        for g, w in zip(tree.leaves(got), tree.leaves(want)):
+            assert g.is_cuda and g.dtype == torch.float32
+            torch.testing.assert_close(
+                g.cpu(), w, rtol=1e-4,
+                atol=max(1e-9, 1e-4 * float(w.abs().max())))
+    for pd, pc, g in zip(tree.leaves(p_d), tree.leaves(p_c),
+                         tree.leaves(grads)):
+        g = g.abs()
+        sure = g > 10 * max(1e-6, 1e-4 * float(g.max()))
+        torch.testing.assert_close(pd.detach().cpu()[sure],
+                                   pc.detach()[sure], rtol=1e-5, atol=1e-6)
+
+
+def test_checkpoint_bf16_roundtrip_on_card(dev, tmp_path):
+    """A bf16 ``ParamTree`` and its float32 AdamW state on the card: saved,
+    loaded onto the card bitwise (bf16 as its uint16 bits), in JAX's leaf
+    order."""
+    import dataclasses
+
+    from repro_torch import checkpoint, configs, tree
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-14b"),
+                              dtype=torch.bfloat16)
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    opt = adamw_init(params)
+    for leaf in tree.leaves(opt.m):
+        leaf.normal_()
+    checkpoint.save(tmp_path, 5, (params, opt))
+    p2, o2 = checkpoint.load(tmp_path, 5, (params, opt))
+    for a, b in zip(tree.leaves((params, opt)), tree.leaves((p2, o2))):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        if a.dtype == torch.bfloat16:
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        else:
+            assert torch.equal(a, b)
+    assert {str(leaf.dtype) for leaf in tree.leaves(p2)} == {"torch.bfloat16"}

@@ -152,12 +152,16 @@ def _imported_roots(path: Path):
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py"]
+        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py",
+        ROOT / "examples" / "train_lm_torch.py"]
     assert len(files) > 10
     assert PORT / "models" / "attention.py" in files
     assert PORT / "configs" / "zamba2_27b.py" in files
+    assert PORT / "training" / "trainer.py" in files
+    assert PORT / "checkpoint" / "store.py" in files
     for path in files:
-        bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+        bad = ({"jax", "jaxlib", "repro", "ml_dtypes"}
+               & set(_imported_roots(path)))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -169,13 +173,18 @@ def test_port_import_leaves_jax_unloaded():
             "import repro_torch.service, repro_torch.obs.validate\n"
             "import repro_torch.obs.forensics, repro_torch.obs.audit\n"
             "import repro_torch.models, repro_torch.configs as cfgs\n"
+            "import repro_torch.optim, repro_torch.data\n"
+            "import repro_torch.checkpoint, repro_torch.training\n"
             "[cfgs.get(a) for a in cfgs.ARCH_IDS]\n"
             "import importlib.util\n"
-            f"spec = importlib.util.spec_from_file_location('serve', "
-            f"{str(ROOT / 'examples' / 'serve_lm_torch.py')!r})\n"
-            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "for name in ('serve_lm_torch', 'train_lm_torch'):\n"
+            "    spec = importlib.util.spec_from_file_location(name, "
+            f"{str(ROOT / 'examples')!r} + f'/{{name}}.py')\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
-            "assert 'repro' not in sys.modules, 'repro was imported'\n")
+            "assert 'repro' not in sys.modules, 'repro was imported'\n"
+            "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes was imported'\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
