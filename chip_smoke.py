@@ -268,8 +268,41 @@ Phases, in order; any failure exits nonzero:
    of the bf16 peak (3x the forward's products, ``_train_flops``); one
    qwen3 step profiled.  No full-width checkpoint is written.
 
+18. the multi-process training substrate (``repro_torch.training.localsgd``,
+   ``distributed.sharding`` / ``elastic`` / ``pipeline``, the checkpoint's
+   ``load(shardings=)``, ``make_batch_fn(mesh=)``; A.10c part 1), its
+   ranks as processes sharing the card over gloo (NCCL refuses two ranks
+   on one GPU; tensors stay on the card, the collectives stage through
+   pinned host memory), the launch counters zeroed on every rank before
+   and required to read 0 after: (a) the 4-ring LocalSGD case of
+   ``tests/test_torch_localsgd.py`` on 4 ranks of the card and on the same
+   ranks on the CPU: the synced flag equal at every gate call, the params
+   within 1e-5; (b) LocalSGD on mamba2-370m whole at published widths
+   (bf16, float32 moments, remat), a data ring of 4 ranks, each rank's
+   own (1, 4096) row of a ``TokenSource`` global batch placed by
+   ``make_batch_fn(mesh=...)`` (the train_4k length, the global batch cut
+   from 256 to 4), 8 local train steps each followed by the gate, tau 4x
+   the global mean drift after step 1 (all-gathered outside the gate): no
+   sync at step 1, at least one by step 8, after each sync every rank's
+   params bitwise equal (sha256) and the anchor equal to them; ms a local
+   step, a gate (drift, monitor step, the all-reduced any, the sync
+   all-reduce), staged bytes a sync, effective and physical monitor
+   sends, peak memory; (c) mamba2-370m's params and a seeded AdamW state
+   (3.7 GB) placed on (data 2, model 2) by ``model.param_specs()`` with
+   ``elastic.reshard`` and saved from 4 ranks, then a second launch of 2
+   ranks ``remesh(model_axis=2)`` -> (1, 2) loads with ``shardings``:
+   every local shard bitwise its slice of the saved leaf (sha256 per leaf
+   per rank), save and load ms and GB/s, the checkpoint deleted after;
+   (d) four qwen3-14b decoder layers at published widths (bf16, seeded)
+   as the stages of ``pipeline`` over 4 stage ranks, M = 8 microbatches
+   of (1, 4096) hidden states: the output equal on every rank and bitwise
+   the four layers applied in sequence on one rank of the card; ms an
+   apply and a tick, staged bytes a tick, the measured bubble beside
+   (S - 1) / (M + S - 1).
+
 It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), phase 17's
-(``{"train": [...]}``), then a JSON line with one entry per kernel (its numbers at the
+(``{"train": [...]}``), phase 18's (``{"distributed": {...}}``), then a
+JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
 churned-service, engine-backed-service, overlapped-service,
@@ -4367,6 +4400,519 @@ def phase_train(dev, gpu):
     return rows
 
 
+# --- phase 18: the multi-process training substrate (LocalSGD, placements,
+# elastic restore, the stage pipeline; A.10c part 1) -------------------------
+
+SUB_RANKS = 4  # (a), (b): a data ring of 4; (c): a (2, 2) mesh; (d): 4 stages
+SUB_TIMEOUT_S = 900  # each launch.spawn of phase 18
+# The sizes the ranks run at (passed to them; a CPU rehearsal shrinks these).
+SUB_SIZES = {"len": 4096,  # configs.SHAPES' train_4k length
+             "steps": 8,  # (b): local steps, each followed by the gate
+             "tau_factor": 4.0,  # (b): tau = 4x the global drift after step 1
+             "stages": 4, "microbatches": 8,  # (d)
+             "apply_timed": 3,  # (d): timed applies after one untimed
+             "smoke": False}  # the archs' smoke configs (CPU rehearsal only)
+SUB_TOL = 1e-5  # (a): the card's params against the CPU's
+SUB_ARCH, PIPE_ARCH = "mamba2-370m", "qwen3-14b"
+
+
+def _sub_cfg(arch, sizes):
+    """``arch`` at published widths (the smoke config in a rehearsal)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    if sizes["smoke"]:
+        return dataclasses.replace(configs.get_smoke(arch),
+                                   dtype=torch.bfloat16, remat=True)
+    return configs.get(arch)
+
+
+def _digest(tree_or_tensors) -> str:
+    """sha256 over the bytes of every leaf (JAX's order)."""
+    import hashlib
+
+    from repro_torch import tree
+
+    h = hashlib.sha256()
+    for t in tree.leaves(tree_or_tensors):
+        t = t.detach().to("cpu").contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sub_localsgd_small(dev):
+    """(a) the 4-ring case of ``tests/test_torch_localsgd.py`` on ``dev``
+    and on the CPU: every call's synced flag and gathered params."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.training import LocalSGDConfig, make_localsgd
+
+    mesh = init_device_mesh("cpu", (SUB_RANKS,), mesh_dim_names=("data",))
+    out = {}
+    for where in (dev, "cpu"):
+        init_fn, gate = make_localsgd(mesh, ("data",),
+                                      LocalSGDConfig(tau=0.5), device=where)
+        zeros = torch.zeros((1, 8), device=where)
+        hold, p_feed = {"w": zeros + 0.05}, {"w": zeros + gate.mon.peer}
+        state, calls = init_fn({"w": zeros}), []
+        for i in range(16):  # 6 held at a drift of 0.05, 10 fed back
+            state, p2, synced = gate(state, p_feed if i >= 6 else hold)
+            if i >= 6:
+                p_feed = p2
+            calls.append((synced, int(state.syncs), gate.gather(p2)["w"]))
+        out[str(where)] = calls
+    return out
+
+
+def _time_parts(gate, dev, times):
+    """Wrap the gate's parts so each call is timed (synchronized)."""
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            _sync(dev)
+            times.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+            if key == "monitor":  # sends a step (the state resets on a sync)
+                times.setdefault("sends", []).append(
+                    (float((res[0].eff_sends - a[0].eff_sends).sum()),
+                     float((res[0].phys_sends - a[0].phys_sends).sum())))
+            return res
+
+        setattr(obj, name, timed)
+
+    wrap(gate, "drift", "drift")
+    wrap(gate.mon, "step", "monitor")
+    wrap(gate, "any_drifted", "any")
+    wrap(gate, "sync", "sync")
+
+
+def _sub_localsgd_full(dev, sizes):
+    """(b) LocalSGD on mamba2-370m whole: ``sizes["steps"]`` local train
+    steps on this rank's row of a ``TokenSource`` batch placed by
+    ``make_batch_fn(mesh=...)``, each followed by the gate; tau = 4x the
+    global mean drift after step 1 (all-gathered outside the gate)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs, tree
+    from repro_torch.data import TokenSource, make_batch_fn
+    from repro_torch.distributed import collective
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (LocalSGDConfig, TrainHParams,
+                                      build_for_cell, make_localsgd)
+
+    cfg, L = _sub_cfg(SUB_ARCH, sizes), sizes["len"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    opt = adamw_init(params)
+    step = build_for_cell(model, None, configs.ShapeCell(
+        "train_4k_row", "train", L, 1), TrainHParams(warmup=0))[0]
+    mesh = init_device_mesh("cpu", (SUB_RANKS,), mesh_dim_names=("data",))
+    batches = make_batch_fn(TokenSource(vocab=cfg.vocab, seq_len=L,
+                                        global_batch=SUB_RANKS, seed=17),
+                            mesh=mesh, device=dev)
+    anchor0 = tree.map(torch.clone, params)
+    step_ms, losses = [], []
+
+    def one(s):
+        nonlocal params, opt
+        b = batches(s)
+        params, opt, m = step(params, opt, {"tokens": b.tokens.to_local(),
+                                            "labels": b.labels.to_local()})
+        losses.append(float(m["loss"]))
+
+    _, t = _timed(dev, lambda: one(0))
+    step_ms.append(t)
+    d2 = sum((p.float() - a.float()).square().sum()
+             for p, a in zip(tree.leaves(params), tree.leaves(anchor0)))
+    drift1 = collective.all_gather(d2.reshape(1).to(torch.float32))
+    tau = sizes["tau_factor"] * float(drift1.mean())
+    init_fn, gate = make_localsgd(mesh, ("data",), LocalSGDConfig(tau=tau),
+                                  device=dev)
+    times = {}
+    _time_parts(gate, dev, times)
+    state = init_fn(anchor0)
+    del anchor0
+    calls, gate_ms = [], []
+    for s in range(sizes["steps"]):
+        if s:
+            _, t = _timed(dev, lambda s=s: one(s))
+            step_ms.append(t)
+        (state, params, synced), t = _timed(dev, lambda: gate(state, params))
+        gate_ms.append(t)
+        call = {"step": s + 1, "synced": synced, "syncs": int(state.syncs)}
+        if synced:
+            call["digest"] = _digest(params)
+            call["anchor_is_params"] = all(
+                torch.equal(a, p) for a, p in zip(tree.leaves(state.anchor),
+                                                  tree.leaves(params)))
+        calls.append(call)
+    staged = sum(p.numel() * 4 for p in tree.leaves(params)) \
+        if dev.type == "cuda" else 0
+    return {"tau": tau, "drift1": drift1, "calls": calls,
+            "step_ms": step_ms, "gate_ms": gate_ms, "parts_ms": {
+                k: v for k, v in times.items() if k != "sends"},
+            "sends": times.get("sends", []), "staged_sync_bytes": staged,
+            "params": sum(p.numel() for p in tree.leaves(params)),
+            "losses": losses,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if dev.type == "cuda" else None)}
+
+
+def _elastic_state(model, dev):
+    """Seeded published-width params and an AdamW state with seeded
+    moments (the same bits in every process on one device)."""
+    from repro_torch import tree
+    from repro_torch.optim import AdamWState
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    params = model.init(g)
+    m = tree.map(lambda p: torch.randn(p.shape, generator=g, device=dev),
+                 params)
+    v = tree.map(lambda p: torch.rand(p.shape, generator=g, device=dev),
+                 params)
+    return params, AdamWState(m=m, v=v, step=torch.tensor(
+        7, dtype=torch.int32, device=dev))
+
+
+def _elastic_specs(model, mesh):
+    from repro_torch.models import common
+    from repro_torch.optim import AdamWState
+
+    with common.axis_env(mesh):
+        pspecs = model.param_specs()
+    return (pspecs, AdamWState(m=pspecs, v=pspecs, step=()))
+
+
+def _sub_elastic_save(dev, sizes, ckpt):
+    """(c) the params and AdamW state placed on (data 2, model 2) by
+    ``model.param_specs()``, saved synchronously (every rank gathers, rank
+    0 writes)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import checkpoint, tree
+    from repro_torch.distributed import elastic
+    from repro_torch.models import build
+
+    model = build(_sub_cfg(SUB_ARCH, sizes), dev)
+    state = _elastic_state(model, dev)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    placed = elastic.reshard(state, _elastic_specs(model, mesh), mesh)
+    nbytes = sum(x.numel() * x.element_size() for x in tree.leaves(state))
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    _, ms = _timed(dev, lambda: checkpoint.save(ckpt, 1, placed))
+    return {"save_ms": ms, "bytes": nbytes}
+
+
+def _sub_pipeline(dev, sizes):
+    """(d) four qwen3-14b decoder layers as the stages of ``pipeline`` over
+    M microbatches of (1, L, d_model) hidden states; stage 0's rank also
+    applies the layers in sequence, one microbatch at a time."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree
+    from repro_torch.distributed import elastic, pipeline
+    from repro_torch.models import build, common
+
+    S, M, L = sizes["stages"], sizes["microbatches"], sizes["len"]
+    cfg = dataclasses.replace(_sub_cfg(PIPE_ARCH, sizes), n_layers=S)
+    model = build(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(29)
+    blocks = common.stack_trees([model._init_block(g) for _ in range(S)])
+    xs = torch.randn((M, 1, L, cfg.d_model), generator=g,
+                     device=dev).to(cfg.dtype)
+    mesh = init_device_mesh("cpu", (S,), mesh_dim_names=("stage",))
+    stage = int(mesh.get_local_rank("stage"))
+    placed = elastic.reshard(blocks, tree.map(lambda _: ("stage",), blocks),
+                             mesh)
+    if stage:
+        del blocks
+    n_params = sum(x.to_local().numel() for x in tree.leaves(placed))
+
+    def stage_fn(p, x):
+        return model._attn_mlp_block(p, x, "train")[0]
+
+    apply = pipeline.pipeline(stage_fn, mesh, "stage")
+    with torch.no_grad():
+        out, _ = _timed(dev, lambda: apply(placed, xs))  # untimed
+        walls, ticks = [], []
+        for _ in range(sizes["apply_timed"]):
+            out, t = _timed(dev, lambda: apply(placed, xs))
+            walls.append(t)
+            ticks.append(apply.ticks)
+        res = {"stage": stage, "apply_ms": walls, "ticks": ticks,
+               "layer_params": n_params, "digest": _digest([out])}
+        if stage == 0:
+            seq = []
+            for m in range(M):
+                x = xs[m]
+                for s in range(S):
+                    x = stage_fn(common.tree_index(blocks, s), x)
+                seq.append(x)
+            seq = torch.stack(seq)
+            res["bitwise"] = bool(torch.equal(out, seq))
+            res["max_abs_err"] = float((out.float() - seq.float()).abs().max())
+    return res
+
+
+def _substrate_rank(rank, world, dev, sizes, ckpt):
+    """Phase 18 on one of 4 ranks: (a), (b), (c)'s save, (d), with the
+    kernel counters zeroed before and read after."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    kernels.reset_counts()
+    out = {"small": _sub_localsgd_small(dev)}
+    out["localsgd"] = _sub_localsgd_full(dev, sizes)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["save"] = _sub_elastic_save(dev, sizes, ckpt)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["pipeline"] = _sub_pipeline(dev, sizes)
+    _sync(dev)
+    out["counts"] = kernels.counts()
+    return out
+
+
+def _restore_rank(rank, world, dev, sizes, ckpt):
+    """(c) the second launch: ``remesh(model_axis=2)`` over 2 ranks and a
+    load with ``shardings`` from the same specs; each local shard held
+    bitwise to its slice of the regenerated saved value."""
+    from repro_torch import checkpoint, tree
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.models import build
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    kernels.reset_counts()
+    model = build(_sub_cfg(SUB_ARCH, sizes), dev)
+    mesh, info = elastic.remesh(model_axis=2)
+    like = _elastic_state(model, dev)
+    spec_tree = _elastic_specs(model, mesh)
+    specs = tree.prefix_leaves(like, spec_tree)
+    sh = sharding.shardings_like(like, spec_tree, mesh)
+    loaded, ms = _timed(dev, lambda: checkpoint.load(ckpt, 1, like,
+                                                     shardings=sh))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes_ = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    digests, equal, n = {}, True, 0
+    for name, got, want, spec in zip(*tree.leaves_with_names(loaded),
+                                     tree.leaves(like), specs):
+        sl = sharding.local_slices(tuple(want.shape), sizes_, spec, coord)
+        local = got.to_local()
+        equal = equal and torch.equal(local, want[sl]) \
+            and local.dtype == want.dtype
+        digests[name] = (_digest([local]), _digest([want[sl]]))
+        n += local.numel()
+    _sync(dev)
+    return {"info": info, "load_ms": ms, "equal": equal, "digests": digests,
+            "values": n, "coord": tuple(coord.values()),
+            "counts": kernels.counts()}
+
+
+def phase_substrate(dev, gpu):
+    """The multi-process training substrate on ranks of the card (gloo,
+    tensors on ``dev``): (a) LocalSGD card == CPU, (b) LocalSGD at
+    published widths, (c) the elastic restore 4 -> 2 ranks, (d) the stage
+    pipeline.  None of it launches a kernel: the counters, zeroed on
+    every rank before, must read 0 after.  Returns the rows."""
+    import shutil
+
+    from repro_torch.distributed import launch
+
+    kernels.reset_counts()
+    ckpt = _train_ckpt_dir("elastic")
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.spawn(_substrate_rank, SUB_RANKS,
+                             timeout_s=SUB_TIMEOUT_S,
+                             args=(str(dev), SUB_SIZES, str(ckpt)))
+        spawn4_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = launch.spawn(_restore_rank, 2, timeout_s=SUB_TIMEOUT_S,
+                                args=(str(dev), SUB_SIZES, str(ckpt)))
+        spawn2_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rows = {"ranks": SUB_RANKS, "sizes": dict(SUB_SIZES),
+            "launch_s": [spawn4_s, spawn2_s], "gpu": gpu}
+
+    # (a) card against the CPU
+    for r, rank in enumerate(ranks):
+        card, cpu = rank["small"][str(dev)], rank["small"]["cpu"]
+        for i, ((s1, n1, p1), (s2, n2, p2)) in enumerate(zip(card, cpu)):
+            if (s1, n1) != (s2, n2):
+                raise AssertionError(f"localsgd small rank {r} call {i}: "
+                                     f"{(s1, n1)} on the card, {(s2, n2)} "
+                                     f"on the CPU")
+            if not np.allclose(p1, p2, rtol=SUB_TOL, atol=SUB_TOL):
+                raise AssertionError(f"localsgd small rank {r} call {i}: "
+                                     f"params differ")
+    small = ranks[0]["small"][str(dev)]
+    print(f"[substrate] (a) LocalSGD 4-ring on 4 ranks of the card == the "
+          f"same ranks on the CPU: synced {[int(c[0]) for c in small]}, "
+          f"syncs {small[-1][1]}, params within {SUB_TOL}", flush=True)
+    rows["localsgd_small"] = {"synced": [bool(c[0]) for c in small],
+                              "syncs": small[-1][1]}
+
+    # (b) LocalSGD at published widths
+    lsgd = [r["localsgd"] for r in ranks]
+    calls = lsgd[0]["calls"]
+    for r, x in enumerate(lsgd[1:], 1):
+        if [(c["synced"], c["syncs"]) for c in x["calls"]] != \
+                [(c["synced"], c["syncs"]) for c in calls]:
+            raise AssertionError(f"localsgd: rank {r} disagrees on the syncs")
+    if calls[0]["synced"] or not any(c["synced"] for c in calls):
+        raise AssertionError(f"localsgd: synced {[c['synced'] for c in calls]}"
+                             f" (quiet at step 1, a sync by step "
+                             f"{len(calls)} wanted)")
+    for i, c in enumerate(calls):
+        if c["synced"]:
+            digests = {x["calls"][i]["digest"] for x in lsgd}
+            if len(digests) != 1 or not all(x["calls"][i]["anchor_is_params"]
+                                             for x in lsgd):
+                raise AssertionError(f"localsgd: replicas differ after the "
+                                     f"sync at step {c['step']}: {digests}")
+    med = {k: float(np.median(np.concatenate([x["parts_ms"][k] for x in lsgd])))
+           for k in lsgd[0]["parts_ms"]}
+    eff = sum(e for x in lsgd for e, _ in x["sends"]) / SUB_RANKS
+    phys = sum(p for x in lsgd for _, p in x["sends"]) / SUB_RANKS
+    row = {"arch": SUB_ARCH, "params": lsgd[0]["params"],
+           "rows_per_rank": [1, SUB_SIZES["len"]],
+           "step_ms_median_by_rank": [float(np.median(x["step_ms"][1:]))
+                                      for x in lsgd],
+           "step_ms_first": [x["step_ms"][0] for x in lsgd],
+           "gate_ms_median": float(np.median([t for x in lsgd
+                                              for t in x["gate_ms"]])),
+           "gate_parts_ms_median": med,
+           "sync_ms_all": lsgd[0]["parts_ms"].get("sync", []),
+           "staged_bytes_a_sync": lsgd[0]["staged_sync_bytes"],
+           "tau": lsgd[0]["tau"],
+           "drift_after_step1": np.asarray(lsgd[0]["drift1"]).tolist(),
+           "synced": [c["synced"] for c in calls],
+           "syncs": calls[-1]["syncs"], "eff_sends": eff,
+           "phys_sends": phys, "losses_rank0": lsgd[0]["losses"],
+           "peak_gb_by_rank": [x["peak_gb"] for x in lsgd]}
+    rows["localsgd"] = row
+    print(f"[substrate] (b) LocalSGD {SUB_ARCH} whole "
+          f"({row['params'] / 1e9:.3f} B params, bf16, float32 moments, "
+          f"remat) on a data ring of {SUB_RANKS} ranks, one (1, "
+          f"{SUB_SIZES['len']}) row a rank: tau {row['tau']:.6g} (4x the "
+          f"mean drift after step 1, {row['drift_after_step1']}); synced "
+          f"{[int(c) for c in row['synced']]} ({row['syncs']} syncs), every "
+          f"rank bitwise equal after each sync (sha256) and the anchor = the "
+          f"params; ms a local step (median of steps 2..): "
+          f"{', '.join(f'{t:.1f}' for t in row['step_ms_median_by_rank'])}; "
+          f"ms a gate median {row['gate_ms_median']:.3f} (drift "
+          f"{med.get('drift', 0):.3f}, monitor step {med.get('monitor', 0):.3f},"
+          f" any {med.get('any', 0):.3f}, sync all-reduce "
+          f"{med.get('sync', float('nan')):.3f}); staged bytes a sync "
+          f"{row['staged_bytes_a_sync']} a rank; monitor sends effective "
+          f"{eff:.0f} < physical {phys:.0f} a rank; peak GB "
+          f"{[None if g is None else round(g, 2) for g in row['peak_gb_by_rank']]}; "
+          f"rank 0's losses {[round(x, 4) for x in row['losses_rank0']]}; "
+          f"{gpu}", flush=True)
+    if not eff < phys:
+        raise AssertionError(f"localsgd: eff {eff} >= phys {phys}")
+
+    # (c) the elastic restore
+    saves = [r["save"] for r in ranks]
+    for r, x in enumerate(restored):
+        if not x["equal"]:
+            raise AssertionError(f"elastic: rank {r}'s loaded shards differ "
+                                 f"from their slices")
+        bad = [n for n, (a, b) in x["digests"].items() if a != b]
+        if bad:
+            raise AssertionError(f"elastic: rank {r} digests differ: {bad}")
+    gb = saves[0]["bytes"] / 1e9
+    save_ms = max(x["save_ms"] for x in saves)
+    load_ms = max(x["load_ms"] for x in restored)
+    rows["elastic"] = {"bytes": saves[0]["bytes"], "save_ms": save_ms,
+                       "save_gb_s": gb / (save_ms / 1e3),
+                       "load_ms": load_ms, "load_gb_s": gb / (load_ms / 1e3),
+                       "save_ms_by_rank": [x["save_ms"] for x in saves],
+                       "load_ms_by_rank": [x["load_ms"] for x in restored],
+                       "remesh": restored[0]["info"],
+                       "leaves": len(restored[0]["digests"]),
+                       "values_by_rank": [x["values"] for x in restored]}
+    print(f"[substrate] (c) elastic: {SUB_ARCH} params + AdamW state "
+          f"({gb:.3f} GB) placed on (data 2, model 2) by param_specs and "
+          f"saved from 4 ranks in {save_ms:.1f} ms "
+          f"({rows['elastic']['save_gb_s']:.3f} GB/s); a second launch of 2 "
+          f"ranks remeshed to {restored[0]['info']['shape']} and loaded with "
+          f"shardings in {load_ms:.1f} ms ({rows['elastic']['load_gb_s']:.3f} "
+          f"GB/s); every local shard bitwise its slice of the saved leaf "
+          f"({rows['elastic']['leaves']} leaves x 2 ranks, sha256); {gpu}",
+          flush=True)
+
+    # (d) the pipeline
+    pipes = [r["pipeline"] for r in ranks]
+    p0 = next(x for x in pipes if x["stage"] == 0)
+    if len({x["digest"] for x in pipes}) != 1:
+        raise AssertionError("pipeline: the ranks' outputs differ")
+    if not p0["bitwise"]:
+        raise AssertionError(f"pipeline: not bitwise the sequential layers "
+                             f"(max abs err {p0['max_abs_err']})")
+    S, M = SUB_SIZES["stages"], SUB_SIZES["microbatches"]
+    idle = []
+    for x in pipes:
+        for ticks in x["ticks"]:
+            wall = sum(t for t, _, _ in ticks)
+            idle.append(sum(t for t, _, a in ticks if not a) / wall)
+    tick_ms = [t * 1e3 for x in pipes for ticks in x["ticks"]
+               for t, _, _ in ticks]
+    staged = max(b for x in pipes for ticks in x["ticks"] for _, b, _ in ticks)
+    row = {"arch": PIPE_ARCH, "stages": S, "microbatches": M,
+           "microbatch": [1, SUB_SIZES["len"]],
+           "layer_params": p0["layer_params"],
+           "apply_ms": float(np.median([t for x in pipes
+                                        for t in x["apply_ms"]])),
+           "apply_ms_rank0": p0["apply_ms"],
+           "tick_ms_median": float(np.median(tick_ms)),
+           "staged_bytes_a_tick": staged,
+           "bubble_measured": float(np.mean(idle)),
+           "bubble_schedule": (S - 1) / (M + S - 1), "bitwise": True}
+    rows["pipeline"] = row
+    print(f"[substrate] (d) pipeline: {S} {PIPE_ARCH} decoder layers "
+          f"({row['layer_params'] / 1e9:.3f} B params a stage, bf16) as "
+          f"stage ranks, M = {M} microbatches of (1, {SUB_SIZES['len']}, "
+          f"d_model): output bitwise the layers in sequence on one rank, "
+          f"equal on every rank; ms an apply median {row['apply_ms']:.1f}, "
+          f"ms a tick median {row['tick_ms_median']:.2f}, staged bytes a "
+          f"tick {staged}; bubble measured {row['bubble_measured']:.4f} "
+          f"beside (S-1)/(M+S-1) = {row['bubble_schedule']:.4f}; {gpu}",
+          flush=True)
+
+    counts = kernels.counts()
+    totals = {key: counts[key] + sum(r["counts"][key]
+                                     for r in [*ranks, *restored])
+              for key in KERNELS}
+    if any(totals.values()):
+        raise AssertionError(f"substrate: a kernel launched: {totals}")
+    rows["kernel_launches"] = totals
+    print(f"[substrate] launches of {', '.join(KERNELS)} over phase 18 (all "
+          f"ranks): {', '.join(str(totals[k]) for k in KERNELS)}; launches "
+          f"{spawn4_s:.1f} s (4 ranks), {spawn2_s:.1f} s (2 ranks)",
+          flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4428,6 +4974,7 @@ def main() -> int:
                                            topos, dev, sync_us)
     zoo = phase("phase 16", phase_zoo, dev, gpu)
     train = phase("phase 17", phase_train, dev, gpu)
+    substrate = phase("phase 18", phase_substrate, dev, gpu)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -4510,6 +5057,7 @@ def main() -> int:
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps({"zoo": zoo, "gpu": gpu}), flush=True)
     print(json.dumps({"train": train, "gpu": gpu}), flush=True)
+    print(json.dumps({"distributed": substrate, "gpu": gpu}), flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,10 +27,15 @@ torch ops, no kernel of their own, as the JAX models reach no Pallas
 kernel), and its single-process training path: AdamW and the LR schedule
 (:mod:`.optim`), the token stream (:mod:`.data`), checkpoints in JAX's
 layout (:mod:`.checkpoint`), the train / prefill / decode steps and the
-fault-tolerant trainer (:mod:`.training`).  Still to port (ROADMAP
-A.10c): LSS-gated LocalSGD, the checkpoint's restore onto ``DeviceMesh``
-placements with elastic remesh, the stage pipeline, the production mesh
-and the dry-run.
+fault-tolerant trainer (:mod:`.training`), and its multi-process
+substrate: the host and production meshes (:mod:`.launch.mesh`), named
+shardings on ``DeviceMesh`` placements with elastic remesh and reshard
+(:mod:`.distributed.sharding`, :mod:`.distributed.elastic`, the
+checkpoint's ``load(shardings=)`` and the batch's placement), LSS-gated
+LocalSGD (:mod:`.training.localsgd`) and the stage pipeline
+(:mod:`.distributed.pipeline`).  Still to port (ROADMAP A.10c part 2):
+the train / prefill / decode steps across a ``DeviceMesh`` of more than
+one device, and the dry-run.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

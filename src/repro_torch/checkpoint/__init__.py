@@ -13,8 +13,9 @@ Guarantees:
   * async — ``save_async`` copies to host RAM synchronously and writes in
     a daemon thread, overlapping the next train steps (which update the
     parameters in place);
-  * the restore onto another mesh (``load(..., shardings=)``) waits for
-    ROADMAP A.10c.
+  * elastic — ``load(..., shardings=)`` places each leaf on a
+    ``NamedSharding`` of another mesh; across ranks a save gathers DTensor
+    leaves and rank 0 writes.
 """
 
 from .store import latest_step, load, save, save_async, wait_pending

@@ -12,6 +12,17 @@ the manifest, and restored bitwise.  Such a leaf does not load into JAX,
 whose ``load`` would convert the integers by value; float32 and integer
 leaves load either way.  A bfloat16 leaf JAX wrote (raw two-byte records
 to a reader without ``ml_dtypes``) loads here bitwise.
+
+Across ranks (an initialised process group of more than one rank) a save
+is a collective: every rank calls it, and every rank gathers each DTensor
+leaf's whole value to the host
+(:func:`repro_torch.distributed.sharding.full_tensor`); rank 0 alone
+writes (a plain tensor leaf is rank 0's value), and ``save`` ends at a
+barrier, so :func:`latest_step` is true on every rank when it returns.
+``save_async`` takes the snapshot in line (the collective) and writes in
+rank 0's thread; the other ranks start no thread.  ``load(...,
+shardings=)`` places each leaf on its ``NamedSharding``: every rank reads
+the file and keeps its own shard.
 """
 
 from __future__ import annotations
@@ -25,8 +36,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import tree as tree_lib
+from ..distributed import sharding
 
 __all__ = ["save", "save_async", "load", "latest_step", "wait_pending"]
 
@@ -35,9 +49,19 @@ _FINALIZE = threading.Lock()  # serializes rename + LATEST + GC across threads
 _BF16 = "bfloat16"
 
 
+def _ranks() -> tuple[int, int]:
+    """(this rank, world size); (0, 1) without a process group."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def _host(leaf):
-    """(numpy copy of ``leaf`` on the host, its manifest dtype)."""
+    """(numpy copy of ``leaf`` on the host, its manifest dtype); a DTensor
+    is gathered whole first (a collective)."""
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            leaf = sharding.full_tensor(leaf, device="cpu")
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), _BF16
@@ -56,13 +80,23 @@ def _snapshot(tree):
 
 
 def save(ckpt_dir, step: int, tree: Any, max_keep: int = 3):
-    """Synchronous atomic save."""
-    _write(pathlib.Path(ckpt_dir), step, *_snapshot(tree), max_keep)
+    """Synchronous atomic save (across ranks: a collective, rank 0
+    writes, all leave together)."""
+    snap = _snapshot(tree)
+    rank, world = _ranks()
+    if rank == 0:
+        _write(pathlib.Path(ckpt_dir), step, *snap, max_keep)
+    if world > 1:
+        dist.barrier()
 
 
 def save_async(ckpt_dir, step: int, tree: Any, max_keep: int = 3):
-    """Snapshot to host RAM now; write in a daemon thread."""
+    """Snapshot to host RAM now; write in a daemon thread (across ranks:
+    the snapshot is a collective, rank 0's thread writes, the others
+    return None)."""
     args = (pathlib.Path(ckpt_dir), step, *_snapshot(tree), max_keep)
+    if _ranks()[0] != 0:
+        return None
     t = threading.Thread(target=_write, args=args, daemon=True)
     t.start()
     _PENDING.append(t)
@@ -118,13 +152,23 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return int(f.read_text().strip())
 
 
-def _tensor(a: np.ndarray, dtype: str, like) -> torch.Tensor:
-    """A stored leaf as a tensor of ``like``'s dtype on its device."""
+def _device(like) -> torch.device:
+    """Where a leaf like ``like`` lives (a DTensor: its local shard)."""
+    if isinstance(like, DTensor):
+        return like.to_local().device
+    return like.device
+
+
+def _tensor(a: np.ndarray, dtype: str, like, sh=None) -> torch.Tensor:
+    """A stored leaf as a tensor of ``like``'s dtype on its device; with a
+    ``NamedSharding`` ``sh``, this rank's shard of it as a DTensor."""
     a = np.ascontiguousarray(a).reshape(a.shape)  # 0-d stays 0-d
     if dtype == _BF16:  # uint16 bits (or JAX's raw two-byte records)
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
+    if sh is not None:
+        return sharding.device_put(t.to(like.dtype), sh, _device(like))
     return t.to(device=like.device, dtype=like.dtype)
 
 
@@ -133,13 +177,12 @@ def load(ckpt_dir, step: int, like: Any, shardings: Any = None):
     in the dtype of the matching leaf of ``like`` (a ``ParamTree`` comes
     back as a new ``ParamTree``).
 
-    ``shardings`` (restoring onto another mesh's placements, the elastic
-    path) is not ported yet (ROADMAP A.10c) and raises.
+    ``shardings`` may be a tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` matching
+    ``like`` — each leaf is placed with its sharding (a DTensor holding
+    this rank's shard, on the device of ``like``'s leaf), which is how a
+    checkpoint written on mesh A restores onto mesh B (elastic restart).
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "checkpoint.load(shardings=...) onto DeviceMesh placements "
-            "waits for ROADMAP A.10c")
     root = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((root / "manifest.json").read_text())
     dtypes = [leaf["dtype"] for leaf in manifest["leaves"]]
@@ -149,6 +192,8 @@ def load(ckpt_dir, step: int, like: Any, shardings: Any = None):
     if len(flat_like) != len(leaves):
         raise ValueError(f"checkpoint has {len(leaves)} leaves, target has "
                          f"{len(flat_like)}")
+    flat_sh = (tree_lib.prefix_leaves(like, shardings)
+               if shardings is not None else [None] * len(leaves))
     return tree_lib.unflatten_like(
-        like, [_tensor(a, d, l) for a, d, l in zip(leaves, dtypes,
-                                                     flat_like)])
+        like, [_tensor(a, d, l, sh) for a, d, l, sh in zip(
+            leaves, dtypes, flat_like, flat_sh)])

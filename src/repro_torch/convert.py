@@ -5,7 +5,7 @@ engine ``ShardedState`` or ``AsyncShardedState``, ``TopoArrays``,
 ``PackedSlot`` or service ``QuerySpec`` hands its fields
 over as numpy arrays (``{f: np.asarray(getattr(s, f)) for f in
 s._fields}``) and gets the port's twin back on ``device``; a model's
-parameters, its AdamW state and its caches go across as
+parameters, its AdamW state, its caches and a LocalSGD state go across as
 ``jax.tree.map(np.asarray, tree)``.
 This is how the parity tests start both packages from the same state,
 the same tenants and the same weights.
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import tree as tree_lib
-from .core import lss, regions
+from .core import lss, monitor, regions
 from .engine import engine as engine_lib
 from .models import attention, build, ssm
 from .models.common import ParamTree, as_tree
@@ -26,12 +26,13 @@ from .models.transformer import LMCache
 from .optim import AdamWState
 from .service.controlplane import SLOSpec
 from .service.query import QuerySpec
+from .training.localsgd import LocalSGDState
 
 __all__ = ["state_from_jax_numpy", "states_from_jax_numpy", "state_to_numpy",
            "sharded_state_from_jax_numpy", "async_state_from_jax_numpy",
            "topo_from_numpy", "slot_from_numpy", "query_spec_from_numpy",
            "model_params_from_jax_numpy", "lm_cache_from_jax_numpy",
-           "encdec_cache_from_jax_numpy"]
+           "encdec_cache_from_jax_numpy", "localsgd_state_from_jax_numpy"]
 
 _STATE_DTYPES = {
     "out_m": torch.float32, "out_c": torch.float32,
@@ -259,3 +260,20 @@ def encdec_cache_from_jax_numpy(cache, device) -> EncDecCache:
     return EncDecCache(kv=_kv_cache(cache.kv, device),
                        cross_k=_array(cache.cross_k, device),
                        cross_v=_array(cache.cross_v, device))
+
+
+def localsgd_state_from_jax_numpy(state, peer: int, device) -> LocalSGDState:
+    """This peer's :class:`~repro_torch.training.LocalSGDState` from JAX's
+    as numpy (``(anchor, mon, syncs)``: the replica-stacked anchor tree,
+    the ``MonitorState``, the sync count): row ``peer`` of every stacked
+    array, kept ``(1, ...)``; the monitor's fields float32, ``syncs`` a
+    0-d int32."""
+    anchor, mon, syncs = state
+    return LocalSGDState(
+        anchor=tree_lib.map(
+            lambda a: _array(np.asarray(a)[peer:peer + 1], device), anchor),
+        mon=monitor.MonitorState(*(
+            _array(np.asarray(getattr(mon, f))[peer:peer + 1], device,
+                   torch.float32)
+            for f in monitor.MonitorState._fields)),
+        syncs=_array(np.asarray(syncs).reshape(()), device, torch.int32))

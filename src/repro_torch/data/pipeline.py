@@ -77,17 +77,33 @@ def make_batch_fn(source: TokenSource, mesh=None, device=None):
     """Returns step -> Batch on ``device`` (``cuda`` unless the caller
     passes one; without a card and without a device it raises).
 
-    ``mesh`` placements (the batch rows split over a ``DeviceMesh``'s data
-    axes) are not ported yet (ROADMAP A.10c): a mesh raises.
+    With a ``DeviceMesh`` the batch rows are split over the data axes it
+    has (``("pod", "data")``) and replicated over the others, JAX's
+    ``P(data_axes, None)`` / ``P(data_axes, None, None)``: ``tokens``,
+    ``labels`` and ``frames`` are DTensors whose local shard, on
+    ``device``, is this rank's rows (every rank builds the global batch;
+    nothing moves between ranks).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_batch_fn(mesh=...) waits for the DeviceMesh placements "
-            "of ROADMAP A.10c")
     dev = resolve_device(device)
+    if mesh is None:
+        def fn(step: int) -> Batch:
+            b = source.global_batch_at(step)
+            return Batch(*(None if x is None else x.to(dev) for x in b))
 
-    def fn(step: int) -> Batch:
+        return fn
+
+    from ..distributed.sharding import NamedSharding, device_put
+
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    sh2 = NamedSharding(mesh, (data_axes or None, None))
+    sh3 = NamedSharding(mesh, (data_axes or None, None, None))
+
+    def fn_mesh(step: int) -> Batch:
         b = source.global_batch_at(step)
-        return Batch(*(None if x is None else x.to(dev) for x in b))
+        return Batch(
+            tokens=device_put(b.tokens, sh2, dev),
+            labels=device_put(b.labels, sh2, dev),
+            frames=None if b.frames is None
+            else device_put(b.frames, sh3, dev))
 
-    return fn
+    return fn_mesh

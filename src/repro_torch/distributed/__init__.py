@@ -1,11 +1,14 @@
 """Distributed substrate (port of ``repro.distributed``).
 
-Ported so far: ``compression`` (the quantized halo wires' arithmetic and
-the substrate's gradient compressors).  Of the port's own: ``collective``
-(byte collectives over ``torch.distributed`` groups, staged through the
-host on gloo) and ``launch`` (one process a rank, for the multi-process
-paths and their tests).  ``pipeline`` and ``elastic`` belong to the
-training-monitor substrate (ROADMAP A.10).
+Ported: ``compression`` (the quantized halo wires' arithmetic and the
+substrate's gradient compressors), ``elastic`` (remesh after a lost rank,
+reshard onto a mesh) and ``pipeline`` (the GPipe schedule over a
+``stage`` axis, one stage a rank).  Of the port's own: ``collective``
+(byte collectives and an all-reduce over ``torch.distributed`` groups,
+staged through the host on gloo), ``launch`` (one process a rank, for the
+multi-process paths and their tests) and ``sharding`` (JAX's
+``NamedSharding`` / ``device_put`` on ``DeviceMesh`` placements).
 """
 
-from . import collective, compression, launch  # noqa: F401
+from . import (collective, compression, elastic, launch,  # noqa: F401
+               pipeline, sharding)

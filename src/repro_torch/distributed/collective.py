@@ -1,15 +1,17 @@
 """Byte collectives over ``torch.distributed`` groups, for the port's
-multi-process paths (the engine's collective halo transport and the mesh
-monitor).
+multi-process paths (the engine's collective halo transport, the mesh
+monitor, placements and LocalSGD).
 
 A collective here moves bytes: each tensor is viewed as one ``uint8`` row
 per leading index, so every dtype crosses it (``bool`` flags, ``int8`` and
-``bfloat16`` payloads included) and comes back bitwise.  An NCCL group
-moves device memory.  A gloo group given a CUDA tensor moves it through
+``bfloat16`` payloads included) and comes back bitwise.  :func:`all_reduce`
+is the exception: it reduces values, in the buffer's own dtype.  An NCCL
+group moves device memory.  A gloo group given a CUDA tensor moves it through
 pinned host buffers: :func:`staged` says when, and :func:`staged_bytes`
 counts what a call copies to the host.  :func:`axis_size` reads a named
 axis of a ``DeviceMesh``.  Under :func:`repro_torch.launch.cost.analyze`
-each call counts the payload bytes this rank sends, by op.
+each all-to-all and all-gather counts the payload bytes this rank sends,
+by op.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.distributed as dist
 from ..launch import cost
 
 __all__ = ["axis_size", "staged", "staged_bytes", "host_buffer", "to_host",
-           "all_to_all", "all_gather"]
+           "all_to_all", "all_gather", "all_reduce"]
 
 
 def axis_size(mesh, axis_name: str) -> int:
@@ -98,3 +100,17 @@ def all_gather(buf, group=None) -> torch.Tensor:
     with cost.collective("all-gather", buf.numel() * buf.element_size()):
         rows = _run(buf.reshape(1, *buf.shape), group, op, world)
     return rows.reshape(world * buf.shape[0], *buf.shape[1:])
+
+
+def all_reduce(buf, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """``op`` over every rank's ``buf`` (same shape and dtype on each),
+    as a new tensor on ``buf``'s device; ``buf`` is not written.  Staged
+    through pinned host memory as the other collectives: gloo reduces on
+    the host.  Gloo's algorithms reduce each element once and copy the
+    result, so every rank gets the same bits.  Not counted by
+    :func:`repro_torch.launch.cost.analyze` (the engine, whose plans it
+    ranks, reduces nothing)."""
+    through_host = staged(buf, group)
+    out = to_host(buf) if through_host else buf.clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out.to(buf.device, non_blocking=True) if through_host else out

@@ -13,7 +13,7 @@ JAX's returns ``(jitted, in_shardings, out_shardings, input_specs)``:
 
 The models run on one device: ``mesh`` is None, a sequence of axis names
 or a one-device ``DeviceMesh``, and only names the axes of the specs.
-Running a step across a larger mesh waits for ROADMAP A.10c.
+Running a step across a larger mesh waits for ROADMAP A.10c part 2.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def _axes(mesh):
     if callable(size) and size() > 1:
         raise NotImplementedError(
             "a train / serve step across a DeviceMesh of more than one "
-            "device waits for ROADMAP A.10c")
+            "device waits for ROADMAP A.10c part 2")
     return mesh
 
 

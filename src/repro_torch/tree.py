@@ -23,7 +23,8 @@ from typing import Any, Callable
 
 from .models.common import ParamTree
 
-__all__ = ["leaves", "leaves_with_names", "unflatten_like", "map"]
+__all__ = ["leaves", "leaves_with_names", "unflatten_like", "map",
+           "prefix_leaves", "plain"]
 
 
 def _is_namedtuple(node) -> bool:
@@ -110,3 +111,41 @@ def map(fn: Callable, tree, *rest):  # noqa: A001 (jax.tree.map's name)
     return unflatten_like(tree, [fn(*xs) for xs in zip(leaves(tree),
                                                          *others,
                                                          strict=True)])
+
+
+def prefix_leaves(like, other) -> list[Any]:
+    """The nodes of ``other`` at the positions of ``like``'s leaves, in
+    JAX's order: ``like``'s structure is a prefix of ``other``'s (JAX's
+    rule for the extra trees of ``tree.map``), and what ``other`` holds
+    there is taken whole (a spec tuple, a ``NamedSharding``)."""
+    out = []
+
+    def walk(node, there, path):
+        kids = _children(node)
+        if kids is None:
+            out.append(there)
+            return
+        theirs = _children(there) or []
+        if [n for n, _ in kids] != [n for n, _ in theirs]:
+            raise ValueError(f"at {path or 'the root'}: {[n for n, _ in kids]}"
+                             f" against {[n for n, _ in theirs]}")
+        for (name, child), (_, t) in zip(kids, theirs):
+            walk(child, t, path + name)
+
+    walk(like, other, "")
+    return out
+
+
+def plain(tree):
+    """``tree`` with every :class:`ParamTree` replaced by the nested dict
+    it holds (the same leaves, names and order): a structure that can
+    hold leaves of any type, as a tree of shardings does."""
+    if isinstance(tree, ParamTree):
+        tree = tree.tree()
+    if isinstance(tree, dict):
+        return {k: plain(v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(plain(getattr(tree, f)) for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(plain(c) for c in tree)
+    return tree

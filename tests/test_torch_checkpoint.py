@@ -3,8 +3,8 @@ package's: one layout, so a checkpoint written by one package loads into
 the other bitwise.
 
 * The twins of ``tests/test_substrate.py``'s checkpoint tests: round trip,
-  async saves with GC, no partial checkpoint visible; the elastic
-  reshard's twin (``load(..., shardings=)``) raises, naming A.10c.
+  async saves with GC, no partial checkpoint visible, the elastic
+  reshard (``load(..., shardings=)`` onto a one-rank mesh).
 * bf16 leaves round-trip bitwise (stored as their uint16 bits).
 * Across packages: an f32 tree and a ``(params, AdamWState)`` smoke pair
   written by JAX load into the port's trees bitwise, and the reverse;
@@ -25,6 +25,7 @@ import repro_torch.configs as cfgs
 from repro import checkpoint as j_checkpoint
 from repro.models import build as j_build
 from repro.optim import adamw_init as j_adamw_init
+import torch_ranks
 from repro_torch import checkpoint, convert, tree
 from repro_torch.models import ParamTree, build
 from repro_torch.optim import AdamWState, adamw_init
@@ -99,12 +100,28 @@ def test_checkpoint_atomic_no_partial(tmp_path):
 
 
 def test_checkpoint_reshard_waits_for_a10c(tmp_path):
-    """The twin of ``test_checkpoint_elastic_reshard``: restoring onto other
-    placements is not ported yet and says so."""
+    """The twin of ``test_checkpoint_elastic_reshard`` (the name is from
+    before ``load(shardings=)`` was ported): restore with explicit
+    shardings onto a one-rank mesh; each leaf comes back a DTensor on
+    that mesh, bitwise."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import NamedSharding
+
     t = _tree()
     checkpoint.save(tmp_path, 3, t)
-    with pytest.raises(NotImplementedError, match="A.10c"):
-        checkpoint.load(tmp_path, 3, t, shardings=tree.map(lambda _: None, t))
+    with torch_ranks.one_rank_group():
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        sh = tree.map(lambda _: NamedSharding(mesh, ()), t)
+        t2 = checkpoint.load(tmp_path, 3, t, shardings=sh)
+        a = t2["a"]
+        assert isinstance(a, DTensor)
+        assert dict(zip(a.device_mesh.mesh_dim_names,
+                        a.device_mesh.shape)) == {"data": 1}
+        for got, want in zip(tree.leaves(t2), tree.leaves(t)):
+            assert got.dtype == want.dtype
+            assert torch.equal(got.to_local(), want)
 
 
 # ---------------------------------------------------------------------------

@@ -1231,3 +1231,26 @@ def test_checkpoint_bf16_roundtrip_on_card(dev, tmp_path):
         else:
             assert torch.equal(a, b)
     assert {str(leaf.dtype) for leaf in tree.leaves(p2)} == {"torch.bfloat16"}
+
+
+def test_substrate_ranks_on_card_match_cpu(dev, tmp_path):
+    """2 ranks of the card over gloo: LocalSGD's gate calls (the 2-ring on
+    ``tests/test_distributed.py``'s schedule) on the card give the synced
+    flags of the same ranks on the CPU and their params within 1e-5, and a
+    DTensor checkpoint round trip with its shards on the card is bitwise
+    (local shards and the gathered whole, bf16 included)."""
+    import torch_ranks
+    from repro_torch.distributed import launch
+
+    ranks = launch.spawn(torch_ranks.card_substrate_body, 2, timeout_s=300,
+                         args=(str(tmp_path),))
+    for r in ranks:
+        card, cpu = r["cuda"], r["cpu"]
+        assert [s for s, _ in card] == [s for s, _ in cpu]
+        assert any(s for s, _ in card)
+        for (_, a), (_, b) in zip(card, cpu):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        for k, (before, after, where, whole, orig) in r["ckpt"].items():
+            assert where == "cuda", k
+            assert np.array_equal(before, after), k
+            assert np.array_equal(whole, orig), k

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_ranks
 from repro.data import TokenSource as JTokenSource
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_init as j_adamw_init
@@ -187,6 +188,11 @@ def test_shard_at_bitwise_jax(kw):
 
 
 def test_make_batch_fn_places_and_refuses_a_mesh():
+    """Places the batch on the device, and on a one-rank mesh (the name is
+    from before ``mesh=`` was ported): DTensors holding every row."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     src = TokenSource(vocab=100, seq_len=8, global_batch=2, seed=4,
                       frames_dim=3, enc_len=5)
     b = make_batch_fn(src, device="cpu")(6)
@@ -194,8 +200,14 @@ def test_make_batch_fn_places_and_refuses_a_mesh():
     for got, ref in zip(b, want):
         assert got.device.type == "cpu"
         assert torch.equal(got, ref)
-    with pytest.raises(NotImplementedError, match="A.10c"):
-        make_batch_fn(src, mesh=object(), device="cpu")
+    with torch_ranks.one_rank_group():
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        bm = make_batch_fn(src, mesh=mesh, device="cpu")(6)
+        for got, ref in zip(bm, want):
+            assert isinstance(got, DTensor)
+            assert tuple(got.placements) == (Shard(0), Replicate())
+            assert torch.equal(got.to_local(), ref)
 
 
 def test_make_batch_fn_defaults_to_cuda():

@@ -9,6 +9,7 @@ against the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -308,3 +309,325 @@ def sum_ranks(rank, world):
     x = torch.tensor([float(rank)])
     dist.all_reduce(x)
     return {"sum": x, "rank": rank}
+
+
+# -- the multi-process training substrate (A.10c part 1) ----------------------
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A gloo process group of one rank in this process (for a one-device
+    mesh in a test), destroyed on exit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+LOCALSGD_TAU = 0.5  # tests/test_distributed.py::test_localsgd_gate
+LOCALSGD_HOLD = 6  # gate calls at a drift of 0.05 (no sync)
+LOCALSGD_FEED = 10  # gate calls from a drift of arange(R), params fed back
+LOCALSGD_RESUME_AT = 4  # "ring4_resume" starts from JAX's state after this
+# case: (mesh shape, axis names, data_axes, {leaf: (shape after R, dtype)})
+LOCALSGD_CASES = {
+    "ring4": ((4,), ("data",), ("data",), {"w": ((8,), "float32")}),
+    "dm2x2": ((2, 2), ("data", "model"), ("data",),
+              {"w": ((8,), "float32")}),
+    "pod": ((2, 2, 2), ("pod", "data", "model"), ("pod", "data"),
+            {"b": ((8,), "bfloat16"), "w": ((2, 4), "float32")}),
+}
+
+
+def localsgd_inputs(case: str):
+    """``(R, params0, hold, feed)`` of a case, as float32 numpy (R, ...)
+    trees: the replica-stacked zeros, the held input (+0.05) and the first
+    fed input (+ arange(R) along the replicas: drifts 8 i^2 and up, far
+    from tau = 0.5).  Each package casts them to the leaf's dtype."""
+    shape, names, data_axes, leaves = LOCALSGD_CASES[case]
+    R = int(np.prod([n for n, a in zip(shape, names) if a in data_axes]))
+    zeros = {k: np.zeros((R, *s), np.float32) for k, (s, _) in leaves.items()}
+    hold = {k: v + np.float32(0.05) for k, v in zeros.items()}
+    feed = {k: v + np.arange(R, dtype=np.float32).reshape(
+        R, *([1] * (v.ndim - 1))) for k, v in zeros.items()}
+    return R, zeros, hold, feed
+
+
+def _f32(t):
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def localsgd_body(rank, world, cases, resume=None):
+    """Each LocalSGD case of ``cases`` on a gloo mesh: at every gate call
+    the synced flag, the sync count, the gathered (R, ...) params, anchor
+    and monitor fields (bf16 as float32) and this rank's own params.
+    ``resume``: JAX's state as numpy after ``LOCALSGD_RESUME_AT`` calls of
+    "ring4" and its params then, to run the rest from ("ring4_resume")."""
+    from repro_torch import convert
+    from repro_torch.training import localsgd
+
+    torch.set_num_threads(1)
+    out = {}
+    for case in cases:
+        base = "ring4" if case == "ring4_resume" else case
+        shape, names, data_axes, leaves = LOCALSGD_CASES[base]
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        cfg = localsgd.LocalSGDConfig(tau=LOCALSGD_TAU, monitor_rounds=2)
+        init_fn, gate = localsgd.make_localsgd(mesh, data_axes, cfg,
+                                               device="cpu")
+        peer = gate.mon.peer
+        R, zeros, hold, feed = localsgd_inputs(base)
+
+        def row(tree):
+            return {k: torch.tensor(v[peer:peer + 1]).to(
+                getattr(torch, leaves[k][1])) for k, v in tree.items()}
+
+        calls = [False] * LOCALSGD_HOLD + [True] * LOCALSGD_FEED
+        p_feed = row(feed)
+        if case == "ring4_resume":
+            jstate, jparams = resume
+            state = convert.localsgd_state_from_jax_numpy(jstate, peer, "cpu")
+            p_feed = {k: torch.tensor(np.asarray(v, np.float32)[peer:peer + 1])
+                      for k, v in jparams.items()}
+            calls = calls[LOCALSGD_RESUME_AT:]
+        else:
+            state = init_fn(row(zeros))
+        records = []
+        for fed in calls:
+            p = p_feed if fed else row(hold)
+            state, p2, synced = gate(state, p)
+            if fed:
+                p_feed = p2
+            records.append({
+                "synced": synced, "syncs": int(state.syncs),
+                "params": {k: _f32(v) for k, v in gate.gather(p2).items()},
+                "anchor": {k: _f32(v)
+                           for k, v in gate.gather(state.anchor).items()},
+                "mon": {f: gate.mon.gather(getattr(state.mon, f))
+                        for f in state.mon._fields},
+                "local": {k: _f32(v) for k, v in p2.items()}})
+        out[case] = {"peer": peer, "records": records}
+    return out
+
+
+PIPE_CASES = ((4, 8, 2, 16), (4, 2, 2, 16), (2, 8, 2, 16))  # (S, M, B, D)
+
+
+def pipeline_inputs(S, M, B, D, seed=0):
+    """Numpy ``Ws`` (S, D, D) / sqrt(D) and ``xs`` (M, B, D), float32."""
+    rng = np.random.default_rng([seed, S, M])
+    ws = (rng.standard_normal((S, D, D)) / np.sqrt(D)).astype(np.float32)
+    xs = rng.standard_normal((M, B, D)).astype(np.float32)
+    return ws, xs
+
+
+def _stage_fn(w, x):
+    return torch.tanh(x @ w)
+
+
+def pipeline_body(rank, world, cases):
+    """Each ``(S, M, B, D)`` of ``cases`` through ``pipeline`` on a gloo
+    mesh (``("stage",)`` when S is the world, else ``("data", "stage")``),
+    with full and (S = world) DTensor-placed stacked params, beside the
+    same stages applied in sequence one microbatch at a time."""
+    from repro_torch.distributed import pipeline, sharding
+
+    torch.set_num_threads(1)
+    out = {}
+    for S, M, B, D in cases:
+        if S == world:
+            mesh = init_device_mesh("cpu", (S,), mesh_dim_names=("stage",))
+        else:
+            mesh = init_device_mesh("cpu", (world // S, S),
+                                    mesh_dim_names=("data", "stage"))
+        ws, xs = (torch.tensor(a) for a in pipeline_inputs(S, M, B, D))
+        apply = pipeline.pipeline(_stage_fn, mesh, "stage")
+        got = {"full": apply(ws, xs)}
+        ticks = apply.ticks
+        if S == world:
+            placed = sharding.device_put(
+                ws, sharding.NamedSharding(mesh, ("stage",)))
+            got["dtensor"] = apply(placed, xs)
+        seq = []
+        for m in range(M):
+            x = xs[m]
+            for s in range(S):
+                x = _stage_fn(ws[s], x)
+            seq.append(x)
+        out[(S, M, B, D)] = {**got, "seq": torch.stack(seq),
+                             "active": [a for _, _, a in ticks],
+                             "stage": int(mesh.get_local_rank("stage"))}
+    out["no_axis"] = _raises(lambda: pipeline.pipeline(_stage_fn, mesh, "pp"))
+    return out
+
+
+# Elastic: an 8-rank save restored by a 4-rank launch; at world 3 a mesh
+# over ranks [0, 1] leaves rank 2 out (JAX's remesh never reports a spare:
+# its model axis halves down to a divisor of the count).
+ELASTIC_W = np.arange(64, dtype=np.float32).reshape(8, 8)
+RESHARD_SPECS = {"a": (("pod", "data"), None), "blk": {"b": (None, "model"),
+                                                         "c": (None,)}}
+BATCH_SOURCE = dict(vocab=1000, seq_len=16, global_batch=8, seed=3,
+                    frames_dim=4, enc_len=3)
+
+
+def reshard_tree() -> dict:
+    """The reshard case's values (numpy): a dim on ("pod", "data"), one on
+    "model", one replicated."""
+    rng = np.random.default_rng(5)
+    return {"a": rng.standard_normal((8, 3)).astype(np.float32),
+            "blk": {"b": rng.standard_normal((3, 4)).astype(np.float32),
+                    "c": np.arange(5, dtype=np.int32)}}
+
+
+def cross_tree() -> dict:
+    """The tree the port saves from DTensor leaves on 4 ranks and JAX
+    loads: a sharded float32 matrix, a replicated int vector, a tuple."""
+    rng = np.random.default_rng(9)
+    return {"p": {"w": rng.standard_normal((8, 6)).astype(np.float32),
+                  "n": np.arange(4, dtype=np.int32)},
+            "t": (rng.standard_normal((4,)).astype(np.float32),)}
+
+
+CROSS_SPECS = {"p": {"w": ("data", "model"), "n": (None,)}, "t": ((None,),)}
+
+
+def _coord(mesh):
+    c = mesh.get_coordinate()
+    return None if c is None else tuple(int(i) for i in c)
+
+
+def _mesh_info(mesh):
+    return (tuple(mesh.mesh_dim_names), tuple(int(n) for n in mesh.shape))
+
+
+def _raises(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return f"ValueError: {e}"
+    return "no error"
+
+
+def elastic_body(rank, world, ckpt_dir):
+    """The elastic cases of a launch of ``world`` ranks (1, 3, 4 or 8)."""
+    from repro_torch import checkpoint
+    from repro_torch.data import TokenSource, make_batch_fn
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.set_num_threads(1)
+    out = {"host_mesh": _mesh_info(mesh_lib.make_host_mesh()),
+           "host_mesh_1axis": _mesh_info(
+               mesh_lib.make_host_mesh(axes=("data",))),
+           "production": [_raises(lambda mp=mp: mesh_lib.make_production_mesh(
+               multi_pod=mp)) for mp in (False, True)],
+           "bad_shape": _raises(lambda: mesh_lib.make_host_mesh(
+               (world + 1, 1)))}
+    if world == 1:
+        mesh, info = elastic.remesh(model_axis=1)
+        out.update(remesh=info, remesh_mesh=_mesh_info(mesh))
+    elif world == 3:  # rank 2 outside the mesh: a spare
+        mesh, info = elastic.remesh([0, 1], model_axis=2)
+        x = sharding.device_put(torch.tensor(ELASTIC_W[:4]),
+                                sharding.NamedSharding(mesh, ("data",
+                                                              "model")))
+        out.update(remesh=info, coord=_coord(mesh),
+                   local_numel=x.to_local().numel(),
+                   full=sharding.full_tensor(x))
+    elif world == 8:
+        mesh8, info = elastic.remesh(model_axis=2)
+        t8 = sharding.device_put(torch.tensor(ELASTIC_W),
+                                 sharding.NamedSharding(mesh8,
+                                                        ("data", "model")))
+        checkpoint.save(ckpt_dir + "/elastic", 1, {"w": t8})
+        cube = mesh_lib.make_host_mesh((2, 2, 2), ("pod", "data", "model"))
+        placed = elastic.reshard(
+            {k: (torch.tensor(v) if not isinstance(v, dict) else
+                 {kk: torch.tensor(vv) for kk, vv in v.items()})
+             for k, v in reshard_tree().items()}, RESHARD_SPECS, cube)
+        batch = make_batch_fn(TokenSource(**BATCH_SOURCE), mesh=cube,
+                              device="cpu")(7)
+        out.update(
+            remesh=info, coord8=_coord(mesh8), local8=t8.to_local(),
+            cube_coord=_coord(cube),
+            reshard={"a": placed["a"].to_local(),
+                     "b": placed["blk"]["b"].to_local(),
+                     "c": placed["blk"]["c"].to_local()},
+            placements={"a": [str(p) for p in placed["a"].placements],
+                        "b": [str(p) for p in placed["blk"]["b"].placements]},
+            indivisible=_raises(lambda: sharding.device_put(
+                torch.zeros(3, 4), sharding.NamedSharding(cube, ("data",)))),
+            batch={f: getattr(batch, f).to_local()
+                   for f in ("tokens", "labels", "frames")},
+            batch_full=sharding.full_tensor(batch.tokens))
+    elif world == 4:
+        mesh4, info = elastic.remesh(model_axis=2)
+        sh = {"w": sharding.NamedSharding(mesh4, ("data", "model"))}
+        t4 = checkpoint.load(ckpt_dir + "/elastic", 1,
+                             {"w": torch.zeros(8, 8)}, shardings=sh)
+        grid = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        cross = {"p": {k: torch.tensor(v) for k, v in
+                       cross_tree()["p"].items()},
+                 "t": tuple(torch.tensor(v) for v in cross_tree()["t"])}
+        checkpoint.save(ckpt_dir + "/cross", 2,
+                        elastic.reshard(cross, CROSS_SPECS, grid))
+        out.update(remesh=info, coord4=_coord(mesh4),
+                   local4=t4["w"].to_local(),
+                   mesh4=_mesh_info(t4["w"].device_mesh),
+                   full4=sharding.full_tensor(t4["w"]),
+                   latest=checkpoint.latest_step(ckpt_dir + "/cross"))
+    return out
+
+
+def card_substrate_body(rank, world, tmp):
+    """The card test of the substrate on ``world`` ranks of one card
+    (gloo): a LocalSGD ring's gate calls on the card and on the CPU (the
+    synced flags and the gathered params), and a DTensor checkpoint round
+    trip with its leaves on the card (the local shards before the save and
+    after the load, as uint8 bytes, and the gathered whole)."""
+    from repro_torch import checkpoint
+    from repro_torch.distributed import elastic, sharding
+    from repro_torch.training import localsgd
+
+    torch.cuda.set_device(0)
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    out = {}
+    for where in ("cuda", "cpu"):
+        init_fn, gate = localsgd.make_localsgd(
+            mesh, ("data",), localsgd.LocalSGDConfig(tau=LOCALSGD_TAU),
+            device=where)
+        zeros = torch.zeros((1, 2, 4), device=where)
+        state = init_fn({"w": zeros})
+        p_feed = {"w": zeros + gate.mon.peer}
+        calls = []
+        for i in range(LOCALSGD_HOLD + LOCALSGD_FEED):
+            fed = i >= LOCALSGD_HOLD
+            state, p2, synced = gate(state, p_feed if fed
+                                     else {"w": zeros + 0.05})
+            if fed:
+                p_feed = p2
+            calls.append((synced, gate.gather(p2)["w"]))
+        out[where] = calls
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tree = {"w": torch.randn((4, 6), generator=g, device="cuda"),
+            "b": torch.randn((6, 2), generator=g,
+                             device="cuda").to(torch.bfloat16)}
+    specs = {"w": ("data", None), "b": (None,)}
+    placed = elastic.reshard(tree, specs, mesh)
+    checkpoint.save(tmp, 1, placed)
+    back = checkpoint.load(tmp, 1, tree,
+                           shardings=sharding.shardings_like(tree, specs,
+                                                             mesh))
+
+    def raw(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    out["ckpt"] = {k: (raw(placed[k].to_local()), raw(back[k].to_local()),
+                       back[k].to_local().device.type,
+                       raw(sharding.full_tensor(back[k])), raw(tree[k]))
+                   for k in tree}
+    return out
