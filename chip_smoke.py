@@ -300,8 +300,38 @@ Phases, in order; any failure exits nonzero:
    apply and a tick, staged bytes a tick, the measured bubble beside
    (S - 1) / (M + S - 1).
 
+19. the train, prefill and decode steps across a multi-device
+   ``DeviceMesh`` (``repro_torch.training.steps`` through
+   ``repro_torch.distributed.spmd``) and the dry-run
+   (``repro_torch.launch.dryrun``; A.10c part 2): 4 ranks sharing the
+   card over gloo on a (data 2, model 2) mesh, shards on the card, the
+   launch counters zeroed on every rank and required to read 0 after:
+   (a) at smoke size in float32, on the card and on the same ranks with
+   CPU shards: two yi-9b train steps at accum 2 on (4, 32), a qwen3-moe
+   step (FSDP, remat, accum 2), a yi-9b prefill of (4, 12) and three
+   greedy steps: losses and gnorms within 1e-4, params within (1e-4,
+   1e-5) but for AdamW sign flips (under 1e-3 of a leaf, each under
+   2 lr a step), tokens equal; (b) mamba2-370m whole (bf16, float32
+   moments, remat), a (2, 4096) ``TokenSource`` global batch (one row a
+   data rank), one untimed and two timed steps, with the default
+   (non-deterministic) CUDA algorithms: ms a step, staged bytes a step a
+   rank (gathers, grad reduction, means: ``fn.plan.staged``), peak
+   memory a rank after the first step; after every step the gathered
+   params equal on every rank (sha256) and every local shard, each
+   replica's own, bitwise its slice; (c) qwen3-14b with 2 of 40 layers
+   (bf16): a prefill of (2, 4096), one row a data rank, and 32 greedy
+   steps, ms and ms a token, staged bytes; each rank's row then through
+   the one-rank steps at batch 1 (the shapes the rank computed), whose
+   tokens must be equal;
+   (d) the dry-run of yi-9b train_4k single and qwen3-moe-235b-a22b
+   train_4k multi, each in a child process started beside the kernels'
+   build and awaited before phase 3 (so that no timed phase shares the
+   host with their tracing): status ``ok``, the dominant term, the
+   bound, bytes per device.
+
 It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), phase 17's
-(``{"train": [...]}``), phase 18's (``{"distributed": {...}}``), then a
+(``{"train": [...]}``), phase 18's (``{"distributed": {...}}``), phase
+19's (``{"mesh_steps": {...}}``), then a
 JSON line with one entry per kernel (its numbers at the
 service's shape, ``by_shape`` for the others, ``launches`` summed over the
 ``run_static``, service, engine, sweep, async-engine, quantized-engine,
@@ -4913,6 +4943,404 @@ def phase_substrate(dev, gpu):
     return rows
 
 
+# --- phase 19: the train, prefill and decode steps across a multi-device
+# DeviceMesh, and the dry-run (A.10c part 2) ---------------------------------
+
+STEP_RANKS = 4  # a (2, 2) ("data", "model") mesh of ranks sharing the card
+STEP_TIMEOUT_S = 900  # the launch.spawn of phase 19
+# The sizes the ranks run at (passed to them; a CPU rehearsal shrinks these).
+STEP_SIZES = {"len": 4096,  # (b): configs.SHAPES' train_4k length
+              "train_steps": 3,  # (b): one untimed, then two timed
+              "prompt": 4096, "decode": 32,  # (c)
+              "smoke": False}  # the archs' smoke configs (CPU rehearsal)
+STEP_TOL = 1e-4  # (a): losses and gnorms rtol, card against the CPU
+STEP_PARAM_TOL = (1e-4, 1e-5)  # (a): params rtol, atol (lr 1e-3)
+STEP_FLIPS = 1e-3  # (a): share of params allowed past it (AdamW sign flips)
+STEP_TRAIN_ARCH, STEP_SERVE_ARCH = "mamba2-370m", "qwen3-14b"
+DRYRUN_CELLS = (("yi-9b", "train_4k", False),
+                ("qwen3-moe-235b-a22b", "train_4k", True))
+DRYRUN_TIMEOUT_S = 300  # the dry-run cells, awaited after the build
+
+
+def _gathered(tree_):
+    """Every DTensor leaf of ``tree_`` whole, on the CPU (a collective)."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding
+
+    return [sharding.full_tensor(x, device="cpu") for x in tree.leaves(tree_)]
+
+
+def _shards_are_slices(mesh, tree_, wholes) -> bool:
+    """Whether every local shard of ``tree_`` is bitwise its slice of its
+    gathered whole value in ``wholes``."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding
+
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    for x, whole in zip(tree.leaves(tree_), wholes):
+        sl = sharding.local_slices(tuple(whole.shape), sizes,
+                                   sharding._spec_of(x), coord)
+        if not torch.equal(x.to_local().cpu(), whole[sl]):
+            return False
+    return True
+
+
+def _steps_smoke(mesh, where):
+    """(a) on ``where``: yi-9b smoke two train steps at accum 2 on (4, 32),
+    qwen3-moe smoke (FSDP, remat) one step at accum 2, a yi-9b prefill of
+    (4, 12) and three greedy decode steps; from the same CPU-made
+    parameters and batches.  Returns metrics, gathered params and
+    tokens."""
+    import copy
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    out = {}
+    hp = TrainHParams(lr=1e-3, warmup=0, accum_steps=2)
+    cell = configs.ShapeCell("t", "train", 32, 4)
+    for arch, fsdp, steps in (("yi-9b", False, 2),
+                              ("qwen3-moe-235b-a22b", True, 1)):
+        cfg = configs.get_smoke(arch)
+        if fsdp:
+            cfg = dataclasses.replace(cfg, fsdp=True, remat=True)
+        gen = torch.Generator().manual_seed(17)
+        params = copy.deepcopy(build(cfg, "cpu").init(gen)).to(where)
+        batch = {k: v.to(where) for k, v in
+                 _train_batch(cfg, gen, cell.global_batch,
+                              cell.seq_len).items()}
+        step = build_for_cell(build(cfg, where), mesh, cell, hp)[0]
+        opt, metrics = adamw_init(params), []
+        for _ in range(steps):
+            params, opt, m = step(params, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[arch] = {"metrics": metrics, "params": _gathered(params)}
+    cfg = configs.get_smoke("yi-9b")
+    gen = torch.Generator().manual_seed(18)
+    model = build(cfg, where)
+    params = copy.deepcopy(build(cfg, "cpu").init(gen)).to(where)
+    toks = torch.randint(0, cfg.vocab, (4, 12), generator=gen,
+                         dtype=torch.int32).to(where)
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", 12, 4))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", 16, 4))[0]
+    tok, cache = prefill(params, toks, model.init_cache(4, 16))
+    served = [tok]
+    for _ in range(3):
+        tok, cache = decode(params, tok, cache)
+        served.append(tok)
+    out["tokens"] = torch.stack([sharding.full_tensor(t, device="cpu")
+                                 for t in served], 1)
+    return out
+
+
+def _steps_train_full(mesh, dev, sizes):
+    """(b) mamba2-370m whole (bf16, float32 moments, remat) on the (2, 2)
+    mesh: a (2, len) ``TokenSource`` global batch (one row a data rank),
+    ``train_steps`` steps (the first untimed); after each, every rank's
+    gathered params digested (sha256) and every local shard held bitwise
+    to its slice (a replica on "model" that drifted from the one the
+    gather took fails it)."""
+    from repro_torch import configs, tree
+    from repro_torch.data import TokenSource
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    cfg, L = _sub_cfg(STEP_TRAIN_ARCH, sizes), sizes["len"]
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    opt = adamw_init(params)
+    step = build_for_cell(model, mesh, configs.ShapeCell(
+        "train_4k_2rows", "train", L, 2), TrainHParams(warmup=0))[0]
+    src = TokenSource(vocab=cfg.vocab, seq_len=L, global_batch=2, seed=17)
+    ms, staged, digests, bitwise, losses = [], [], [], [], []
+    for s in range(sizes["train_steps"]):
+        if s == 1 and dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        b = src.global_batch_at(s)
+        before = dict(step.plan.staged)
+        (params, opt, m), t = _timed(dev, lambda: step(
+            params, opt, {"tokens": b.tokens.to(dev),
+                          "labels": b.labels.to(dev)}))
+        ms.append(t)
+        staged.append({k: v - before[k]
+                       for k, v in step.plan.staged.items()})
+        losses.append(float(m["loss"]))
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        wholes = _gathered(params)
+        digests.append(_digest(wholes))
+        bitwise.append(_shards_are_slices(mesh, params, wholes))
+        del wholes
+    return {"params": n_params, "step_ms": ms, "staged": staged,
+            "digests": digests, "bitwise": bitwise, "losses": losses,
+            "opt_step": int(opt.step.to_local()), "peak_gb": peak}
+
+
+def _steps_serve_full(mesh, dev, sizes):
+    """(c) qwen3-14b (2 of 40 layers, bf16) on the (2, 2) mesh: a prefill
+    of (2, prompt), one row a data rank, then ``decode`` greedy steps; then
+    this rank's row alone through the one-rank steps (the shapes the mesh
+    rank computed), whose tokens must be equal."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    cfg = _sub_cfg(STEP_SERVE_ARCH, sizes)
+    cut = "smoke"
+    if not sizes["smoke"]:
+        cfg, cut = _zoo_cut(cfg)
+    P, T = sizes["prompt"], sizes["decode"]
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    toks = torch.randint(0, cfg.vocab, (2, P), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(19)).to(dev)
+
+    def serve(mesh_, rows, toks_):
+        prefill = build_for_cell(model, mesh_, configs.ShapeCell(
+            "p", "prefill", P, rows))[0]
+        decode = build_for_cell(model, mesh_, configs.ShapeCell(
+            "d", "decode", P + T, rows))[0]
+        (tok, cache), pf = _timed(dev, lambda: prefill(
+            params, toks_, model.init_cache(rows, P + T)))
+        out, tok_ms = [tok], []
+        for _ in range(T):
+            (tok, cache), t = _timed(dev, lambda: decode(params, tok, cache))
+            out.append(tok)
+            tok_ms.append(t)
+        return out, pf, tok_ms, decode
+
+    served, pf_ms, tok_ms, decode = serve(mesh, 2, toks)
+    staged = dict(decode.plan.staged)
+    got = torch.stack([sharding.full_tensor(t, device="cpu")
+                       for t in served], 1)
+    row = int(mesh.get_coordinate()[0])
+    ref, ref_pf, ref_tok, _ = serve(None, 1, toks[row:row + 1])
+    want = torch.stack([t.cpu() for t in ref], 1)
+    return {"cut": cut, "tokens": got, "row": row,
+            "equal": bool(torch.equal(got[row:row + 1], want)),
+            "prefill_ms": pf_ms, "token_ms": tok_ms,
+            "ref_prefill_ms": ref_pf, "ref_token_ms": ref_tok,
+            "staged_decode": staged}
+
+
+def _mesh_step_rank(rank, world, dev, sizes):
+    """Phase 19 on one of 4 ranks: (a) on the card and on the CPU, (b),
+    (c), with the kernel counters zeroed before and read after."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    kernels.reset_counts()
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out = {"smoke": {str(w): _steps_smoke(mesh, w)
+                     for w in dict.fromkeys((dev, torch.device("cpu")))}}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = _steps_train_full(mesh, dev, sizes)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["serve"] = _steps_serve_full(mesh, dev, sizes)
+    _sync(dev)
+    out["counts"] = kernels.counts()
+    return out
+
+
+def _close(a, b, rtol, atol):
+    """(max abs err, share of elements past ``atol + rtol |b|``) of two
+    float arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not a.size:
+        return 0.0, 0.0
+    err = np.abs(a - b)
+    return float(err.max()), float(np.mean(err > atol + rtol * np.abs(b)))
+
+
+def start_dryruns() -> list:
+    """Phase 19 (d): each ``DRYRUN_CELLS`` cell in a child process of its
+    own, started now; the futures of their records."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import dryrun
+
+    pool = ThreadPoolExecutor(max_workers=len(DRYRUN_CELLS))
+    dry = [pool.submit(dryrun.run_cell_in_child, *c) for c in DRYRUN_CELLS]
+    pool.shutdown(wait=False)
+    return dry
+
+
+def phase_mesh_steps(dev, gpu, recs):
+    """The train, prefill and decode steps across a (2, 2) ("data",
+    "model") mesh of 4 ranks sharing the card (gloo, shards on ``dev``):
+    (a) card == CPU at smoke size, (b) mamba2-370m whole training, (c)
+    qwen3-14b serving, (d) the records ``recs`` of the dry-run cells
+    (:func:`start_dryruns`).  No kernel launches: the counters, zeroed on
+    every rank, must read 0.  Returns the rows."""
+    from repro_torch.distributed import launch
+    from repro_torch.launch import dryrun
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_mesh_step_rank, STEP_RANKS,
+                         timeout_s=STEP_TIMEOUT_S,
+                         args=(str(dev), STEP_SIZES))
+    spawn_s = time.perf_counter() - t0
+    rows = {"ranks": STEP_RANKS, "mesh": [2, 2], "sizes": dict(STEP_SIZES),
+            "launch_s": spawn_s, "gpu": gpu}
+
+    # (a) the card against the CPU
+    worst = {"loss": 0.0, "params": 0.0, "flips": 0.0}
+    for r, rank in enumerate(ranks):
+        card, cpu = rank["smoke"][str(dev)], rank["smoke"]["cpu"]
+        if not np.array_equal(card["tokens"], cpu["tokens"]):
+            raise AssertionError(f"mesh steps (a) rank {r}: tokens differ "
+                                 f"on the card and the CPU")
+        for arch in ("yi-9b", "qwen3-moe-235b-a22b"):
+            for m_d, m_c in zip(card[arch]["metrics"], cpu[arch]["metrics"]):
+                for key in ("loss", "gnorm"):
+                    rel = abs(m_d[key] - m_c[key]) / abs(m_c[key])
+                    worst["loss"] = max(worst["loss"], rel)
+                    if rel > STEP_TOL:
+                        raise AssertionError(
+                            f"mesh steps (a) rank {r} {arch}: {key} "
+                            f"{m_d[key]} on the card, {m_c[key]} on the CPU")
+            for pd, pc in zip(card[arch]["params"], cpu[arch]["params"]):
+                err, past = _close(pd, pc, *STEP_PARAM_TOL)
+                worst["params"] = max(worst["params"], err)
+                worst["flips"] = max(worst["flips"], past)
+                if past > STEP_FLIPS or err > 4e-3:  # 2 steps x 2 lr
+                    raise AssertionError(
+                        f"mesh steps (a) rank {r} {arch}: params differ "
+                        f"(max abs err {err}, {past:.2e} of a leaf past "
+                        f"the tolerance)")
+    tokens = ranks[0]["smoke"][str(dev)]["tokens"]
+    print(f"[mesh-steps] (a) (2, 2) mesh of {STEP_RANKS} ranks, card == CPU:"
+          f" yi-9b smoke 2 train steps (accum 2) and qwen3-moe smoke (FSDP, "
+          f"remat, accum 2) losses / gnorms within rtol "
+          f"{worst['loss']:.3g} (tol {STEP_TOL}), params max abs err "
+          f"{worst['params']:.3g} ({worst['flips']:.2e} of a leaf past "
+          f"{STEP_PARAM_TOL}); prefill + 3 greedy steps tokens equal "
+          f"{tokens.tolist()}", flush=True)
+    rows["smoke"] = {"loss_rel_err": worst["loss"],
+                     "param_abs_err": worst["params"],
+                     "param_share_past_tol": worst["flips"],
+                     "tokens": tokens.tolist()}
+
+    # (b) training at published width
+    tr = [r["train"] for r in ranks]
+    for s in range(len(tr[0]["digests"])):
+        if len({x["digests"][s] for x in tr}) != 1:
+            raise AssertionError(f"mesh steps (b) step {s + 1}: the ranks' "
+                                 f"gathered params differ")
+        if not all(x["bitwise"][s] for x in tr):
+            raise AssertionError(f"mesh steps (b) step {s + 1}: a local "
+                                 f"shard is not its slice")
+    if tr[0]["opt_step"] != STEP_SIZES["train_steps"] or not all(
+            np.isfinite(x["losses"]).all() for x in tr):
+        raise AssertionError(f"mesh steps (b): opt.step "
+                             f"{tr[0]['opt_step']}, losses "
+                             f"{[x['losses'] for x in tr]}")
+    if len({tuple(x["losses"]) for x in tr}) != 1:
+        raise AssertionError("mesh steps (b): the ranks' losses differ")
+    timed = [t for x in tr for t in x["step_ms"][1:]]
+    staged = tr[0]["staged"][-1]
+    row = {"arch": STEP_TRAIN_ARCH, "params": tr[0]["params"],
+           "rows": [2, STEP_SIZES["len"]],
+           "step_ms_median": float(np.median(timed)),
+           "step_ms_by_rank": [x["step_ms"] for x in tr],
+           "staged_bytes_a_step": staged, "losses": tr[0]["losses"],
+           "peak_gb_by_rank": [x["peak_gb"] for x in tr]}
+    rows["train"] = row
+    print(f"[mesh-steps] (b) {STEP_TRAIN_ARCH} whole "
+          f"({row['params'] / 1e9:.3f} B params, bf16, float32 moments, remat) on (data 2, model 2), a "
+          f"(2, {STEP_SIZES['len']}) global batch, one row a data rank: "
+          f"{row['step_ms_median']:.1f} ms a step (median of steps "
+          f"2-{STEP_SIZES['train_steps']} over the ranks; by rank "
+          f"{[[round(t, 1) for t in x['step_ms']] for x in tr]}); staged "
+          f"bytes a step a rank: gathers {staged['gather']}, grad reduction "
+          f"{staged['reduce']}, MoE / metric means {staged['stats']}; "
+          f"peak GB a rank "
+          f"{[g if g is None else round(g, 2) for g in row['peak_gb_by_rank']]}"
+          f"; losses {[round(x, 4) for x in row['losses']]}; after every "
+          f"step the gathered params bitwise equal on every rank (sha256) "
+          f"and every local shard bitwise its slice; {gpu}", flush=True)
+
+    # (c) serving at published width
+    sv = [r["serve"] for r in ranks]
+    for r, x in enumerate(sv):
+        if not x["equal"]:
+            raise AssertionError(f"mesh steps (c) rank {r}: row {x['row']}'s"
+                                 f" tokens differ from the one-rank steps'")
+        if not np.array_equal(x["tokens"], sv[0]["tokens"]):
+            raise AssertionError(f"mesh steps (c) rank {r}: tokens differ "
+                                 f"from rank 0's")
+    tok_ms = [t for x in sv for t in x["token_ms"]]
+    row = {"arch": STEP_SERVE_ARCH, "cut": sv[0]["cut"],
+           "prompt": [2, STEP_SIZES["prompt"]], "decode": STEP_SIZES["decode"],
+           "prefill_ms_by_rank": [x["prefill_ms"] for x in sv],
+           "token_ms_median": float(np.median(tok_ms)),
+           "ref_prefill_ms_by_rank": [x["ref_prefill_ms"] for x in sv],
+           "ref_token_ms_median": float(np.median(
+               [t for x in sv for t in x["ref_token_ms"]])),
+           "staged_bytes_decode_steps": sv[0]["staged_decode"],
+           "tokens_head": sv[0]["tokens"][:, :8].tolist()}
+    rows["serve"] = row
+    print(f"[mesh-steps] (c) {STEP_SERVE_ARCH} bf16 ({row['cut']}) on (data "
+          f"2, model 2): a prefill of (2, {STEP_SIZES['prompt']}), one row a "
+          f"data rank, {max(row['prefill_ms_by_rank']):.1f} ms (slowest "
+          f"rank), then {STEP_SIZES['decode']} greedy steps at "
+          f"{row['token_ms_median']:.1f} ms a token (median over the ranks);"
+          f" each rank's row equal to the one-rank steps' on the card "
+          f"(prefill {max(row['ref_prefill_ms_by_rank']):.1f} ms, "
+          f"{row['ref_token_ms_median']:.1f} ms a token, beside the other "
+          f"ranks' runs); staged bytes of the {STEP_SIZES['decode']} decode "
+          f"steps a rank: {row['staged_bytes_decode_steps']}; tokens[:, :8] "
+          f"{row['tokens_head']}; {gpu}", flush=True)
+
+    # (d) the dry-run
+    rows["dryrun"] = recs
+    for rec in recs:
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry-run {rec['arch']} {rec['shape']} "
+                                 f"{rec['mesh']}: {rec['status']} "
+                                 f"{rec.get('error')}")
+        print(f"[mesh-steps] (d) dry-run {rec['arch']} {rec['shape']} "
+              f"{rec['mesh']} ({rec['n_chips']} fake ranks, rank 0's step on"
+              f" meta tensors, accum {rec['accum_steps']}): ok in "
+              f"{rec['trace_s']} s; dominant {rec['dominant']}, bound "
+              f"{rec['step_time_bound_s']:.4f} s (roofline "
+              f"{ {k: round(v, 4) for k, v in rec['roofline'].items()} }), "
+              f"bytes per device {rec['bytes_per_device']}, useful flops "
+              f"ratio {rec['useful_flops_ratio']:.4f}; the H100 SXM's "
+              f"constants ({dryrun.PEAK_FLOPS:.3g} FLOP/s, "
+              f"{dryrun.HBM_BW:.3g} B/s, {dryrun.NET_BW:.3g} B/s a GPU); "
+              f"{gpu}", flush=True)
+
+    counts = kernels.counts()
+    totals = {key: counts[key] + sum(r["counts"][key] for r in ranks)
+              for key in KERNELS}
+    if any(totals.values()):
+        raise AssertionError(f"mesh steps: a kernel launched: {totals}")
+    rows["kernel_launches"] = totals
+    rows["kernel_launches_by_rank"] = [[r["counts"][k] for k in KERNELS]
+                                       for r in ranks]
+    print(f"[mesh-steps] launches of {', '.join(KERNELS)} over phase 19, by "
+          f"rank: {rows['kernel_launches_by_rank']}; launch "
+          f"{spawn_s:.1f} s", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4924,9 +5352,13 @@ def main() -> int:
     print(gpu, flush=True)
 
     t0 = time.perf_counter()
+    dry = start_dryruns()  # beside the build: no timed phase shares the host
     built = _build.build()
     print(f"[build] {built or 'cached'} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    dry_recs = [f.result(timeout=DRYRUN_TIMEOUT_S) for f in dry]
+    print(f"[build] phase 19's dry-run cells, in child processes beside the "
+          f"build, done at {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -4975,6 +5407,7 @@ def main() -> int:
     zoo = phase("phase 16", phase_zoo, dev, gpu)
     train = phase("phase 17", phase_train, dev, gpu)
     substrate = phase("phase 18", phase_substrate, dev, gpu)
+    mesh_steps = phase("phase 19", phase_mesh_steps, dev, gpu, dry_recs)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -5058,6 +5491,8 @@ def main() -> int:
     print(json.dumps({"zoo": zoo, "gpu": gpu}), flush=True)
     print(json.dumps({"train": train, "gpu": gpu}), flush=True)
     print(json.dumps({"distributed": substrate, "gpu": gpu}), flush=True)
+    print(json.dumps({"mesh_steps": mesh_steps, "gpu": gpu}, default=str),
+          flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,17 +3,24 @@ paper as monitor.
 
 Runs the port's train step (gradient accumulation, float32 AdamW moments),
 the deterministic data pipeline, async checkpointing with exact resume,
-and an LSS mesh-monitor divergence guard on a one-rank process group
-(gloo on the CPU, NCCL on the card) over a (1, 1) ("data", "model") mesh.
-The twin of ``examples/train_lm.py``: the same presets, flags, data,
-schedule and checkpoints, plus ``--device``.
+and an LSS mesh-monitor divergence guard, over an (N, 1) ("data",
+"model") mesh of ``--ranks`` N ranks (the twin of JAX's ``(n_dev, 1)``
+mesh over its devices): one rank is a one-rank process group (gloo on the
+CPU, NCCL on the card); N > 1 ranks are processes started by
+``repro_torch.distributed.launch.spawn`` on gloo (on the card they share
+it, each collective staged through pinned host memory), each computing
+its rows of the batch through the mesh step.  The twin of
+``examples/train_lm.py``: the same presets, flags, data, schedule and
+checkpoints, plus ``--device`` and ``--ranks``.
 
     PYTHONPATH=src python examples/train_lm_torch.py --steps 200
     PYTHONPATH=src python examples/train_lm_torch.py --preset 100m --steps 300
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu --steps 3
+    PYTHONPATH=src python examples/train_lm_torch.py --device cpu --ranks 2
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -27,6 +34,7 @@ from repro_torch.configs import ShapeCell
 from repro_torch.core import monitor as monitor_lib
 from repro_torch.core import wvs
 from repro_torch.data import TokenSource
+from repro_torch.distributed import launch, sharding
 from repro_torch.models import build
 from repro_torch.models.transformer import LMConfig
 from repro_torch.optim import adamw_init
@@ -49,19 +57,24 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _mesh(device):
-    """A one-rank process group and a (1, 1) ("data", "model") mesh on it:
-    NCCL on the card, gloo on the CPU."""
-    backend = "nccl" if device.type == "cuda" else "gloo"
+def _mesh(device, ranks):
+    """The (N, 1) ("data", "model") mesh over the default group, which one
+    rank starts here (NCCL on the card, gloo on the CPU) and N > 1 ranks
+    join from ``launch.spawn`` (gloo)."""
     if device.type == "cuda":
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                            world_size=1)
-    return init_device_mesh(device.type, (1, 1),
+        torch.cuda.set_device(device.index or 0)
+    if ranks == 1:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+        kind = device.type
+    else:
+        kind = "cpu"  # a gloo mesh, whatever device the shards are on
+    return init_device_mesh(kind, (ranks, 1),
                             mesh_dim_names=("data", "model"))
 
 
-def main():
+def _parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="tiny", choices=PRESETS)
     ap.add_argument("--steps", type=int, default=200)
@@ -74,23 +87,28 @@ def main():
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda (the default) raises without "
                          "a card")
-    args = ap.parse_args()
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="ranks of the (N, 1) data mesh; N > 1 starts N "
+                         "processes on gloo")
+    return ap
 
+
+def train(args, rank=0):
+    """The training run on this rank (prints on rank 0)."""
+    say = print if rank == 0 else (lambda *a, **k: None)
     cfg = cfgs.get_smoke(args.arch) if args.arch else PRESETS[args.preset]
     dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu")
     model = build(cfg, dev)
-    mesh = _mesh(dev)
+    mesh = _mesh(dev, args.ranks)
     try:
         cell = ShapeCell("train", "train", args.seq, args.batch)
         hp = TrainHParams(lr=args.lr, warmup=20, total_steps=args.steps)
-        step, _, _, _ = build_for_cell(model, mesh, cell, hp)
+        step, in_specs, _, _ = build_for_cell(model, mesh, cell, hp)
         params = model.init(torch.Generator(device=dev).manual_seed(0))
         opt = adamw_init(params)
         n_params = sum(p.numel() for p in tree.leaves(params))
-        print(f"model={cfg.name} params={n_params/1e6:.1f}M "
-              f"device={dev} batch={args.batch}x{args.seq}")
+        say(f"model={cfg.name} params={n_params/1e6:.1f}M "
+            f"device={dev} ranks={args.ranks} batch={args.batch}x{args.seq}")
 
         src = TokenSource(vocab=cfg.vocab, seq_len=args.seq,
                           global_batch=args.batch, seed=0)
@@ -104,8 +122,12 @@ def main():
 
         start = checkpoint.latest_step(args.ckpt)
         if start is not None:
-            params, opt = checkpoint.load(args.ckpt, start, (params, opt))
-            print(f"resumed from step {start}")
+            state = (params, opt)
+            shardings = (None if args.ranks == 1 else
+                         sharding.shardings_like(state, in_specs[:2], mesh))
+            params, opt = checkpoint.load(args.ckpt, start, state,
+                                          shardings=shardings)
+            say(f"resumed from step {start}")
         start = start or 0
 
         _sync(dev)
@@ -121,17 +143,35 @@ def main():
             if s % 20 == 0 or s == args.steps - 1:
                 dt = (time.perf_counter() - t0) / max(s - start + 1, 1)
                 tok_s = args.batch * args.seq / dt
-                print(f"step {s:4d}  loss={loss:7.4f}  "
-                      f"gnorm={float(m['gnorm']):6.2f}  "
-                      f"lr={float(m['lr']):.2e}  {tok_s:9.0f} tok/s  "
-                      f"monitor={'DIVERGED' if diverged else 'healthy'}")
+                say(f"step {s:4d}  loss={loss:7.4f}  "
+                    f"gnorm={float(m['gnorm']):6.2f}  "
+                    f"lr={float(m['lr']):.2e}  {tok_s:9.0f} tok/s  "
+                    f"monitor={'DIVERGED' if diverged else 'healthy'}")
             if s and s % 100 == 0:
                 checkpoint.save_async(args.ckpt, s, (params, opt))
         checkpoint.save(args.ckpt, args.steps, (params, opt))
         checkpoint.wait_pending()
-        print("done; checkpoint at", args.ckpt)
+        say("done; checkpoint at", args.ckpt)
     finally:
-        dist.destroy_process_group()
+        if args.ranks == 1:
+            dist.destroy_process_group()
+
+
+def _rank(rank, world, args):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    train(args, rank)
+
+
+def main():
+    args = _parser().parse_args()
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu")
+    if args.ranks > 1:
+        launch.spawn(_rank, args.ranks, timeout_s=24 * 3600.0,
+                     args=(args,))
+    else:
+        train(args)
 
 
 if __name__ == "__main__":

@@ -33,9 +33,10 @@ shardings on ``DeviceMesh`` placements with elastic remesh and reshard
 (:mod:`.distributed.sharding`, :mod:`.distributed.elastic`, the
 checkpoint's ``load(shardings=)`` and the batch's placement), LSS-gated
 LocalSGD (:mod:`.training.localsgd`) and the stage pipeline
-(:mod:`.distributed.pipeline`).  Still to port (ROADMAP A.10c part 2):
-the train / prefill / decode steps across a ``DeviceMesh`` of more than
-one device, and the dry-run.
+(:mod:`.distributed.pipeline`), the train / prefill / decode steps across
+a ``DeviceMesh`` of more than one device (:mod:`.distributed.spmd`) and
+the device-free dry-run (:mod:`.launch.dryrun`): every module of the JAX
+package but ``compat`` and ``launch.hlo_cost``, which have no twin.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without an explicit device they raise.

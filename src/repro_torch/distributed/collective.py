@@ -10,8 +10,8 @@ group moves device memory.  A gloo group given a CUDA tensor moves it through
 pinned host buffers: :func:`staged` says when, and :func:`staged_bytes`
 counts what a call copies to the host.  :func:`axis_size` reads a named
 axis of a ``DeviceMesh``.  Under :func:`repro_torch.launch.cost.analyze`
-each all-to-all and all-gather counts the payload bytes this rank sends,
-by op.
+each all-to-all, all-gather and all-reduce counts the payload bytes this
+rank sends, by op.
 """
 
 from __future__ import annotations
@@ -107,10 +107,12 @@ def all_reduce(buf, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
     as a new tensor on ``buf``'s device; ``buf`` is not written.  Staged
     through pinned host memory as the other collectives: gloo reduces on
     the host.  Gloo's algorithms reduce each element once and copy the
-    result, so every rank gets the same bits.  Not counted by
-    :func:`repro_torch.launch.cost.analyze` (the engine, whose plans it
-    ranks, reduces nothing)."""
-    through_host = staged(buf, group)
-    out = to_host(buf) if through_host else buf.clone()
-    dist.all_reduce(out, op=op, group=group)
-    return out.to(buf.device, non_blocking=True) if through_host else out
+    result, so every rank gets the same bits.  Counted by
+    :func:`repro_torch.launch.cost.analyze` as ``"all-reduce"`` (the
+    engine, whose plans it ranks, reduces nothing)."""
+    with cost.collective("all-reduce", buf.numel() * buf.element_size()):
+        through_host = staged(buf, group)
+        out = to_host(buf) if through_host else buf.clone()
+        dist.all_reduce(out, op=op, group=group)
+        return (out.to(buf.device, non_blocking=True) if through_host
+                else out)

@@ -42,7 +42,7 @@ from .. import tree as tree_lib
 from . import collective
 
 __all__ = ["NamedSharding", "placements", "local_slices", "device_put",
-           "full_tensor", "shardings_like"]
+           "full_tensor", "shardings_like", "is_placed", "put_tree"]
 
 
 class NamedSharding(NamedTuple):
@@ -123,7 +123,11 @@ def _dtensor(local, mesh, places, shape) -> DTensor:
     (see the module docstring: ``from_local`` would move it to the mesh's
     device type)."""
     shape = torch.Size(shape)
-    stride = tuple(int(s) for s in torch.empty(shape, device="meta").stride())
+    stride, step = [], 1  # contiguous strides (no tensor made: a cost
+    for n in reversed(shape):  # counter would count its bytes)
+        stride.append(step)
+        step *= max(int(n), 1)
+    stride = tuple(reversed(stride))
     spec = DTensorSpec(mesh, tuple(places),
                        tensor_meta=TensorMeta(shape, stride, local.dtype))
     return DTensor(local, spec, requires_grad=False)
@@ -205,3 +209,24 @@ def shardings_like(tree, spec_tree, mesh):
     specs = tree_lib.prefix_leaves(tree, spec_tree)
     return tree_lib.unflatten_like(tree_lib.plain(tree),
                                    [NamedSharding(mesh, s) for s in specs])
+
+
+def is_placed(x, mesh, spec) -> bool:
+    """Whether ``x`` is a DTensor on ``mesh`` split as ``spec`` splits it."""
+    if not isinstance(x, DTensor) or x.device_mesh != mesh:
+        return False
+    names = tuple(mesh.mesh_dim_names)
+    return (_dim_axes(names, _spec_of(x), x.ndim)
+            == _dim_axes(names, tuple(spec), x.ndim))
+
+
+def put_tree(tree, spec_tree, mesh, device=None):
+    """Each leaf of ``tree`` at its spec in ``spec_tree`` on ``mesh``: a
+    DTensor already there as it is, anything else through
+    :func:`device_put` onto ``device``.  A tree of ``tree``'s structure
+    (``ParamTree`` nodes as dicts)."""
+    specs = tree_lib.prefix_leaves(tree, spec_tree)
+    return tree_lib.unflatten_like(tree_lib.plain(tree), [
+        x if is_placed(x, mesh, s)
+        else device_put(x, NamedSharding(mesh, tuple(s)), device)
+        for x, s in zip(tree_lib.leaves(tree), specs)])

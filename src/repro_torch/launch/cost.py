@@ -10,8 +10,8 @@ keys:
   operations of each kernel;
 * ``hbm_bytes`` — each aten op's input and output tensor bytes (views
   move none), plus the analytic bytes of each kernel;
-* ``collective_bytes`` — ``{"all-to-all", "all-gather", "total"}``: the
-  payload bytes this rank sends through
+* ``collective_bytes`` — ``{"all-to-all", "all-gather", "all-reduce",
+  "total"}``: the payload bytes this rank sends through
   :mod:`repro_torch.distributed.collective`, by op.
 
 The CUDA kernels are called through ctypes, which a dispatch mode never
@@ -35,7 +35,7 @@ from torch.utils._pytree import tree_flatten
 
 __all__ = ["analyze", "counting", "kernel", "collective"]
 
-COLLECTIVES = ("all-to-all", "all-gather")
+COLLECTIVES = ("all-to-all", "all-gather", "all-reduce")
 _MATMULS = {"mm", "bmm", "addmm", "baddbmm"}
 _open = threading.local()  # this thread's open counters
 

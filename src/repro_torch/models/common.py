@@ -17,8 +17,18 @@ the mesh axes that :func:`axis_env` installs.  Here:
 * :func:`pspec` returns a plain tuple with the absent axes dropped, entry
   for entry ``tuple(P(...))`` of JAX's (a one-name group collapses to the
   name, as ``PartitionSpec`` normalises it);
-* :func:`shard` is the identity: the models run on one device.  The
-  training substrate maps these tuples onto ``DeviceMesh`` placements.
+* :func:`shard` is the identity: each rank runs the model on its own
+  rows.  The training substrate maps these tuples onto ``DeviceMesh``
+  placements.
+
+**Across a mesh** (:mod:`repro_torch.distributed.spmd`) a parameter leaf
+may be a :class:`ShardedLeaf`, this rank's shard of it: the models call
+:func:`gathered` on a block's parameters inside the block body (inside
+:func:`remat`, so a checkpointed backward gathers them again) and on a
+top-level leaf where they use it; :func:`data_mean` is the mean over the
+data-parallel ranks of a quantity that is not a per-row one (the MoE
+load-balancing statistics).  Both are the identity outside
+:func:`data_parallel`'s block and on plain tensors.
 """
 
 from __future__ import annotations
@@ -53,6 +63,10 @@ __all__ = [
     "layer",
     "default_generator",
     "remat",
+    "ShardedLeaf",
+    "gathered",
+    "data_mean",
+    "data_parallel",
     "Params",
 ]
 
@@ -123,6 +137,45 @@ def pspec(*axes) -> tuple:
 def shard(x: torch.Tensor, *axes) -> torch.Tensor:
     """The identity on one device (see the module docstring)."""
     return x
+
+
+class ShardedLeaf:
+    """A parameter leaf held as this rank's shard; :meth:`full` gathers
+    the whole value and ``leaf[i]`` is layer ``i`` of a stacked leaf."""
+
+    def full(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __getitem__(self, i) -> "ShardedLeaf":
+        raise NotImplementedError
+
+
+def gathered(tree):
+    """``tree`` (a nested dict, or one leaf) with every
+    :class:`ShardedLeaf` replaced by its whole value; plain tensors pass
+    through."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    return tree.full() if isinstance(tree, ShardedLeaf) else tree
+
+
+@contextlib.contextmanager
+def data_parallel(mean_fn):
+    """Within the block, :func:`data_mean` is ``mean_fn(x)`` (the mean of
+    ``x`` over the data-parallel ranks, differentiable)."""
+    prev = getattr(_env, "data_mean", None)
+    _env.data_mean = mean_fn
+    try:
+        yield
+    finally:
+        _env.data_mean = prev
+
+
+def data_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the data-parallel ranks (within
+    :func:`data_parallel`; else ``x``, the one rank's value)."""
+    fn = getattr(_env, "data_mean", None)
+    return x if fn is None else fn(x)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ positions on the decoder, MHA self/cross attention, tied softmax head.
 Serving: the encoder runs once; decoder prefill/decode carry a self-attn
 KV cache plus per-layer cross K/V computed once from the encoder output.
 ``remat`` acts on each encoder block and each training decoder block when
-grads are on, as JAX's ``jax.checkpoint`` there.
+grads are on, as JAX's ``jax.checkpoint`` there; a block's parameters are
+gathered at the top of its body (:func:`~.common.gathered`).
 """
 
 from __future__ import annotations
@@ -168,6 +169,7 @@ class EncDec:
         x = shard(frames.to(cfg.dtype) + pe[None], DATA, None, None)
 
         def body(x, bp):
+            bp = common.gathered(bp)
             h = _ln(x, bp["ln1"], cfg.norm_eps)
             x = x + attention.fwd_train(bp["attn"], cfg.enc_attn, h)
             h = _ln(x, bp["ln2"], cfg.norm_eps)
@@ -176,11 +178,12 @@ class EncDec:
         body = common.remat(body, cfg)
         for i in range(cfg.n_enc):
             x = body(x, common.tree_index(p["enc"], i))
-        return _ln(x, p["enc_ln"], cfg.norm_eps)
+        return _ln(x, common.gathered(p["enc_ln"]), cfg.norm_eps)
 
     # ------------- decoder ---------------------------------------------------
     def _dec_layer(self, bp, x, enc_out, mode, kv_c=None, cross=None):
         cfg = self.cfg
+        bp = common.gathered(bp)
         h = _ln(x, bp["ln1"], cfg.norm_eps)
         if mode == "train":
             x = x + attention.fwd_train(bp["self"], cfg.attn, h)
@@ -222,7 +225,7 @@ class EncDec:
                               cross_v=cache.cross_v)
 
     def _head(self, p, x):
-        head = p["embed"].T.to(self.cfg.dtype)
+        head = common.gathered(p["embed"]).T.to(self.cfg.dtype)
         return torch.einsum("...d,dv->...v", x, head)
 
     def loss(self, params, frames, tokens, labels):
@@ -230,14 +233,15 @@ class EncDec:
         p = common.as_tree(params)
         enc_out = self.encode(p, frames)
         L = tokens.shape[1]
-        pos_tab = p["dec_pos"]
+        pos_tab = common.gathered(p["dec_pos"])
         if L > pos_tab.shape[0]:  # long shapes exceed the native 448
             reps = -(-L // pos_tab.shape[0])
             pos_tab = pos_tab.repeat(reps, 1)
-        x = p["embed"][tokens.long()].to(cfg.dtype) + pos_tab[None, :L]
+        x = (common.gathered(p["embed"])[tokens.long()].to(cfg.dtype)
+             + pos_tab[None, :L])
         x = shard(x, DATA, None, None)
         x, _ = self._dec_body(p, x, enc_out, "train")
-        x = _ln(x, p["dec_ln"], cfg.norm_eps)
+        x = _ln(x, common.gathered(p["dec_ln"]), cfg.norm_eps)
         nll = _nll(self._head(p, x), labels)
         zero = torch.zeros((), dtype=torch.float32, device=nll.device)
         return nll, {"nll": nll, "aux": zero}
@@ -274,9 +278,9 @@ class EncDec:
 
     def _embed_tok(self, p, token, position):
         cfg = self.cfg
-        pos_tab = p["dec_pos"]
+        pos_tab = common.gathered(p["dec_pos"])
         idx = position % pos_tab.shape[0]
-        return (p["embed"][token.long()].to(cfg.dtype)
+        return (common.gathered(p["embed"])[token.long()].to(cfg.dtype)
                 + pos_tab[idx.long()].to(cfg.dtype))
 
     def prefill(self, params, tokens, cache: EncDecCache):
@@ -287,7 +291,7 @@ class EncDec:
                             torch.arange(L, device=tokens.device)[None, :])
         x = shard(x, DATA, None, None)
         x, cache = self._dec_body(p, x, None, "prefill", cache)
-        x = _ln(x, p["dec_ln"], cfg.norm_eps)
+        x = _ln(x, common.gathered(p["dec_ln"]), cfg.norm_eps)
         return self._head(p, x[:, -1]), cache
 
     def decode_step(self, params, token, cache: EncDecCache):
@@ -296,5 +300,5 @@ class EncDec:
         pos = cache.kv.length[0][:, None]  # (B, 1) — layer 0's fill level
         x = self._embed_tok(p, token[:, None], pos)
         x, cache = self._dec_body(p, x, None, "decode", cache)
-        x = _ln(x, p["dec_ln"], cfg.norm_eps)
+        x = _ln(x, common.gathered(p["dec_ln"]), cfg.norm_eps)
         return self._head(p, x[:, 0]), cache

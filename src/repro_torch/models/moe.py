@@ -90,10 +90,13 @@ def route(params, cfg: MoEConfig, x, dropless: bool = False):
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[..., :K], top_e[..., :K]
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
-    # Load-balancing auxiliary loss (Switch-style), over all tokens.
-    me = probs.mean(dim=(0, 1))
-    counts = torch.bincount(top_e.reshape(-1), minlength=E)
-    ce = counts.float() / (B * L)
+    # Load-balancing auxiliary loss (Switch-style), over all tokens: of
+    # every data-parallel rank (common.data_mean), not only this one's.
+    me = common.data_mean(probs.mean(dim=(0, 1)))
+    flat = top_e.reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.int64, device=x.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))  # bincount, static
+    ce = common.data_mean(counts.float() / (B * L)).detach()
     aux = E * torch.sum(me * ce) / K
     return top_e, top_p, aux, _capacity(cfg, L, dropless)
 

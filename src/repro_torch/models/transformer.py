@@ -15,10 +15,12 @@ The layer parameters are stacked on a leading (n_layers, ...) axis, as
 JAX's, and the forward loops over that axis in Python where JAX scans.
 ``remat`` / ``remat_policy`` act where JAX's ``jax.checkpoint`` does, on
 each block body of ``logits_train`` (a hybrid group's body as one) when
-grads are on (:func:`~repro_torch.models.common.remat`).  Parameters are a
-:class:`~repro_torch.models.common.ParamTree` (or the nested dict it
-holds) at JAX's paths, so ``convert.model_params_from_jax_numpy`` is a
-copy by path.
+grads are on (:func:`~repro_torch.models.common.remat`).  A block's
+parameters are gathered (:func:`~repro_torch.models.common.gathered`) at
+the top of its body, the top-level leaves where they are used.
+Parameters are a :class:`~repro_torch.models.common.ParamTree` (or the
+nested dict it holds) at JAX's paths, so
+``convert.model_params_from_jax_numpy`` is a copy by path.
 """
 
 from __future__ import annotations
@@ -220,6 +222,7 @@ class LM:
     # ---------------- block bodies ------------------------------------------
     def _attn_mlp_block(self, p, x, mode, cache=None, moe_aux=None):
         cfg = self.cfg
+        p = common.gathered(p)
         h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
         if mode == "train":
             a = attention.fwd_train(p["attn"], cfg.attn, h)
@@ -239,6 +242,7 @@ class LM:
 
     def _ssm_block(self, p, x, mode, state=None):
         cfg = self.cfg
+        p = common.gathered(p)
         h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
         if mode == "decode":
             y, state = ssm_lib.fwd_decode(p["ssm"], cfg.ssm, h, state)
@@ -247,12 +251,13 @@ class LM:
         return x + y, state
 
     def _embed(self, p, tokens):
-        x = p["embed"][tokens.long()].to(self.cfg.dtype)
+        x = common.gathered(p["embed"])[tokens.long()].to(self.cfg.dtype)
         return shard(x, DATA, None, None)
 
     def _head(self, p):
         cfg = self.cfg
-        head = p["embed"].T if cfg.tie_embed else p["lm_head"]
+        head = common.gathered(p["embed"] if cfg.tie_embed else p["lm_head"])
+        head = head.T if cfg.tie_embed else head
         return head.to(cfg.dtype)
 
     # ---------------- forward (train) ---------------------------------------
@@ -292,7 +297,8 @@ class LM:
             for j in range(cfg.n_groups):
                 x = body(x, j)
 
-        x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+        x = common.rms_norm(x, common.gathered(p["final_norm"]),
+                            cfg.norm_eps)
         logits = torch.einsum("bld,dv->blv", x, self._head(p))
         return shard(logits, DATA, None, "model"), aux
 
@@ -398,7 +404,8 @@ class LM:
         p = common.as_tree(params)
         x = self._embed(p, tokens)
         x, cache = self._serve_layers(p, x, cache, "prefill")
-        x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+        x = common.rms_norm(x, common.gathered(p["final_norm"]),
+                            cfg.norm_eps)
         logits = torch.einsum("bd,dv->bv", x[:, -1], self._head(p))
         return shard(logits, DATA, "model"), cache
 
@@ -408,7 +415,8 @@ class LM:
         p = common.as_tree(params)
         x = self._embed(p, token[:, None])
         x, cache = self._serve_layers(p, x, cache, "decode")
-        x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+        x = common.rms_norm(x, common.gathered(p["final_norm"]),
+                            cfg.norm_eps)
         logits = torch.einsum("bd,dv->bv", x[:, 0], self._head(p))
         return shard(logits, DATA, "model"), cache
 

@@ -21,7 +21,7 @@ from .. import tree as tree_lib
 from ..models.common import as_tree
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "clip_by_global_norm"]
+           "clip_by_global_norm", "clip_to_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +62,16 @@ def clip_by_global_norm(grads, max_norm: float):
     flat = tree_lib.leaves(grads)
     g2 = sum(torch.sum(torch.square(g.float())) for g in flat)
     gnorm = torch.sqrt(g2)
+    return gnorm, clip_to_norm(grads, gnorm, max_norm)
+
+
+def clip_to_norm(grads, gnorm, max_norm: float):
+    """The float32 grads scaled as :func:`clip_by_global_norm` scales them
+    when their global norm is ``gnorm`` (across a mesh: the grads are this
+    rank's shards, ``gnorm`` the whole tree's)."""
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    return gnorm, tree_lib.unflatten_like(
-        grads, [g.float() * scale for g in flat])
+    return tree_lib.unflatten_like(
+        grads, [g.float() * scale for g in tree_lib.leaves(grads)])
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """Training runtime (port of ``repro.training``): the train / prefill /
-decode steps, the fault-tolerant trainer and LSS-gated LocalSGD
-(``localsgd``, one replica a rank).  The steps across a ``DeviceMesh`` of
-more than one device wait for ROADMAP A.10c part 2."""
+decode steps (on one device or across a ``DeviceMesh``), the
+fault-tolerant trainer and LSS-gated LocalSGD (``localsgd``, one replica
+a rank)."""
 
 from .localsgd import (LocalSGDConfig, LocalSGDGate, LocalSGDState,
                        make_localsgd, stack_params)

@@ -1,33 +1,63 @@
 """Train / prefill / decode steps with their sharding spec trees.
 
 Port of ``repro/training/steps.py``.  ``build_*`` returns ``(fn, in_specs,
-out_specs, input_specs)`` for a given (model, shape cell, mesh axes), as
-JAX's returns ``(jitted, in_shardings, out_shardings, input_specs)``:
+out_specs, input_specs)`` for a given (model, shape cell, mesh), as JAX's
+returns ``(jitted, in_shardings, out_shardings, input_specs)``:
 
 * ``fn`` is a plain function (no ``jit``, no ``torch.compile``);
 * the spec trees hold :func:`~repro_torch.models.common.pspec` tuples,
   entry for entry JAX's ``tuple(sharding.spec)`` (batch dims on
   ``("pod", "data")``, heads / ffn / vocab on ``"model"``, parameters
-  also on the data axes with ``fsdp``);
-* ``input_specs()`` gives ``meta`` tensors of JAX's shapes and dtypes.
+  also on the data axes with ``fsdp``; a cache's KV heads on ``"model"``
+  where the axis divides them, by the mesh's sizes);
+* ``input_specs()`` gives ``meta`` tensors of JAX's global shapes and
+  dtypes.
 
-The models run on one device: ``mesh`` is None, a sequence of axis names
-or a one-device ``DeviceMesh``, and only names the axes of the specs.
-Running a step across a larger mesh waits for ROADMAP A.10c part 2.
+``mesh`` is None, a sequence of axis names, or a ``DeviceMesh``.  Without
+a mesh of more than one device the step runs the model on one device, on
+plain tensors.  On a ``DeviceMesh`` of more than one device over the
+default group it runs on every rank of the mesh
+(:mod:`repro_torch.distributed.spmd`), as JAX's jit does with the
+shardings:
+
+* each input is a DTensor at its ``in_specs`` placement
+  (:func:`~repro_torch.distributed.sharding.device_put`,
+  ``shardings_like``) or a whole tensor on every rank, which the step
+  places itself (onto the model's device); the outputs are DTensors at
+  ``out_specs``, the metrics plain 0-d tensors with the same value on
+  every rank;
+* each rank computes its own rows of the batch; a parameter is gathered
+  from its shards where the model uses it, and its grad averaged over the
+  data axes back onto its shard, and over the other axes that hold the
+  same shard (so that its replicas stay the same bits: the CUDA
+  backward's atomics would part them);
+* with ``accum_steps`` A > 1, microbatch ``i`` is the global rows ``[i B/A,
+  (i+1) B/A)``, as JAX reshapes the global batch, each rank computing its
+  part of it (so the MoE load-balancing statistics, which are global
+  means, see the same rows as JAX's);
+* the global grad norm is the whole tree's, and AdamW updates the local
+  shards of the parameters and moments in place (JAX donates them).
+
+Such a step carries its :class:`~repro_torch.distributed.spmd.MeshPlan` as
+``fn.plan`` (``fn.plan.staged``: the bytes it copied to the host, by
+purpose).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from .. import tree as tree_lib
 from ..configs import ShapeCell
+from ..distributed import sharding, spmd
 from ..models import EncDec, common
 from ..models.common import DATA
 from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                      clip_by_global_norm, cosine_schedule)
+from ..optim.adamw import clip_to_norm
 
 __all__ = ["TrainHParams", "build_train_step", "build_prefill_step",
            "build_decode_step", "build_for_cell", "loss_and_grads"]
@@ -47,14 +77,7 @@ class TrainHParams:
 
 def _axes(mesh):
     """What :func:`common.axis_env` takes for ``mesh``."""
-    if mesh is None:
-        return ()
-    size = getattr(mesh, "size", None)
-    if callable(size) and size() > 1:
-        raise NotImplementedError(
-            "a train / serve step across a DeviceMesh of more than one "
-            "device waits for ROADMAP A.10c part 2")
-    return mesh
+    return () if mesh is None else mesh
 
 
 def _meta(model):
@@ -80,40 +103,116 @@ def _grads(model, params, flat, micro):
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
-def loss_and_grads(model, params, batch, accum_steps: int = 1):
-    """``(loss, aux, grads)`` of ``model.loss`` on ``batch``, as JAX's train
-    step takes them: with ``accum_steps`` A > 1 the batch is cut into A
-    microbatches of its leading rows, the grads are accumulated in
-    float32 as the sum of each microbatch's grads / A, the loss is the
-    mean and ``aux`` is ``{"nll": loss, "aux": 0}`` (JAX's scan).  ``grads``
-    is a tree of ``params``' structure (nested dicts); with A = 1 each
-    leaf is in its parameter's dtype.  ``requires_grad`` is on only
-    while the grads are taken."""
-    flat = tree_lib.leaves(params)
+def _accumulate(model, tree, flat, micros):
+    """``(loss, aux, grads of flat)`` of ``model.loss`` over the
+    microbatches ``micros``, as JAX's train step takes them: one
+    microbatch gives its own (the grads in the leaves' dtypes); A > 1 give
+    the grads accumulated in float32 as the sum of each one's / A, the
+    mean loss and ``aux = {"nll": loss, "aux": 0}`` (JAX's scan).
+    ``requires_grad`` is on for ``flat`` only while the grads are
+    taken."""
     for p in flat:
         p.requires_grad_(True)
     try:
-        A = accum_steps
-        if A <= 1:
-            loss, aux, grads = _grads(model, params, flat, batch)
-        else:
-            micro_all = {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])
-                         for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in flat]
-            loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-            for i in range(A):
-                micro = {k: v[i] for k, v in micro_all.items()}
-                lo, _, g = _grads(model, params, flat, micro)
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi.float() / A)
-                del g
-                loss = loss + lo / A
-            aux = {"nll": loss, "aux": torch.zeros_like(loss)}
+        A = len(micros)
+        if A == 1:
+            return _grads(model, tree, flat, micros[0])
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in flat]
+        loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        for micro in micros:
+            lo, _, g = _grads(model, tree, flat, micro)
+            for acc, gi in zip(grads, g):
+                acc.add_(gi.float() / A)
+            del g
+            loss = loss + lo / A
+        return loss, {"nll": loss, "aux": torch.zeros_like(loss)}, grads
     finally:
         for p in flat:
             p.requires_grad_(False)
+
+
+def loss_and_grads(model, params, batch, accum_steps: int = 1):
+    """``(loss, aux, grads)`` of ``model.loss`` on ``batch``, as JAX's train
+    step takes them: with ``accum_steps`` A > 1 the batch is cut into A
+    microbatches of its leading rows (:func:`_accumulate`).  ``grads`` is
+    a tree of ``params``' structure (nested dicts); with A = 1 each leaf
+    is in its parameter's dtype."""
+    A = accum_steps
+    micros = [batch] if A <= 1 else [
+        {k: v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
+         for k, v in batch.items()} for i in range(A)]
+    loss, aux, grads = _accumulate(model, params, tree_lib.leaves(params),
+                                   micros)
     return loss, aux, tree_lib.unflatten_like(common.as_tree(params), grads)
+
+
+def _microbatches(plan, batch, batch_spec, A: int, device):
+    """This rank's part of each of the ``A`` global microbatches: a list
+    of dicts of its rows (every dim but the rows whole)."""
+    keep = plan.data_axes
+    if A <= 1:
+        return [{k: plan.view(v, batch_spec[k], keep, device)
+                 for k, v in batch.items()}]
+    whole = {k: plan.view(v, batch_spec[k], (), device)
+             for k, v in batch.items()}
+    micro = []
+    for i in range(A):
+        part = {}
+        for k, v in whole.items():
+            rows = v.reshape(A, v.shape[0] // A, *v.shape[1:])[i]
+            part[k] = plan.view(rows, batch_spec[k], keep, device)
+        micro.append(part)
+    return micro
+
+
+def _mesh_loss_and_grads(model, plan, params, specs, batch, batch_spec,
+                         A: int):
+    """:func:`loss_and_grads` on this rank's rows, the grads those of its
+    parameter shards (the DTensor tree ``params`` at ``specs``, one a
+    leaf), averaged over the data axes; the loss and nll are the global
+    batch's."""
+    leaves = tree_lib.leaves(params)
+    flat = [spmd.local(p) for p in leaves]
+    tree = tree_lib.unflatten_like(params, [
+        plan.leaf(p, s) for p, s in zip(leaves, specs)])
+    micros = _microbatches(plan, batch, batch_spec, A, model.device)
+    with common.data_parallel(plan.data_mean):
+        loss, aux, grads = _accumulate(model, tree, flat, micros)
+    return plan.data_mean(loss), plan.data_mean(aux["nll"]), grads
+
+
+def _mesh_train_step(model, plan, hp: TrainHParams, pspecs, batch_spec):
+    """The train step on this rank of ``plan``'s mesh (module
+    docstring)."""
+    dev = model.device
+
+    def train_step(params, opt, batch):
+        """``(params', opt', metrics)`` on this rank: ``params'`` and the
+        moments are DTensors at ``pspecs`` whose local shards were updated
+        in place; ``metrics`` the global batch's, on every rank."""
+        params = sharding.put_tree(params, pspecs, plan.mesh, dev)
+        m = sharding.put_tree(opt.m, pspecs, plan.mesh, dev)
+        v = sharding.put_tree(opt.v, pspecs, plan.mesh, dev)
+        step = sharding.put_tree(opt.step, (), plan.mesh, dev)
+        specs = tree_lib.prefix_leaves(params, pspecs)
+        loss, nll, grads = _mesh_loss_and_grads(
+            model, plan, params, specs, batch, batch_spec, hp.accum_steps)
+        gnorm = torch.sqrt(plan.global_sq_norm(grads, specs))
+        local = functools.partial(tree_lib.map, spmd.local)
+        grads = clip_to_norm(tree_lib.unflatten_like(params, grads), gnorm,
+                             hp.adamw.clip_norm)
+        step0 = spmd.local(step)
+        lr = cosine_schedule(step0, hp.lr, hp.warmup, hp.total_steps)
+        _, opt2 = adamw_update(local(params), grads,
+                               AdamWState(m=local(m), v=local(v),
+                                          step=step0), lr, hp.adamw)
+        metrics = {"loss": loss, "nll": nll, "gnorm": gnorm, "lr": lr}
+        return params, AdamWState(m=m, v=v, step=plan.place(
+            opt2.step, (), ())), metrics
+
+    train_step.plan = plan
+    return train_step
 
 
 def build_train_step(model, mesh, cell: ShapeCell,
@@ -142,6 +241,10 @@ def build_train_step(model, mesh, cell: ShapeCell,
         params2, opt2 = adamw_update(params, grads, opt, lr, hp.adamw)
         metrics = {"loss": loss, "nll": aux["nll"], "gnorm": gnorm, "lr": lr}
         return params2, opt2, metrics
+
+    if spmd.is_multi_device(mesh):
+        train_step = _mesh_train_step(model, spmd.MeshPlan(mesh), hp,
+                                      pspecs, batch_spec)
 
     in_specs = (pspecs, opt_spec_tree, batch_spec)
     out_specs = (pspecs, opt_spec_tree, None)
@@ -196,6 +299,42 @@ def _argmax(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _mesh_serve_step(model, plan, method, in_specs, out_specs,
+                     long_ctx: bool):
+    """A prefill or decode step (``method``: ``model.prefill`` /
+    ``model.decode_step``) on this rank of ``plan``'s mesh: its rows of
+    the batch (none split with ``long_ctx``: every rank computes the one
+    row), every parameter and the cache gathered whole but for the rows;
+    the outputs placed at ``out_specs``."""
+    pspecs, tok_spec, cache_specs = in_specs
+    next_spec = out_specs[0]
+    keep = () if long_ctx else plan.data_axes
+    dev = model.device
+
+    @torch.no_grad()
+    def serve_step(params, tokens, cache):
+        """``(next tokens (B,) int32, cache')`` as DTensors at
+        ``out_specs``."""
+        params = sharding.put_tree(params, pspecs, plan.mesh, dev)
+        tree = tree_lib.unflatten_like(params, [
+            plan.leaf(p, s) for p, s in zip(
+                tree_lib.leaves(params),
+                tree_lib.prefix_leaves(params, pspecs))])
+        specs = tree_lib.prefix_leaves(cache, cache_specs)
+        view = tree_lib.unflatten_like(cache, [
+            plan.view(c, s, keep, dev)
+            for c, s in zip(tree_lib.leaves(cache), specs)])
+        logits, cache2 = method(tree, plan.view(tokens, tok_spec, keep, dev),
+                                view)
+        out = tree_lib.unflatten_like(cache2, [
+            plan.place(c, s, keep)
+            for c, s in zip(tree_lib.leaves(cache2), specs)])
+        return plan.place(_argmax(logits), next_spec, keep), out
+
+    serve_step.plan = plan
+    return serve_step
+
+
 def build_prefill_step(model, mesh, cell: ShapeCell):
     long_ctx = cell.global_batch == 1
 
@@ -213,6 +352,10 @@ def build_prefill_step(model, mesh, cell: ShapeCell):
 
     in_specs = (pspecs, tok_spec, cache_specs)
     out_specs = (next_spec, cache_specs)
+    if spmd.is_multi_device(mesh):
+        prefill_step = _mesh_serve_step(model, spmd.MeshPlan(mesh),
+                                        model.prefill, in_specs, out_specs,
+                                        long_ctx)
 
     def input_specs():
         B, L = cell.global_batch, cell.seq_len
@@ -238,6 +381,10 @@ def build_decode_step(model, mesh, cell: ShapeCell):
 
     in_specs = (pspecs, tok_spec, cache_specs)
     out_specs = (tok_spec, cache_specs)
+    if spmd.is_multi_device(mesh):
+        decode_step = _mesh_serve_step(model, spmd.MeshPlan(mesh),
+                                       model.decode_step, in_specs,
+                                       out_specs, long_ctx)
 
     def input_specs():
         # Decode against a cache already holding S tokens (window-capped

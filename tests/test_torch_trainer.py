@@ -306,6 +306,38 @@ def test_train_lm_example_runs_and_resumes(tmp_path):
     assert checkpoint.latest_step(tmp_path) == 5
 
 
+def test_train_lm_example_two_ranks_resumes_bitwise(tmp_path):
+    """``--ranks 2``: an (2, 1) ("data", "model") mesh of two gloo ranks,
+    one row of the batch a rank through the mesh step.  Three steps, then
+    a resume to five (a checkpoint saved and loaded through the mesh's
+    placements), end bitwise where five steps in one run end."""
+    script = ROOT / "examples" / "train_lm_torch.py"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(steps, ckpt):
+        return subprocess.Popen(
+            [sys.executable, str(script), "--device", "cpu", "--ranks", "2",
+             "--batch", "2", "--seq", "32", "--steps", str(steps),
+             "--ckpt", str(tmp_path / ckpt)], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def done(proc):
+        out, err = proc.communicate(timeout=180)
+        assert proc.returncode == 0, err
+        return out
+
+    first, whole = run(3, "resumed"), run(5, "whole")
+    out = done(first)
+    assert "ranks=2" in out and "monitor=healthy" in out
+    assert "resumed" not in done(whole)
+    assert "resumed from step 3" in done(run(5, "resumed"))
+    got, want = (np.load(tmp_path / d / "step_00000005" / "shard_0.npz")
+                 for d in ("resumed", "whole"))
+    assert sorted(got.files) == sorted(want.files) and got.files
+    for k in want.files:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # The chunked attention path under autograd
 # ---------------------------------------------------------------------------

@@ -631,3 +631,265 @@ def card_substrate_body(rank, world, tmp):
                        raw(sharding.full_tensor(back[k])), raw(tree[k]))
                    for k in tree}
     return out
+
+
+# -- the steps across a multi-device mesh (A.10c part 2) ----------------------
+
+STEP_MESH = ((2, 2), ("data", "model"))
+STEP_L = 32  # tokens a row of the train cells (tests/torch_train_parity.py)
+STEP_2X2_L = 64  # tests/test_distributed.py::test_train_step_sharded_2x2
+SERVE_PROMPT, SERVE_DECODE = 12, 3  # a prefill, then greedy decode steps
+SERVE_LEN = 16  # the caches' length: the KV sequence splits over "data"
+SERVE_ARCHS = ("yi-9b", "zamba2-2.7b")
+MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def step_variant(arch: str, variant: str):
+    """The smoke config of ``arch`` (float32): as it is (``"smoke"``), or
+    with FSDP on the data axes and remat on (``"fsdp_remat"``)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(arch)
+    if variant == "fsdp_remat":
+        cfg = dataclasses.replace(cfg, fsdp=True, remat=True)
+    return cfg
+
+
+def step_params(cfg, params_np=None):
+    """The parameters of a case: JAX's (numpy, by path) or the port's own
+    from seed 0, on the CPU."""
+    from repro_torch import convert
+    from repro_torch.models import build
+
+    if params_np is not None:
+        return convert.model_params_from_jax_numpy(cfg, params_np, "cpu")
+    return build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+
+
+def step_batch(cfg, rows: int, length: int, seed: int) -> dict:
+    """Token and label rows (numpy int32) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab, (rows, length)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+def _skew_loss(model, mesh, skew: float):
+    """Scale ``model``'s loss by ``1 + skew`` times this rank's coordinate
+    on ``"model"``: ranks that hold the same replica of a leaf then compute
+    grads that differ, as the CUDA backward's atomics make them differ at
+    round-off."""
+    k = 1.0 + skew * mesh.get_coordinate()[
+        mesh.mesh_dim_names.index("model")]
+    inner = model.loss
+
+    def loss(*args, **kwargs):
+        lo, aux = inner(*args, **kwargs)
+        return lo * k, aux
+
+    model.loss = loss
+
+
+def train_case(case: dict, mesh=None) -> dict:
+    """``case["steps"]`` train steps of a case on ``mesh`` (None: one
+    process; ``case["skew"]``, if set, through :func:`_skew_loss`): the
+    metrics of each step, and after the last the parameters,
+    moments and step (gathered whole), each output's placement and whether
+    every local shard is bitwise its slice of the gathered value (by
+    tree)."""
+    from repro_torch import configs, tree
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    cfg = step_variant(case["arch"], case["variant"])
+    model = build(cfg, "cpu")
+    if case.get("skew") and mesh is not None:
+        _skew_loss(model, mesh, case["skew"])
+    params = step_params(cfg, case.get("params"))
+    batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
+    rows, length = batch["tokens"].shape
+    step, _, out_specs, _ = build_for_cell(
+        model, mesh, configs.ShapeCell("t", "train", length, rows),
+        TrainHParams(lr=1e-3, warmup=0, accum_steps=case["accum"]))
+    opt = adamw_init(params)
+    metrics = []
+    for _ in range(case["steps"]):
+        params, opt, m = step(params, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics}
+    if mesh is None:
+        out.update(params=tree.plain(params), m=opt.m, v=opt.v,
+                   step=int(opt.step))
+        return out
+    trees = {"params": params, "m": opt.m, "v": opt.v}
+    specs = {"params": out_specs[0], "m": out_specs[1].m,
+             "v": out_specs[1].v}
+    bitwise, placed = {}, []
+    for key, t in trees.items():
+        bitwise[key] = True
+        flat = tree.leaves(t)
+        full = [sharding.full_tensor(x) for x in flat]
+        for x, whole, spec in zip(flat, full,
+                                  tree.prefix_leaves(t, specs[key])):
+            sl = sharding.local_slices(tuple(whole.shape),
+                                       dict(zip(mesh.mesh_dim_names,
+                                                tuple(mesh.shape))),
+                                       spec, dict(zip(mesh.mesh_dim_names,
+                                                      mesh.get_coordinate())))
+            bitwise[key] = bitwise[key] and torch.equal(x.to_local(),
+                                                        whole[sl])
+            placed.append((sharding._spec_of(x), spec))
+        out[key] = tree.unflatten_like(t, full)
+    out.update(step=int(sharding.full_tensor(opt.step)), bitwise=bitwise,
+               placements=[(tuple(a), tuple(b) + (None,) * (len(a) - len(b)))
+                           for a, b in placed])
+    return out
+
+
+def moe_grads(case: dict, mesh=None) -> dict:
+    """The loss and the router grads of a MoE case's accumulated step (the
+    grads before clipping), on ``mesh`` or in one process."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding, spmd
+    from repro_torch.models import build
+    from repro_torch.training import steps
+
+    cfg = step_variant(case["arch"], case["variant"])
+    model = build(cfg, "cpu")
+    params = step_params(cfg)
+    batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
+    A = case["accum"]
+    if mesh is None:
+        loss, _, grads = steps.loss_and_grads(model, params, batch, A)
+        return {"loss": loss, "router": grads["blocks"]["moe"]["router"]}
+    from repro_torch.models import common
+
+    plan = spmd.MeshPlan(mesh)
+    with common.axis_env(mesh):
+        pspecs = model.param_specs()
+    placed = sharding.put_tree(params, pspecs, mesh, "cpu")
+    specs = tree.prefix_leaves(placed, pspecs)
+    batch_spec = {k: ("data", None) for k in batch}
+    loss, _, grads = steps._mesh_loss_and_grads(model, plan, placed, specs,
+                                                batch, batch_spec, A)
+    names = tree.leaves_with_names(placed)[0]
+    router = grads[names.index("['blocks']['moe']['router']")]
+    assert specs[names.index("['blocks']['moe']['router']")] == \
+        (None, None, None)  # replicated: the local grad is the whole one
+    return {"loss": loss, "router": router}
+
+
+def serve_case(arch: str, rows: int, mesh=None) -> np.ndarray:
+    """A prefill of ``SERVE_PROMPT`` tokens and ``SERVE_DECODE`` greedy
+    steps of ``arch``'s smoke model (port's seed-0 parameters) on ``rows``
+    rows (1: ``long_ctx``), on ``mesh`` or in one process: the tokens
+    (rows, 1 + SERVE_DECODE)."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    cfg = configs.get_smoke(arch)
+    model = build(cfg, "cpu")
+    params = step_params(cfg)
+    toks = torch.tensor(step_batch(cfg, rows, SERVE_PROMPT, 11)["tokens"])
+    cache = model.init_cache(rows, SERVE_LEN)
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", SERVE_PROMPT, rows))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", SERVE_LEN, rows))[0]
+    tok, cache = prefill(params, toks, cache)
+    out = [tok]
+    for _ in range(SERVE_DECODE):
+        tok, cache = decode(params, tok, cache)
+        out.append(tok)
+    return torch.stack([sharding.full_tensor(t) for t in out], 1)
+
+
+def step_specs(archs, mesh) -> dict:
+    """Every kind of cell's ``in_specs`` and ``out_specs`` for each arch's
+    smoke config on ``mesh`` (tests/torch_train_parity.py's cells)."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    cells = (configs.ShapeCell("t", "train", STEP_L, 2),
+             configs.ShapeCell("p", "prefill", SERVE_PROMPT, 2),
+             configs.ShapeCell("l", "prefill", SERVE_PROMPT, 1),
+             configs.ShapeCell("d", "decode", SERVE_LEN, 2),
+             configs.ShapeCell("dl", "decode", SERVE_LEN, 1))
+    out = {}
+    for arch in archs:
+        model = build(configs.get_smoke(arch), "meta")
+        out[arch] = {c.name: build_for_cell(model, mesh, c)[1:3]
+                     for c in cells}
+    return out
+
+
+def mesh_steps_body(rank, world, cases):
+    """The train, MoE-grad and serve cases of ``cases`` on a (2, 2)
+    ("data", "model") gloo mesh, and the spec trees."""
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", STEP_MESH[0], mesh_dim_names=STEP_MESH[1])
+    out = {"train": {name: train_case(c, mesh)
+                     for name, c in cases["train"].items()},
+           "moe": moe_grads(cases["moe"], mesh),
+           "serve": {(arch, rows): serve_case(arch, rows, mesh)
+                     for arch in SERVE_ARCHS for rows in (4, 1)}}
+    if rank == 0:
+        out["specs"] = step_specs(cases["spec_archs"], mesh)
+    return out
+
+
+# -- the dry-run's count against a real run ----------------------------------
+
+DRYRUN_LAYERS = 4  # past the 3 depths the dry-run traces: it extrapolates
+DRYRUN_CELLS = (("t", "train", STEP_L, 16, 4),  # (name, kind, L, B, accum)
+                ("d", "decode", SERVE_LEN, 2, 1))
+
+
+def dryrun_cfg():
+    """yi-9b smoke at ``DRYRUN_LAYERS`` layers with FSDP and remat."""
+    import dataclasses
+
+    return dataclasses.replace(step_variant("yi-9b", "fsdp_remat"),
+                               n_layers=DRYRUN_LAYERS)
+
+
+def dryrun_real_body(rank, world):
+    """Each ``DRYRUN_CELLS`` step on the (2, 2) mesh, on real CPU tensors
+    (the port's seed-0 parameters, ``input_specs()``'s shapes placed at
+    ``in_specs``), counted by ``cost.analyze``."""
+    from repro_torch import configs, tree
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", STEP_MESH[0], mesh_dim_names=STEP_MESH[1])
+    cfg = dryrun_cfg()
+    model = build(cfg, "cpu")
+    out = {}
+    for name, kind, length, rows, accum in DRYRUN_CELLS:
+        cell = configs.ShapeCell(name, kind, length, rows)
+        fn, in_specs, _, input_specs = build_for_cell(
+            model, mesh, cell, TrainHParams(accum_steps=accum))
+        shapes = input_specs()
+        gen = torch.Generator().manual_seed(0)
+
+        def real(t):
+            if t.is_floating_point():
+                return torch.randn(t.shape, generator=gen).to(t.dtype) * 0.02
+            return torch.randint(0, cfg.vocab, t.shape, generator=gen,
+                                 dtype=t.dtype)
+
+        args = tuple(tree.map(real, a) for a in shapes)
+        if kind == "decode":  # an empty cache: positions start at 0
+            args = (args[0], args[1], model.init_cache(rows, length))
+        placed = tuple(sharding.put_tree(a, s, mesh, "cpu")
+                       for a, s in zip(args, in_specs))
+        out[name] = cost.analyze(fn, *placed)
+    return out
