@@ -368,6 +368,7 @@ order (``slot_sum``), and a sum rounded otherwise would show there.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -4944,19 +4945,22 @@ def phase_substrate(dev, gpu):
 
 
 # --- phase 19: the train, prefill and decode steps across a multi-device
-# DeviceMesh, and the dry-run (A.10c part 2) ---------------------------------
+# DeviceMesh, tensor-parallel on "model" (A.10d part 1), and the dry-run ------
 
 STEP_RANKS = 4  # a (2, 2) ("data", "model") mesh of ranks sharing the card
 STEP_TIMEOUT_S = 900  # the launch.spawn of phase 19
 # The sizes the ranks run at (passed to them; a CPU rehearsal shrinks these).
-STEP_SIZES = {"len": 4096,  # (b): configs.SHAPES' train_4k length
-              "train_steps": 3,  # (b): one untimed, then two timed
+STEP_SIZES = {"len": 4096,  # (b), (e): configs.SHAPES' train_4k length
+              "train_steps": 3,  # (b), (e): one untimed, then two timed
               "prompt": 4096, "decode": 32,  # (c)
               "smoke": False}  # the archs' smoke configs (CPU rehearsal)
 STEP_TOL = 1e-4  # (a): losses and gnorms rtol, card against the CPU
 STEP_PARAM_TOL = (1e-4, 1e-5)  # (a): params rtol, atol (lr 1e-3)
 STEP_FLIPS = 1e-3  # (a): share of params allowed past it (AdamW sign flips)
 STEP_TRAIN_ARCH, STEP_SERVE_ARCH = "mamba2-370m", "qwen3-14b"
+STEP_TP_ARCH = "yi-9b"  # (e): 2 of 48 layers at published widths
+STEP_TIE_ULPS = 2  # (c): a near tie: top-two gap within 2 bf16 ulps of top
+STEP_TIES = 1  # (c): steps a row may differ from the one-rank run, at ties
 DRYRUN_CELLS = (("yi-9b", "train_4k", False),
                 ("qwen3-moe-235b-a22b", "train_4k", True))
 DRYRUN_TIMEOUT_S = 300  # the dry-run cells, awaited after the build
@@ -4983,6 +4987,41 @@ def _shards_are_slices(mesh, tree_, wholes) -> bool:
                                    sharding._spec_of(x), coord)
         if not torch.equal(x.to_local().cpu(), whole[sl]):
             return False
+    return True
+
+
+def _replicas_equal(mesh, trees) -> bool:
+    """Whether, for every DTensor leaf of ``trees``, the ranks that hold
+    the same slice (equal coordinates on the axes its spec names) hold
+    the same bytes: sha256 of each local shard, gathered (a
+    collective)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.distributed import sharding
+
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    mine = []
+    for t in trees:
+        for x in tree.leaves(t):
+            named = {a for s in sharding._spec_of(x) if s
+                     for a in ((s,) if isinstance(s, str) else s)}
+            loc = x.to_local().detach().contiguous().cpu()
+            if loc.dtype == torch.bfloat16:
+                loc = loc.view(torch.int16)
+            mine.append((tuple(coord[a] for a in names if a in named),
+                         hashlib.sha256(loc.numpy().tobytes()).hexdigest()))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    for i in range(len(mine)):
+        seen = {}
+        for theirs in every:
+            key, digest = theirs[i]
+            if seen.setdefault(key, digest) != digest:
+                return False
     return True
 
 
@@ -5040,20 +5079,24 @@ def _steps_smoke(mesh, where):
     return out
 
 
-def _steps_train_full(mesh, dev, sizes):
-    """(b) mamba2-370m whole (bf16, float32 moments, remat) on the (2, 2)
-    mesh: a (2, len) ``TokenSource`` global batch (one row a data rank),
+def _steps_train_full(mesh, dev, sizes, arch, cut):
+    """(b) / (e): ``arch`` at published widths (bf16, float32 moments,
+    remat; depth cut to 2 layers where ``cut``) on the (2, 2) mesh: a (2,
+    len) ``TokenSource`` global batch (one row a data rank),
     ``train_steps`` steps (the first untimed); after each, every rank's
-    gathered params digested (sha256) and every local shard held bitwise
-    to its slice (a replica on "model" that drifted from the one the
-    gather took fails it)."""
+    gathered params digested (sha256), every local shard held bitwise to
+    its slice, and every replica of a parameter and moment shard held
+    bitwise to the others."""
     from repro_torch import configs, tree
     from repro_torch.data import TokenSource
     from repro_torch.models import build
     from repro_torch.optim import adamw_init
     from repro_torch.training import TrainHParams, build_for_cell
 
-    cfg, L = _sub_cfg(STEP_TRAIN_ARCH, sizes), sizes["len"]
+    cfg, L = _sub_cfg(arch, sizes), sizes["len"]
+    depth = "whole"
+    if cut and not sizes["smoke"]:
+        cfg, depth = _zoo_cut(cfg)
     model = build(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(17))
     n_params = sum(p.numel() for p in tree.leaves(params))
@@ -5061,7 +5104,7 @@ def _steps_train_full(mesh, dev, sizes):
     step = build_for_cell(model, mesh, configs.ShapeCell(
         "train_4k_2rows", "train", L, 2), TrainHParams(warmup=0))[0]
     src = TokenSource(vocab=cfg.vocab, seq_len=L, global_batch=2, seed=17)
-    ms, staged, digests, bitwise, losses = [], [], [], [], []
+    ms, staged, digests, bitwise, replicas, losses = [], [], [], [], [], []
     for s in range(sizes["train_steps"]):
         if s == 1 and dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -5080,16 +5123,47 @@ def _steps_train_full(mesh, dev, sizes):
         digests.append(_digest(wholes))
         bitwise.append(_shards_are_slices(mesh, params, wholes))
         del wholes
-    return {"params": n_params, "step_ms": ms, "staged": staged,
-            "digests": digests, "bitwise": bitwise, "losses": losses,
-            "opt_step": int(opt.step.to_local()), "peak_gb": peak}
+        replicas.append(_replicas_equal(mesh, (params, opt.m, opt.v)))
+    return {"arch": arch, "depth": depth, "params": n_params,
+            "step_ms": ms, "staged": staged, "digests": digests,
+            "bitwise": bitwise, "replicas": replicas, "losses": losses,
+            "opt_step": int(opt.step.to_local()), "peak_gb": peak,
+            "model_gathered": sorted(step.plan.model_gathered)}
+
+
+def _serve_ref(model, params, toks, length, steps, dev):
+    """The one-rank prefill of ``toks`` (one row) and ``steps`` greedy
+    decode steps: the ``steps + 1`` tokens, (top logit, top-two gap) of
+    each step's bf16 logits, prefill ms and ms a decode step."""
+    from repro_torch.training.steps import _argmax
+
+    with torch.no_grad():
+        (logits, cache), pf = _timed(dev, lambda: model.prefill(
+            params, toks, model.init_cache(1, length)))
+        tokens, gaps, tok_ms = [], [], []
+        while True:
+            top2 = torch.topk(logits[0].float(), 2).values
+            gaps.append((float(top2[0]), float(top2[0] - top2[1])))
+            tok = _argmax(logits)
+            tokens.append(int(tok[0]))
+            if len(tokens) == steps + 1:
+                return tokens, gaps, pf, tok_ms
+            (logits, cache), dt = _timed(dev, lambda: model.decode_step(
+                params, tok, cache))
+            tok_ms.append(dt)
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
 def _steps_serve_full(mesh, dev, sizes):
     """(c) qwen3-14b (2 of 40 layers, bf16) on the (2, 2) mesh: a prefill
-    of (2, prompt), one row a data rank, then ``decode`` greedy steps; then
-    this rank's row alone through the one-rank steps (the shapes the mesh
-    rank computed), whose tokens must be equal."""
+    of (2, prompt), one row a data rank, then ``decode`` greedy steps
+    teacher-forced: each mesh step is fed the one-rank run's previous
+    tokens (each row alone through the one-rank steps, the shapes the
+    mesh rank computes), so a flip at a near tie does not carry on."""
     from repro_torch import configs
     from repro_torch.distributed import sharding
     from repro_torch.models import build
@@ -5104,38 +5178,35 @@ def _steps_serve_full(mesh, dev, sizes):
     params = model.init(torch.Generator(device=dev).manual_seed(17))
     toks = torch.randint(0, cfg.vocab, (2, P), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(19)).to(dev)
-
-    def serve(mesh_, rows, toks_):
-        prefill = build_for_cell(model, mesh_, configs.ShapeCell(
-            "p", "prefill", P, rows))[0]
-        decode = build_for_cell(model, mesh_, configs.ShapeCell(
-            "d", "decode", P + T, rows))[0]
-        (tok, cache), pf = _timed(dev, lambda: prefill(
-            params, toks_, model.init_cache(rows, P + T)))
-        out, tok_ms = [tok], []
-        for _ in range(T):
-            (tok, cache), t = _timed(dev, lambda: decode(params, tok, cache))
-            out.append(tok)
-            tok_ms.append(t)
-        return out, pf, tok_ms, decode
-
-    served, pf_ms, tok_ms, decode = serve(mesh, 2, toks)
-    staged = dict(decode.plan.staged)
+    ref = [_serve_ref(model, params, toks[r:r + 1], P + T, T, dev)
+           for r in range(2)]
+    want = torch.tensor([x[0] for x in ref], dtype=torch.int32)  # (2, T+1)
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", P, 2))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", P + T, 2))[0]
+    (tok, cache), pf_ms = _timed(dev, lambda: prefill(
+        params, toks, model.init_cache(2, P + T)))
+    served, tok_ms = [tok], []
+    for t in range(T):
+        feed = want[:, t].to(dev)
+        (tok, cache), dt = _timed(dev, lambda: decode(params, feed, cache))
+        served.append(tok)
+        tok_ms.append(dt)
     got = torch.stack([sharding.full_tensor(t, device="cpu")
                        for t in served], 1)
     row = int(mesh.get_coordinate()[0])
-    ref, ref_pf, ref_tok, _ = serve(None, 1, toks[row:row + 1])
-    want = torch.stack([t.cpu() for t in ref], 1)
-    return {"cut": cut, "tokens": got, "row": row,
-            "equal": bool(torch.equal(got[row:row + 1], want)),
+    return {"cut": cut, "tokens": got, "want": want, "row": row,
+            "gaps": [x[1] for x in ref],
             "prefill_ms": pf_ms, "token_ms": tok_ms,
-            "ref_prefill_ms": ref_pf, "ref_token_ms": ref_tok,
-            "staged_decode": staged}
+            "ref_prefill_ms": ref[row][2], "ref_token_ms": ref[row][3],
+            "staged_decode": dict(decode.plan.staged),
+            "staged_prefill": dict(prefill.plan.staged)}
 
 
 def _mesh_step_rank(rank, world, dev, sizes):
     """Phase 19 on one of 4 ranks: (a) on the card and on the CPU, (b),
-    (c), with the kernel counters zeroed before and read after."""
+    (c), (e), with the kernel counters zeroed before and read after."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = torch.device(dev)
@@ -5146,12 +5217,15 @@ def _mesh_step_rank(rank, world, dev, sizes):
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {"smoke": {str(w): _steps_smoke(mesh, w)
                      for w in dict.fromkeys((dev, torch.device("cpu")))}}
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    out["train"] = _steps_train_full(mesh, dev, sizes)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    out["serve"] = _steps_serve_full(mesh, dev, sizes)
+    for key, fn in (
+            ("train", lambda: _steps_train_full(mesh, dev, sizes,
+                                                STEP_TRAIN_ARCH, False)),
+            ("serve", lambda: _steps_serve_full(mesh, dev, sizes)),
+            ("tp_train", lambda: _steps_train_full(mesh, dev, sizes,
+                                                   STEP_TP_ARCH, True))):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[key] = fn()
     _sync(dev)
     out["counts"] = kernels.counts()
     return out
@@ -5182,10 +5256,11 @@ def start_dryruns() -> list:
 
 def phase_mesh_steps(dev, gpu, recs):
     """The train, prefill and decode steps across a (2, 2) ("data",
-    "model") mesh of 4 ranks sharing the card (gloo, shards on ``dev``):
-    (a) card == CPU at smoke size, (b) mamba2-370m whole training, (c)
-    qwen3-14b serving, (d) the records ``recs`` of the dry-run cells
-    (:func:`start_dryruns`).  No kernel launches: the counters, zeroed on
+    "model") mesh of 4 ranks sharing the card (gloo, shards on ``dev``),
+    tensor-parallel on "model": (a) card == CPU at smoke size, (b)
+    mamba2-370m whole training, (c) qwen3-14b serving, teacher-forced,
+    (d) the records ``recs`` of the dry-run cells (:func:`start_dryruns`),
+    (e) yi-9b training (2 of 48 layers).  No kernel launches: the counters, zeroed on
     every rank, must read 0.  Returns the rows."""
     from repro_torch.distributed import launch
     from repro_torch.launch import dryrun
@@ -5225,7 +5300,8 @@ def phase_mesh_steps(dev, gpu, recs):
                         f"(max abs err {err}, {past:.2e} of a leaf past "
                         f"the tolerance)")
     tokens = ranks[0]["smoke"][str(dev)]["tokens"]
-    print(f"[mesh-steps] (a) (2, 2) mesh of {STEP_RANKS} ranks, card == CPU:"
+    print(f"[mesh-steps] (a) (2, 2) mesh of {STEP_RANKS} ranks, "
+          f"tensor-parallel on \"model\", card == CPU:"
           f" yi-9b smoke 2 train steps (accum 2) and qwen3-moe smoke (FSDP, "
           f"remat, accum 2) losses / gnorms within rtol "
           f"{worst['loss']:.3g} (tol {STEP_TOL}), params max abs err "
@@ -5237,76 +5313,112 @@ def phase_mesh_steps(dev, gpu, recs):
                      "param_share_past_tol": worst["flips"],
                      "tokens": tokens.tolist()}
 
-    # (b) training at published width
-    tr = [r["train"] for r in ranks]
-    for s in range(len(tr[0]["digests"])):
-        if len({x["digests"][s] for x in tr}) != 1:
-            raise AssertionError(f"mesh steps (b) step {s + 1}: the ranks' "
-                                 f"gathered params differ")
-        if not all(x["bitwise"][s] for x in tr):
-            raise AssertionError(f"mesh steps (b) step {s + 1}: a local "
-                                 f"shard is not its slice")
-    if tr[0]["opt_step"] != STEP_SIZES["train_steps"] or not all(
-            np.isfinite(x["losses"]).all() for x in tr):
-        raise AssertionError(f"mesh steps (b): opt.step "
-                             f"{tr[0]['opt_step']}, losses "
-                             f"{[x['losses'] for x in tr]}")
-    if len({tuple(x["losses"]) for x in tr}) != 1:
-        raise AssertionError("mesh steps (b): the ranks' losses differ")
-    timed = [t for x in tr for t in x["step_ms"][1:]]
-    staged = tr[0]["staged"][-1]
-    row = {"arch": STEP_TRAIN_ARCH, "params": tr[0]["params"],
-           "rows": [2, STEP_SIZES["len"]],
-           "step_ms_median": float(np.median(timed)),
-           "step_ms_by_rank": [x["step_ms"] for x in tr],
-           "staged_bytes_a_step": staged, "losses": tr[0]["losses"],
-           "peak_gb_by_rank": [x["peak_gb"] for x in tr]}
-    rows["train"] = row
-    print(f"[mesh-steps] (b) {STEP_TRAIN_ARCH} whole "
-          f"({row['params'] / 1e9:.3f} B params, bf16, float32 moments, remat) on (data 2, model 2), a "
-          f"(2, {STEP_SIZES['len']}) global batch, one row a data rank: "
-          f"{row['step_ms_median']:.1f} ms a step (median of steps "
-          f"2-{STEP_SIZES['train_steps']} over the ranks; by rank "
-          f"{[[round(t, 1) for t in x['step_ms']] for x in tr]}); staged "
-          f"bytes a step a rank: gathers {staged['gather']}, grad reduction "
-          f"{staged['reduce']}, MoE / metric means {staged['stats']}; "
-          f"peak GB a rank "
-          f"{[g if g is None else round(g, 2) for g in row['peak_gb_by_rank']]}"
-          f"; losses {[round(x, 4) for x in row['losses']]}; after every "
-          f"step the gathered params bitwise equal on every rank (sha256) "
-          f"and every local shard bitwise its slice; {gpu}", flush=True)
+    # (b) training at published width; (e) the same for yi-9b, tensor-
+    # parallel on "model"
+    for part, label in (("train", "b"), ("tp_train", "e")):
+        tr = [r[part] for r in ranks]
+        for s in range(len(tr[0]["digests"])):
+            if len({x["digests"][s] for x in tr}) != 1:
+                raise AssertionError(f"mesh steps ({label}) step {s + 1}: "
+                                     f"the ranks' gathered params differ")
+            if not all(x["bitwise"][s] for x in tr):
+                raise AssertionError(f"mesh steps ({label}) step {s + 1}: "
+                                     f"a local shard is not its slice")
+            if not all(x["replicas"][s] for x in tr):
+                raise AssertionError(f"mesh steps ({label}) step {s + 1}: "
+                                     f"replicas of a shard differ")
+        if tr[0]["opt_step"] != STEP_SIZES["train_steps"] or not all(
+                np.isfinite(x["losses"]).all() for x in tr):
+            raise AssertionError(f"mesh steps ({label}): opt.step "
+                                 f"{tr[0]['opt_step']}, losses "
+                                 f"{[x['losses'] for x in tr]}")
+        if len({tuple(x["losses"]) for x in tr}) != 1:
+            raise AssertionError(f"mesh steps ({label}): the ranks' losses "
+                                 f"differ")
+        timed = [t for x in tr for t in x["step_ms"][1:]]
+        staged = tr[0]["staged"][-1]
+        row = {"arch": tr[0]["arch"], "depth": tr[0]["depth"],
+               "params": tr[0]["params"], "rows": [2, STEP_SIZES["len"]],
+               "step_ms_median": float(np.median(timed)),
+               "step_ms_by_rank": [x["step_ms"] for x in tr],
+               "staged_bytes_a_step": staged, "losses": tr[0]["losses"],
+               "peak_gb_by_rank": [x["peak_gb"] for x in tr],
+               "model_gathered": tr[0]["model_gathered"]}
+        rows[part] = row
+        print(f"[mesh-steps] ({label}) {row['arch']} ({row['depth']}, "
+              f"{row['params'] / 1e9:.3f} B params, bf16, float32 moments, "
+              f"remat) on (data 2, model 2), tensor-parallel on \"model\", "
+              f"a (2, {STEP_SIZES['len']}) global batch, one row a data rank:"
+              f" {row['step_ms_median']:.1f} ms a step (median of steps "
+              f"2-{STEP_SIZES['train_steps']} over the ranks; by rank "
+              f"{[[round(t, 1) for t in x['step_ms']] for x in tr]}); staged "
+              f"bytes a step a rank: gathers {staged['gather']}, grad "
+              f"reduction {staged['reduce']}, tensor-parallel activations "
+              f"{staged['tp']}, MoE / metric means {staged['stats']}; peak GB"
+              f" a rank "
+              f"{[g if g is None else round(g, 2) for g in row['peak_gb_by_rank']]}"
+              f"; losses {[round(x, 4) for x in row['losses']]}; leaves "
+              f"gathered over \"model\": {row['model_gathered']}; after every"
+              f" step the gathered params bitwise equal on every rank "
+              f"(sha256), every local shard bitwise its slice and every "
+              f"replica of a param / moment shard bitwise the others; {gpu}",
+              flush=True)
 
-    # (c) serving at published width
+    # (c) serving at published width, teacher-forced
     sv = [r["serve"] for r in ranks]
+    want, gaps = sv[0]["want"], sv[0]["gaps"]
+    ties = []
     for r, x in enumerate(sv):
-        if not x["equal"]:
-            raise AssertionError(f"mesh steps (c) rank {r}: row {x['row']}'s"
-                                 f" tokens differ from the one-rank steps'")
         if not np.array_equal(x["tokens"], sv[0]["tokens"]):
             raise AssertionError(f"mesh steps (c) rank {r}: tokens differ "
                                  f"from rank 0's")
+        if not np.array_equal(x["want"], want):
+            raise AssertionError(f"mesh steps (c) rank {r}: the one-rank "
+                                 f"runs differ from rank 0's")
+    got = np.asarray(sv[0]["tokens"])
+    for row_ in range(got.shape[0]):
+        bad = [t for t in range(got.shape[1]) if got[row_, t] !=
+               int(want[row_, t])]
+        near = [(t, gaps[row_][t]) for t in bad
+                if gaps[row_][t][1] <= STEP_TIE_ULPS * _bf16_ulp(
+                    gaps[row_][t][0])]
+        if len(near) < len(bad) or len(bad) > STEP_TIES:
+            raise AssertionError(
+                f"mesh steps (c) row {row_}: steps {bad} differ from the "
+                f"one-rank run (near ties {near}; (top logit, gap) "
+                f"{[gaps[row_][t] for t in bad]})")
+        ties += [(row_, t, g) for t, g in near]
     tok_ms = [t for x in sv for t in x["token_ms"]]
+    n_dec = STEP_SIZES["decode"]
+    staged_dec = sv[0]["staged_decode"]
     row = {"arch": STEP_SERVE_ARCH, "cut": sv[0]["cut"],
-           "prompt": [2, STEP_SIZES["prompt"]], "decode": STEP_SIZES["decode"],
+           "prompt": [2, STEP_SIZES["prompt"]], "decode": n_dec,
            "prefill_ms_by_rank": [x["prefill_ms"] for x in sv],
            "token_ms_median": float(np.median(tok_ms)),
            "ref_prefill_ms_by_rank": [x["ref_prefill_ms"] for x in sv],
            "ref_token_ms_median": float(np.median(
                [t for x in sv for t in x["ref_token_ms"]])),
-           "staged_bytes_decode_steps": sv[0]["staged_decode"],
-           "tokens_head": sv[0]["tokens"][:, :8].tolist()}
+           "staged_bytes_decode_steps": staged_dec,
+           "staged_bytes_a_decode_step": sum(staged_dec.values()) / n_dec,
+           "staged_bytes_prefill": sv[0]["staged_prefill"],
+           "near_ties": ties, "tokens_head": got[:, :8].tolist()}
     rows["serve"] = row
     print(f"[mesh-steps] (c) {STEP_SERVE_ARCH} bf16 ({row['cut']}) on (data "
-          f"2, model 2): a prefill of (2, {STEP_SIZES['prompt']}), one row a "
-          f"data rank, {max(row['prefill_ms_by_rank']):.1f} ms (slowest "
-          f"rank), then {STEP_SIZES['decode']} greedy steps at "
+          f"2, model 2), tensor-parallel on \"model\": a prefill of (2, "
+          f"{STEP_SIZES['prompt']}), one row a data rank, "
+          f"{max(row['prefill_ms_by_rank']):.1f} ms (slowest rank), then "
+          f"{n_dec} greedy steps teacher-forced at "
           f"{row['token_ms_median']:.1f} ms a token (median over the ranks);"
-          f" each rank's row equal to the one-rank steps' on the card "
-          f"(prefill {max(row['ref_prefill_ms_by_rank']):.1f} ms, "
+          f" the one-rank steps on each row alone: prefill "
+          f"{max(row['ref_prefill_ms_by_rank']):.1f} ms, "
           f"{row['ref_token_ms_median']:.1f} ms a token, beside the other "
-          f"ranks' runs); staged bytes of the {STEP_SIZES['decode']} decode "
-          f"steps a rank: {row['staged_bytes_decode_steps']}; tokens[:, :8] "
-          f"{row['tokens_head']}; {gpu}", flush=True)
+          f"ranks' runs; every one of the {n_dec + 1} tokens a row equal to "
+          f"the one-rank run's but at near ties (top-two gap within "
+          f"{STEP_TIE_ULPS} bf16 ulps of the top logit; at most {STEP_TIES} a"
+          f" row): {ties or 'none'}; staged bytes a decode step a rank "
+          f"{row['staged_bytes_a_decode_step']:.0f} (the {n_dec} steps: "
+          f"{staged_dec}; prefill {row['staged_bytes_prefill']}); "
+          f"tokens[:, :8] {row['tokens_head']}; {gpu}", flush=True)
 
     # (d) the dry-run
     rows["dryrun"] = recs
@@ -5322,7 +5434,9 @@ def phase_mesh_steps(dev, gpu, recs):
               f"{rec['step_time_bound_s']:.4f} s (roofline "
               f"{ {k: round(v, 4) for k, v in rec['roofline'].items()} }), "
               f"bytes per device {rec['bytes_per_device']}, useful flops "
-              f"ratio {rec['useful_flops_ratio']:.4f}; the H100 SXM's "
+              f"ratio {rec['useful_flops_ratio']:.4f}, collective bytes "
+              f"{rec['collective_bytes_per_device']}, leaves gathered over "
+              f"\"model\" {rec['model_gathered']}; the H100 SXM's "
               f"constants ({dryrun.PEAK_FLOPS:.3g} FLOP/s, "
               f"{dryrun.HBM_BW:.3g} B/s, {dryrun.NET_BW:.3g} B/s a GPU); "
               f"{gpu}", flush=True)

@@ -10,8 +10,8 @@ group moves device memory.  A gloo group given a CUDA tensor moves it through
 pinned host buffers: :func:`staged` says when, and :func:`staged_bytes`
 counts what a call copies to the host.  :func:`axis_size` reads a named
 axis of a ``DeviceMesh``.  Under :func:`repro_torch.launch.cost.analyze`
-each all-to-all, all-gather and all-reduce counts the payload bytes this
-rank sends, by op.
+each all-to-all, all-gather, all-reduce and reduce-scatter counts the
+payload bytes this rank sends, by op.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch.distributed as dist
 from ..launch import cost
 
 __all__ = ["axis_size", "staged", "staged_bytes", "host_buffer", "to_host",
-           "all_to_all", "all_gather", "all_reduce"]
+           "all_to_all", "all_gather", "all_reduce", "reduce_scatter"]
 
 
 def axis_size(mesh, axis_name: str) -> int:
@@ -114,5 +114,29 @@ def all_reduce(buf, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
         through_host = staged(buf, group)
         out = to_host(buf) if through_host else buf.clone()
         dist.all_reduce(out, op=op, group=group)
+        return (out.to(buf.device, non_blocking=True) if through_host
+                else out)
+
+
+def reduce_scatter(buf, group=None) -> torch.Tensor:
+    """The sum over every rank of ``buf`` (same shape and dtype on each),
+    cut into the group's size of equal parts along axis 0: this rank's
+    part, as a new tensor on ``buf``'s device.  Staged through pinned host
+    memory as the others.  Counted as ``"reduce-scatter"``."""
+    world = dist.get_world_size(group)
+    n = buf.shape[0] // world
+    if n * world != buf.shape[0]:
+        raise ValueError(f"axis 0 of {tuple(buf.shape)} does not split "
+                         f"into {world} parts")
+    with cost.collective("reduce-scatter", buf.numel() * buf.element_size()):
+        through_host = staged(buf, group)
+        if through_host:
+            send = to_host(buf)
+            out = host_buffer((n, *buf.shape[1:]), buf.dtype)
+        else:
+            send = buf.contiguous()
+            out = torch.empty((n, *buf.shape[1:]), dtype=buf.dtype,
+                              device=buf.device)
+        dist.reduce_scatter_tensor(out, send, group=group)
         return (out.to(buf.device, non_blocking=True) if through_host
                 else out)

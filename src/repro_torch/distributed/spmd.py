@@ -7,35 +7,62 @@ its own rows of the batch: a dim split over the data axes (``("pod",
 "data")``, :data:`repro_torch.models.common.DATA`) is split in JAX's order,
 the first axis outermost
 (:func:`repro_torch.distributed.sharding.local_slices`).
-Every other split is storage alone: ranks that differ only on ``"model"``
-compute the same rows, and JAX's ``shard()`` hints (heads, ffn, experts and
-vocab on ``"model"``, the long-context KV sequence on ``"data"``) change
-where a value lives, not what is computed.
 
-* A parameter is held as this rank's shard (:class:`MeshPlan.leaf`, a
-  :class:`~repro_torch.models.common.ShardedLeaf`).  The models gather a
-  block's leaves at the top of its body and a top-level leaf where they use
-  it; the gather is an autograd function whose forward all-gathers over the
-  mesh axes the leaf's spec names, and whose backward averages the whole
-  grad over the data axes and keeps this rank's slice.  Under
-  ``torch.utils.checkpoint`` (``remat``) the backward gathers the leaves
-  again instead of holding every layer whole.
-* The ranks that hold the same slice of a leaf (they differ only on axes
-  other than the data axes that its spec does not name) compute its grad
-  on the same rows, but not to the same bits: on CUDA the backward's
-  scatters (the embedding's, an index's) add with atomics in no fixed
-  order.  So the backward also averages the slice's grad over those
-  axes, and every replica of a leaf, and of its AdamW moments, is updated
-  to the same bits whatever the caller's
-  ``torch.use_deterministic_algorithms``.  The forward adds no floats
-  with atomics (the MoE counts are integers), so the loss and the served
-  tokens and caches are the same bits on those ranks.
+**Tensor parallelism on ``"model"``.**  Where JAX's ``shard()`` hints put
+heads, the ffn and the vocab on ``"model"``, the ranks that differ only on
+``"model"`` each compute their part (Megatron's column / row split, through
+the hooks of :mod:`repro_torch.models.common`, which this plan installs
+with :func:`~repro_torch.models.common.tensor_parallel` when the axis has
+more than one rank):
+
+* :meth:`MeshPlan.copy_to_model` (the identity, its backward the sum over
+  ``"model"``) feeds a column-parallel product, whose weight is the
+  rank's ``"model"`` shard (:meth:`_Leaf.part`: gathered over the data
+  axes only); :meth:`MeshPlan.reduce_from_model` sums a row-parallel
+  product's partials over ``"model"`` (the identity in its backward),
+  computed and summed one precision up (:meth:`MeshPlan.row_product`:
+  float32 for 16-bit activations, float64 for float32) and cast once;
+* the vocab: :meth:`MeshPlan.vocab_lookup` (the ids outside the rank's
+  rows masked, looked up locally, summed over ``"model"``),
+  :meth:`MeshPlan.vocab_nll` (the max, the sum of exponentials and the
+  gold logit reduced over ``"model"``) and :meth:`MeshPlan.vocab_argmax`
+  (each rank's max and its first index gathered; the largest wins, the
+  lowest index on ties, as ``torch.argmax``);
+* what JAX does not split there (MoE experts and router, the SSD's
+  leaves, attention whose heads the axis does not divide in train and
+  prefill) is computed whole on every ``"model"`` rank, its leaves
+  gathered whole (:meth:`_Leaf.full`), on inputs that are the same on
+  those ranks after the reductions.  :attr:`MeshPlan.model_gathered`
+  names the leaves gathered over ``"model"``.
+
+**The grads.**  A parameter is held as this rank's shard (:meth:`MeshPlan.leaf`,
+a :class:`~repro_torch.models.common.ShardedLeaf`).  The models gather a
+leaf where they use it, inside the ``remat`` body, so that a checkpointed
+backward gathers it again; the gather is an autograd function
+(:class:`_Gather`) whose backward (:meth:`MeshPlan.reduce_grad`) first
+cuts the grad to this rank's ``"model"`` slice (or, for a leaf used whole
+inside a tensor-parallel layer, :meth:`_Leaf.share`, whose grad on each
+rank is its share: reduce-scatters it over ``"model"``), then
+reduce-scatters it over the data axes that split the leaf and all-reduces
+it over the others, / the data ranks.  The ranks that hold the same slice
+(they differ only on axes other than the data axes that the leaf's spec
+does not name) compute its grad on the same rows, but not to the same
+bits: on CUDA the backward's scatters (the embedding's, an index's) add
+with atomics in no fixed order.  So the backward also averages the
+slice's grad over those axes, and every replica of a leaf, and of its
+AdamW moments, is updated to the same bits whatever the caller's
+``torch.use_deterministic_algorithms``.  The forward adds no floats with
+atomics (the MoE counts are integers), and gloo's reductions give every
+rank the same bits, so the loss and the served tokens and caches are the
+same bits on those ranks.
+
 * :meth:`MeshPlan.data_mean` is the mean over the data axes of a value
   that is not a per-row one (the MoE load-balancing statistics), with the
   same mean in its backward.
 * :meth:`MeshPlan.view` is a batch or cache input as this rank computes
-  it (its rows, every other dim whole), from a DTensor at the input's
-  spec (gathered over the storage axes) or from a whole tensor every rank
+  it (its rows, every other dim whole but the axes kept: the KV caches
+  stay split on ``"model"``), from a DTensor at the input's spec
+  (gathered over the storage axes) or from a whole tensor every rank
   holds (sliced); :meth:`MeshPlan.place` makes an output of it a DTensor
   at its spec.  :func:`repro_torch.distributed.sharding.put_tree` places
   the parameters and moments.
@@ -43,7 +70,9 @@ where a value lives, not what is computed.
 Every collective goes through :mod:`repro_torch.distributed.collective`
 (staged through pinned host memory on gloo with CUDA tensors, counted by
 :func:`repro_torch.launch.cost.analyze`); :attr:`MeshPlan.staged` counts
-the bytes a rank copies to the host, by purpose.
+the bytes a rank copies to the host, by purpose: ``"gather"`` (leaves),
+``"reduce"`` (grads), ``"stats"`` (MoE and metric means) and ``"tp"``
+(the activations reduced or gathered over ``"model"``).
 """
 
 from __future__ import annotations
@@ -57,7 +86,13 @@ from torch.distributed.tensor import DTensor
 from ..models import common
 from . import collective, sharding
 
-__all__ = ["MeshPlan", "is_multi_device"]
+__all__ = ["MeshPlan", "is_multi_device", "TP_AXIS"]
+
+TP_AXIS = "model"  # the axis the dense layers compute on
+# Partials summed over "model" one precision up: 16-bit in float32, float32
+# in float64 (each is exact in the wider type).
+_WIDER = {torch.bfloat16: torch.float32, torch.float16: torch.float32,
+          torch.float32: torch.float64}
 
 
 def is_multi_device(mesh) -> bool:
@@ -75,38 +110,56 @@ def local(x: DTensor) -> torch.Tensor:
 
 class _Leaf(common.ShardedLeaf):
     """This rank's shard ``local`` of a parameter whose dims are split over
-    the mesh axes ``axes`` (one tuple a dim, outermost first)."""
+    the mesh axes ``axes`` (one tuple a dim, outermost first); ``name``
+    is its path, for :attr:`MeshPlan.model_gathered`."""
 
-    def __init__(self, plan: "MeshPlan", local_: torch.Tensor, axes):
+    def __init__(self, plan: "MeshPlan", local_: torch.Tensor, axes,
+                 name: str = ""):
         self.plan, self.local, self.axes = plan, local_, tuple(axes)
+        self.name = name
 
     def __getitem__(self, i) -> "_Leaf":
         if self.axes[0]:
             raise ValueError(f"the stacked dim is split over {self.axes[0]}")
-        return _Leaf(self.plan, self.local[i], self.axes[1:])
+        return _Leaf(self.plan, self.local[i], self.axes[1:], self.name)
+
+    def _whole(self, share: bool) -> torch.Tensor:
+        if self.plan.tp_size > 1 and any(TP_AXIS in ax for ax in self.axes):
+            self.plan.model_gathered.add(self.name)
+        return _Gather.apply(self.local, self.plan, self.axes, self.axes,
+                             share)
 
     def full(self) -> torch.Tensor:
-        return _Gather.apply(self.local, self.plan, self.axes)
+        return self._whole(False)
+
+    def share(self) -> torch.Tensor:
+        return self._whole(True)
+
+    def part(self) -> torch.Tensor:
+        """This rank's ``"model"`` shard, gathered over the other axes
+        (the whole leaf where ``"model"`` does not compute)."""
+        if self.plan.tp is None:
+            return self.full()
+        kept = [tuple(a for a in ax if a != TP_AXIS) for ax in self.axes]
+        return _Gather.apply(self.local, self.plan, self.axes, kept, False)
 
 
 class _Gather(torch.autograd.Function):
-    """The whole leaf from this rank's shard; the backward averages the
-    grad over the data axes, keeps this rank's slice and averages that
-    over the other axes the leaf is not split on."""
+    """``local_`` gathered over ``gathered`` (one tuple of axes a dim); the
+    backward is :meth:`MeshPlan.reduce_grad`."""
 
     @staticmethod
-    def forward(ctx, local_, plan, axes):
-        ctx.plan, ctx.axes = plan, axes
-        out = plan.gather(local_, axes)
+    def forward(ctx, local_, plan, axes, gathered, share):
+        ctx.plan, ctx.axes, ctx.gathered, ctx.share = (plan, axes, gathered,
+                                                       share)
+        out = plan.gather(local_, gathered)
         return out.view_as(out) if out is local_ else out
 
     @staticmethod
     def backward(ctx, g):
-        plan = ctx.plan
-        g = plan.mean_over_data(g, "reduce")
-        part = g[plan.slices(g.shape, ctx.axes)]
-        part = plan.mean_over_replicas(part, ctx.axes)
-        return part.clone(memory_format=torch.contiguous_format), None, None
+        part = ctx.plan.reduce_grad(g, ctx.axes, ctx.gathered, ctx.share)
+        return (part.clone(memory_format=torch.contiguous_format), None,
+                None, None, None)
 
 
 class _DataMean(torch.autograd.Function):
@@ -120,6 +173,95 @@ class _DataMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.plan.mean_over_data(g, "stats"), None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; its backward sums the grad over ``"model"``."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.plan.model_sum(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over ``"model"`` as ``dtype`` (one precision above it
+    where ``widen``); the identity in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dtype, widen):
+        ctx.dtype = x.dtype
+        return plan.model_sum(x, dtype, widen)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None, None
+
+
+def _mm_wide(a, b):
+    """``a @ b`` (2-D) one precision above the operands (:data:`_WIDER`):
+    16-bit operands on the card (and ``meta``) into the product's own
+    float32 accumulators (``torch.mm(..., out_dtype=torch.float32)``);
+    elsewhere, and float32 ones, cast up first (exact)."""
+    wide = _WIDER[a.dtype]
+    if wide is torch.float32 and a.device.type in ("cuda", "meta"):
+        return torch.mm(a, b, out_dtype=wide)
+    return torch.mm(a.to(wide), b.to(wide))
+
+
+class _RowProduct(torch.autograd.Function):
+    """``h @ w`` (``h`` (..., F), ``w`` (F, D)) one precision above the
+    operands: a rank's partial of a row-parallel product, summed before
+    one cast.  The backward is the products of the grad cast back to the
+    operands' dtype, as one device's backward of ``h @ w``."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        out = _mm_wide(h.reshape(-1, h.shape[-1]), w)
+        return out.reshape(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(h.dtype)
+        gh = (g2 @ w.T).reshape(h.shape)
+        gw = h.reshape(-1, h.shape[-1]).T @ g2
+        return gh, gw
+
+
+class _VocabNLL(torch.autograd.Function):
+    """The mean negative log-likelihood of ``labels`` under logits whose
+    vocab is split over ``"model"`` (``logits`` this rank's columns), in
+    float32: the row max, the sum of exponentials and the gold logit
+    reduced over ``"model"``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, plan):
+        x = logits.float()
+        n = x.shape[-1]
+        mx = plan.model_max(x.amax(dim=-1))
+        e = torch.exp(x - mx[..., None])
+        total = plan.model_sum(e.sum(dim=-1))
+        idx = labels.long() - plan.tp_rank * n
+        ok = (idx >= 0) & (idx < n)
+        idx = torch.where(ok, idx, 0)
+        gold = torch.gather(x, -1, idx[..., None])[..., 0]
+        gold = plan.model_sum(torch.where(ok, gold, 0.0))
+        ctx.save_for_backward(e, total, idx, ok)
+        ctx.dtype = logits.dtype
+        return torch.mean(torch.log(total) + mx - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, ok = ctx.saved_tensors
+        p = e / total[..., None]
+        p = p.scatter_add(-1, idx[..., None], -ok[..., None].to(p.dtype))
+        return (p * (g / total.numel())).to(ctx.dtype), None, None
 
 
 class MeshPlan:
@@ -147,7 +289,17 @@ class MeshPlan:
                                  f"{self.coord[a]}")
         self.data_axes = tuple(a for a in common.DATA if a in names)
         self.n_data = math.prod(self.sizes[a] for a in self.data_axes)
-        self.staged = {"gather": 0, "reduce": 0, "stats": 0}
+        self.tp_size = self.sizes.get(TP_AXIS, 1)
+        self.tp_rank = self.coord.get(TP_AXIS, 0)
+        self.staged = {"gather": 0, "reduce": 0, "stats": 0, "tp": 0}
+        self.model_gathered: set[str] = set()
+
+    @property
+    def tp(self):
+        """The hook :func:`~repro_torch.models.common.tensor_parallel`
+        takes: this plan where ``"model"`` has more than one rank, else
+        None (the models compute every row whole)."""
+        return self if self.tp_size > 1 else None
 
     # -- specs ---------------------------------------------------------------
     def dim_axes(self, spec, ndim: int) -> list[tuple[str, ...]]:
@@ -181,6 +333,64 @@ class MeshPlan:
                     x = self._gather_dim(x, d, a)
         return x
 
+    def _scatter(self, x, d: int, axis: str, purpose: str):
+        """The sum of ``x`` over ``axis``, cut along dim ``d``: this
+        rank's part."""
+        group = self.groups[axis]
+        moved = x.movedim(d, 0).contiguous()
+        self.staged[purpose] += collective.staged_bytes(moved, group)
+        return collective.reduce_scatter(moved, group=group).movedim(0, d)
+
+    def _chunk(self, x, d: int, axis: str):
+        """This rank's part of ``x`` cut along dim ``d`` over ``axis``."""
+        n = x.shape[d] // self.sizes[axis]
+        return x.narrow(d, self.coord[axis] * n, n)
+
+    def _all_reduce(self, x, axis: str, purpose: str,
+                    op=dist.ReduceOp.SUM):
+        group = self.groups[axis]
+        self.staged[purpose] += collective.staged_bytes(x, group)
+        return collective.all_reduce(x, op=op, group=group)
+
+    def reduce_grad(self, g, axes, gathered, share: bool):
+        """The grad of this rank's shard of a leaf split over ``axes`` (one
+        tuple a dim), from ``g``, the grad of its value gathered over
+        ``gathered``.
+
+        ``"model"`` first: the rank's slice is cut out (or, with ``share``,
+        where each rank's grad is its share of the whole one, the sum
+        reduce-scattered; a leaf not split there is summed over it).
+        Then the data axes: reduce-scattered where they split the leaf,
+        all-reduced where they do not, / the data ranks.  Without
+        ``share`` the slice is then averaged over the other axes that do
+        not split the leaf (its replicas)."""
+        data = set(self.data_axes)
+        live = [tuple(a for a in ax if self.sizes[a] > 1) for ax in gathered]
+        late = []
+        for d, ax in enumerate(live):  # dims gathered over "model" alone
+            if any(a in data for a in ax):
+                late.append(d)
+                continue
+            for a in ax:
+                g = (self._scatter(g, d, a, "reduce") if share
+                     else self._chunk(g, d, a))
+        for d in late:  # in the dim's order: the outer axis first
+            for a in live[d]:
+                g = (self._scatter(g, d, a, "reduce")
+                     if a in data or share else self._chunk(g, d, a))
+        named = {a for ax in axes for a in ax}
+        others = [a for a in self.names if a not in data
+                  and a not in named and self.sizes[a] > 1]
+        if share:
+            for a in others:
+                g = self._all_reduce(g, a, "reduce")
+        for a in self.data_axes:
+            if self.sizes[a] > 1 and a not in named:
+                g = self._all_reduce(g, a, "reduce")
+        if self.n_data > 1:
+            g = g / self.n_data
+        return g if share else self.mean_over_replicas(g, axes)
+
     def mean_over_data(self, x, purpose: str):
         """The mean of ``x`` over the data axes (a sum over each axis's
         group, then / the ranks; every rank gets the same bits)."""
@@ -201,9 +411,7 @@ class MeshPlan:
         over = [a for a in self.names if a not in self.data_axes
                 and a not in named and self.sizes[a] > 1]
         for a in over:
-            self.staged["reduce"] += collective.staged_bytes(
-                x, self.groups[a])
-            x = collective.all_reduce(x, group=self.groups[a])
+            x = self._all_reduce(x, a, "reduce")
         return x / math.prod(self.sizes[a] for a in over) if over else x
 
     def data_mean(self, x):
@@ -217,11 +425,87 @@ class MeshPlan:
                 x = collective.all_reduce(x, group=self.groups[a])
         return x
 
+    # -- tensor parallelism on "model" (the hooks of models.common) ----------
+    def model_sum(self, x, dtype=None, widen: bool = True):
+        """The sum of ``x`` over ``"model"`` as ``dtype`` (``x``'s by
+        default); where ``widen``, summed one precision above ``dtype``
+        (float32 for 16-bit, float64 for float32)."""
+        dtype = x.dtype if dtype is None else dtype
+        if widen:
+            x = x.to(_WIDER.get(dtype, dtype))
+        return self._all_reduce(x, TP_AXIS, "tp").to(dtype)
+
+    def model_max(self, x):
+        """The max of ``x`` over ``"model"``."""
+        return self._all_reduce(x, TP_AXIS, "tp", op=dist.ReduceOp.MAX)
+
+    def gather_model(self, x, dim: int):
+        """Every ``"model"`` rank's ``x`` concatenated along ``dim`` (no
+        grad: the serving steps' moves between the head and the
+        ``d_head`` split)."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("gather_model carries no grad")
+        group = self.groups[TP_AXIS]
+        moved = x.movedim(dim, 0).contiguous()
+        self.staged["tp"] += collective.staged_bytes(moved, group)
+        return collective.all_gather(moved, group=group).movedim(0, dim)
+
+    def copy_to_model(self, x):
+        """``x``, the input of a column-parallel product (Megatron's
+        ``f``)."""
+        return _CopyToModel.apply(x, self)
+
+    def reduce_from_model(self, x, dtype=None, widen: bool = True):
+        """The sum of the partials ``x`` over ``"model"``, as ``dtype``
+        (Megatron's ``g``; one precision above ``dtype`` where
+        ``widen``)."""
+        return _ReduceFromModel.apply(x, self, x.dtype if dtype is None
+                                      else dtype, widen)
+
+    def row_product(self, h, w):
+        """``h @ w`` (``h`` (B, L, F), ``w`` (F, D)): this rank's partial
+        of a row-parallel product, one precision up (16-bit operands
+        accumulate into float32, float32 ones are multiplied in
+        float64)."""
+        return _RowProduct.apply(h, w)
+
+    def vocab_lookup(self, table, ids):
+        """The rows ``ids`` of an embedding whose vocab rows are split over
+        ``"model"`` (``table`` this rank's rows): the ids outside them
+        masked, the rest looked up, the sum over ``"model"`` (exact: one
+        rank holds each row)."""
+        n = table.shape[0]
+        idx = ids.long() - self.tp_rank * n
+        ok = (idx >= 0) & (idx < n)
+        rows = table[torch.where(ok, idx, 0)]
+        rows = torch.where(ok[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+        return self.reduce_from_model(rows, widen=False)
+
+    def vocab_nll(self, logits, labels):
+        """``models.transformer._nll`` of logits whose vocab is split over
+        ``"model"`` (``logits`` this rank's columns)."""
+        return _VocabNLL.apply(logits, labels, self)
+
+    def vocab_argmax(self, logits):
+        """``torch.argmax(logits, -1)`` (int32) of ``(B, V)`` logits whose
+        vocab is split over ``"model"``: each rank's max and its first
+        index gathered, the largest taken, the lowest index on ties."""
+        n = logits.shape[-1]
+        idx = torch.argmax(logits, dim=-1)
+        val = torch.gather(logits, -1, idx[..., None])[..., 0]
+        vals = self.gather_model(val[None], 0)
+        idxs = self.gather_model(idx[None], 0)
+        best = torch.argmax(vals, dim=0)
+        top = torch.gather(idxs, 0, best[None])[0]
+        return (best * n + top).to(torch.int32)
+
     # -- leaves, inputs and outputs ------------------------------------------
-    def leaf(self, x: DTensor, spec) -> _Leaf:
-        """The parameter ``x`` (a DTensor at ``spec``) as the model takes
-        it: its local shard, gathered where the model uses it."""
-        return _Leaf(self, local(x), self.dim_axes(spec, x.ndim))
+    def leaf(self, x: DTensor, spec, name: str = "") -> _Leaf:
+        """The parameter ``x`` (a DTensor at ``spec``, at path ``name``) as
+        the model takes it: its local shard, gathered where the model
+        uses it."""
+        return _Leaf(self, local(x), self.dim_axes(spec, x.ndim), name)
 
     def view(self, x, spec, keep, device) -> torch.Tensor:
         """This rank's part of the input ``x`` at ``spec`` under the axes

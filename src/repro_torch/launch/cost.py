@@ -11,7 +11,7 @@ keys:
 * ``hbm_bytes`` — each aten op's input and output tensor bytes (views
   move none), plus the analytic bytes of each kernel;
 * ``collective_bytes`` — ``{"all-to-all", "all-gather", "all-reduce",
-  "total"}``: the payload bytes this rank sends through
+  "reduce-scatter", "total"}``: the payload bytes this rank sends through
   :mod:`repro_torch.distributed.collective`, by op.
 
 The CUDA kernels are called through ctypes, which a dispatch mode never
@@ -35,7 +35,7 @@ from torch.utils._pytree import tree_flatten
 
 __all__ = ["analyze", "counting", "kernel", "collective"]
 
-COLLECTIVES = ("all-to-all", "all-gather", "all-reduce")
+COLLECTIVES = ("all-to-all", "all-gather", "all-reduce", "reduce-scatter")
 _MATMULS = {"mm", "bmm", "addmm", "baddbmm"}
 _open = threading.local()  # this thread's open counters
 

@@ -29,7 +29,7 @@ existing files are skipped); ``configs.skip_reason`` cells are written as
 An ``"ok"`` record has JAX's keys where the meaning carries: ``arch``,
 ``shape``, ``mesh``, ``status``, ``n_chips``,
 ``collective_bytes_per_device`` (by op: ``all-gather``, ``all-reduce``,
-``all-to-all``, ``total``), ``model_flops_global`` /
+``reduce-scatter``, ``all-to-all``, ``total``), ``model_flops_global`` /
 ``model_flops_per_device`` (:func:`model_flops`, JAX's formula),
 ``useful_flops_ratio``, ``roofline`` (``compute_s``, ``memory_s``,
 ``collective_s``), ``dominant``, ``step_time_bound_s`` and
@@ -47,7 +47,11 @@ An ``"ok"`` record has JAX's keys where the meaning carries: ``arch``,
   full depth by :func:`count`); JAX's
   ``output_size_in_bytes`` and ``generated_code_size_in_bytes`` have no
   counterpart (the step updates its arguments in place);
-* ``accum_steps`` is recorded.
+* ``accum_steps`` is recorded, and so is ``model_gathered``: the paths of
+  the parameters rank 0's step still gathers whole over ``"model"`` (the
+  MoE's and the SSD's leaves, attention whose heads ``"model"`` does not
+  divide, a ``"kv_whole"`` layer's ``wk`` / ``wv``), the work A.10d
+  parts 2 and 3 leave.
 
 The roofline's constants are an H100 SXM's, not JAX's v5e ones.
 """
@@ -200,7 +204,7 @@ def count(cfg, cell, mesh, hp: TrainHParams) -> dict:
     rows = cell.global_batch // A
     depths = (1, 2, 3) if D > 3 else (D,)
     accums = (2, 3) if A > 2 else (A,)  # the step accumulates from A = 2
-    samples = {}
+    samples, gathered = {}, set()
     for d in depths:
         model = build(_cut(cfg, d), "meta")
         for a in accums:
@@ -212,6 +216,8 @@ def count(cfg, cell, mesh, hp: TrainHParams) -> dict:
                 sharding.put_tree(t, s, mesh, "meta")
                 for t, s in zip(input_specs(), in_specs)))
             samples[d, a] = {k: int(round(v)) for k, v in got.items()}
+            plan = getattr(fn, "plan", None)
+            gathered |= plan.model_gathered if plan is not None else set()
     out = {}
     a0, a1 = accums[0], accums[-1]
     for key in samples[depths[0], a0]:
@@ -235,7 +241,8 @@ def count(cfg, cell, mesh, hp: TrainHParams) -> dict:
             "collective_bytes": colls,
             "argument_size_in_bytes": sum(x.numel() * x.element_size()
                                           for x in shards),
-            "temp_size_in_bytes": out["temp_size_in_bytes"]}
+            "temp_size_in_bytes": out["temp_size_in_bytes"],
+            "model_gathered": sorted(gathered)}
 
 
 def _accum(mesh, cell) -> int:
@@ -304,6 +311,7 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool) -> dict:
         "step_time_bound_s": max(terms.values()),
         "memory_analysis": mem,
         "bytes_per_device": sum(mem.values()),
+        "model_gathered": res["model_gathered"],
     }
 
 

@@ -19,6 +19,30 @@ The window ring cache and the chunk constants (:data:`CHUNK_Q`,
 :data:`CHUNK_KV`, :data:`DENSE_MAX`) are JAX's; :func:`attend` reads the
 constants when it is called, so a test can make them small.  Functions are
 pure: a cache passed in is never written, the new cache is a new tensor.
+
+**Heads on ``"model"``.**  Within
+:func:`~repro_torch.models.common.tensor_parallel` (m ranks on
+``"model"``), as JAX's hints put the heads there (:func:`_layout`):
+
+* ``"heads"`` (m divides H and K): each rank projects its q and kv heads
+  with its column shards of ``wq`` / ``wk`` / ``wv`` (and biases), attends
+  over them and multiplies its rows of ``wo`` (row-parallel, summed over
+  ``"model"`` before ``bo``); the KV cache is split on its heads;
+* ``"kv_whole"`` (m divides H, not K): the rank's q heads as above; in
+  train and prefill the kv heads its q heads read are projected from
+  ``wk`` / ``wv`` gathered whole (:func:`~.common.model_share`: each
+  rank's grad is its share) and expanded to its groups only;
+* ``"whole"`` (m does not divide H): train and prefill compute every head
+  on every rank, the leaves gathered whole (A.10d part 3 queues uneven
+  splits).
+
+Where m does not divide K, the cache is split on ``d_head`` (JAX's
+``cache_specs``): prefill writes its ``d_head`` slice, and decode
+(:func:`_decode_dh`) projects its columns, gathers the (B, 1, ·) q / k / v
+over ``"model"``, contracts QK^T on its ``d_head`` slice, sums the
+logits over ``"model"``, and gathers o back before the row-parallel
+``wo``.  Outside the block every rank computes everything (the
+``"whole"`` layout), as on one device.
 """
 
 from __future__ import annotations
@@ -117,19 +141,84 @@ def _heads(x, n, dh):
     return x.reshape(*x.shape[:-1], n, dh)
 
 
-def _qkv(params, cfg: AttnConfig, x, kv_src, positions):
-    """Project to (q, k, v) with qk-norm and RoPE applied."""
-    H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    q = _heads(_proj(x, params["wq"], params.get("bq")), H, dh)
-    k = _heads(_proj(kv_src, params["wk"], params.get("bk")), K, dh)
-    v = _heads(_proj(kv_src, params["wv"], params.get("bv")), K, dh)
+def _layout(cfg: AttnConfig) -> str:
+    """How the ``"model"`` ranks split the heads in train and prefill
+    (module docstring): ``"whole"``, ``"heads"`` or ``"kv_whole"``."""
+    m = common.model_size()
+    if m == 1 or cfg.n_heads % m:
+        return "whole"
+    return "heads" if cfg.n_kv % m == 0 else "kv_whole"
+
+
+def _dh_split(cfg: AttnConfig) -> bool:
+    """Whether the cache is split on ``d_head`` over ``"model"`` (m does
+    not divide the kv heads), as JAX's ``cache_specs``."""
+    m = common.model_size()
+    return m > 1 and cfg.n_kv % m != 0
+
+
+def _dh_slice(cfg: AttnConfig) -> slice:
+    """This rank's ``d_head`` slice of a cache split on ``d_head``."""
+    n = cfg.d_head // common.model_size()
+    return slice(common.model_rank() * n, (common.model_rank() + 1) * n)
+
+
+def _kv_heads(cfg: AttnConfig, every: bool, device):
+    """``"kv_whole"``: the kv heads ``[lo, hi)`` a rank projects (those
+    its q heads read, or ``every`` one) and each of its q heads' index
+    among them."""
+    m, r = common.model_size(), common.model_rank()
+    hm, g = cfg.n_heads // m, cfg.n_heads // cfg.n_kv
+    lo, hi = (0, cfg.n_kv) if every else (r * hm // g,
+                                          ((r + 1) * hm - 1) // g + 1)
+    return lo, hi, torch.arange(r * hm, (r + 1) * hm, device=device) // g - lo
+
+
+def _norm_rope(params, cfg: AttnConfig, q, k, positions):
     if cfg.qk_norm:
         q = common.rms_norm(q, params["q_norm"])
         k = common.rms_norm(k, params["k_norm"])
     if not cfg.cross:
-        cos, sin = common.rope(positions, dh, cfg.rope_theta)
+        cos, sin = common.rope(positions, q.shape[-1], cfg.rope_theta)
         q = common.apply_rope(q, cos, sin)
         k = common.apply_rope(k, cos, sin)
+    return q, k
+
+
+def _qkv(params, cfg: AttnConfig, x, kv_src, positions, layout="whole",
+         every_kv=False):
+    """Project to (q, k, v) with qk-norm and RoPE applied: every head
+    (``"whole"``, ``params`` whole) or this rank's q heads and its kv
+    heads (``x`` and ``kv_src`` already through
+    :func:`~.common.copy_to_model`; ``"kv_whole"``: the kv heads its q
+    heads read, or ``every_kv`` one)."""
+    H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    if layout == "whole":
+        q = _heads(_proj(x, params["wq"], params.get("bq")), H, dh)
+        k = _heads(_proj(kv_src, params["wk"], params.get("bk")), K, dh)
+        v = _heads(_proj(kv_src, params["wv"], params.get("bv")), K, dh)
+        q, k = _norm_rope(params, cfg, q, k, positions)
+    else:
+        m = common.model_size()
+        part = {n: common.model_part(params[n])
+                for n in ("wq", "bq", "wk", "bk", "wv", "bv")
+                if params.get(n) is not None}
+        q = _heads(_proj(x, part["wq"], part.get("bq")), H // m, dh)
+        if layout == "heads":
+            kv = part
+            n_kv = K // m
+        else:  # the kv heads this rank's q heads read, from wk / wv whole
+            lo, hi, _ = _kv_heads(cfg, every_kv, x.device)
+            cols = slice(lo * dh, hi * dh)
+            kv = {n: common.model_share(params[n])[..., cols]
+                  for n in ("wk", "bk", "wv", "bv")
+                  if params.get(n) is not None}
+            n_kv = hi - lo
+        k = _heads(_proj(kv_src, kv["wk"], kv.get("bk")), n_kv, dh)
+        v = _heads(_proj(kv_src, kv["wv"], kv.get("bv")), n_kv, dh)
+        norms = {n: common.model_share(params[n])
+                 for n in ("q_norm", "k_norm") if n in params}
+        q, k = _norm_rope(norms, cfg, q, k, positions)
     q = shard(q, DATA, None, "model", None)
     k = shard(k, DATA, None, "model" if K > 1 else None, None)
     v = shard(v, DATA, None, "model" if K > 1 else None, None)
@@ -177,14 +266,17 @@ def _dot32(eq, a, b):
 
 
 def _attend_dense(q, k, v, *, causal, window, q_offset, kv_len,
-                  kv_seq_shard=False):
+                  kv_seq_shard=False, d_head=None, reduce_logits=None):
     B, Lq, H, dh = q.shape
     Lk, K = k.shape[1], k.shape[2]
     g = H // K
     qg = q.reshape(B, Lq, K, g, dh)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(dh), device=q.device))
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d_head or dh),
+                                          device=q.device))
     logits = torch.einsum("blkgh,bskh->bklgs", qg.float() * scale,
                           k.float())  # (B, K, Lq, g, Lk)
+    if reduce_logits is not None:  # a d_head slice's partial logits
+        logits = reduce_logits(logits)
     qpos = _offsets(q_offset, B, q.device) + torch.arange(Lq, device=q.device)
     m = _mask(qpos, torch.arange(Lk, device=q.device), causal, window, kv_len)
     logits = torch.where(m[:, None, :, None, :], logits, NEG)
@@ -241,20 +333,25 @@ def _attend_chunked(q, k, v, *, causal, window, q_offset, kv_len):
 
 
 def attend(q, k, v, *, causal: bool, window: int, q_offset, kv_len=None,
-           kv_seq_shard: bool = False):
+           kv_seq_shard: bool = False, d_head=None, reduce_logits=None):
     """softmax(QK^T) V with GQA head-group expansion.
 
     q: (B, Lq, H, dh); k/v: (B, Lk, K, dh); q_offset: scalar/(B,) — absolute
     position of q[0] (for causal masking of cached decode).
     kv_len: (B,) valid cache length, None = all valid.
     Dispatches to a dense path for small problems / decode, and to a
-    flash-style chunked loop otherwise.
+    flash-style chunked loop otherwise.  A decode step on a ``d_head``
+    slice (``Lq`` 1) passes the head's whole ``d_head`` (the scale) and
+    ``reduce_logits``, which sums the slices' float32 logits.
     """
     Lq, Lk = q.shape[1], k.shape[1]
+    if reduce_logits is not None and Lq > 1:
+        raise ValueError("a d_head slice attends one query at a time")
     if Lq <= 1 or (Lq <= DENSE_MAX and Lk <= DENSE_MAX):
         return _attend_dense(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_len=kv_len,
-                             kv_seq_shard=kv_seq_shard)
+                             kv_seq_shard=kv_seq_shard, d_head=d_head,
+                             reduce_logits=reduce_logits)
     return _attend_chunked(q, k, v, causal=causal, window=window,
                            q_offset=q_offset, kv_len=kv_len)
 
@@ -270,10 +367,40 @@ def _expand_kv(k, v, n_heads: int):
     return k, v
 
 
-def _out(params, o, B, L):
-    y = torch.einsum("blf,fd->bld", o.reshape(B, L, -1), params["wo"])
+def _expand(k, v, cfg: AttnConfig, layout: str, every_kv=False):
+    """k / v at one kv head a q head of this rank: :func:`_expand_kv`, or
+    (``"kv_whole"``) its q heads' kv heads picked from those
+    :func:`_qkv` projected."""
+    if layout == "whole":
+        return _expand_kv(k, v, cfg.n_heads)
+    if layout == "heads":
+        return _expand_kv(k, v, cfg.n_heads // common.model_size())
+    idx = _kv_heads(cfg, every_kv, k.device)[2]
+    k = shard(k.index_select(2, idx), DATA, None, "model", None)
+    v = shard(v.index_select(2, idx), DATA, None, "model", None)
+    return k, v
+
+
+def _enter(params, layout: str, x, kv_src):
+    """``(params, x, kv_src)`` as :func:`_qkv` takes them: ``params``
+    gathered whole (``"whole"``) or the inputs entering the split layer."""
+    if layout == "whole":
+        return common.gathered(params), x, kv_src
+    xc = None if x is None else common.copy_to_model(x)
+    return params, xc, xc if kv_src is x else common.copy_to_model(kv_src)
+
+
+def _out(params, o, B, L, layout="whole"):
+    """The output projection of ``o`` (this rank's rows of it outside
+    ``"whole"``: summed over ``"model"`` before ``bo``)."""
+    o = o.reshape(B, L, -1)
+    if layout == "whole":
+        y = torch.einsum("blf,fd->bld", o, params["wo"])
+    else:
+        y = common.reduce_from_model(
+            common.row_product(o, common.model_part(params["wo"])), o.dtype)
     if params.get("bo") is not None:
-        y = y + params["bo"]
+        y = y + common.gathered(params["bo"])
     return y
 
 
@@ -286,11 +413,13 @@ def fwd_train(params, cfg: AttnConfig, x, kv_src=None, positions=None):
     kv_src = x if kv_src is None else kv_src
     if positions is None:
         positions = torch.arange(L, device=x.device)[None, :]
-    q, k, v = _qkv(params, cfg, x, kv_src, positions)
-    k, v = _expand_kv(k, v, cfg.n_heads)
+    layout = _layout(cfg)
+    params, x, kv_src = _enter(params, layout, x, kv_src)
+    q, k, v = _qkv(params, cfg, x, kv_src, positions, layout)
+    k, v = _expand(k, v, cfg, layout)
     o = attend(q, k, v, causal=cfg.causal and not cfg.cross, window=cfg.window,
                q_offset=_zeros_b(B, x.device))
-    return shard(_out(params, o, B, L), DATA, None, None)
+    return shard(_out(params, o, B, L, layout), DATA, None, None)
 
 
 def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
@@ -298,11 +427,16 @@ def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
     B, L, _ = x.shape
     if positions is None:
         positions = torch.arange(L, device=x.device)[None, :]
-    q, k, v = _qkv(params, cfg, x, x, positions)
-    ke, ve = _expand_kv(k, v, cfg.n_heads)
+    layout = _layout(cfg)
+    dh_split = _dh_split(cfg)
+    params, xc, _ = _enter(params, layout, x, x)
+    q, k, v = _qkv(params, cfg, xc, xc, positions, layout, every_kv=dh_split)
+    ke, ve = _expand(k, v, cfg, layout, every_kv=dh_split)
     o = attend(q, ke, ve, causal=True, window=cfg.window,
                q_offset=_zeros_b(B, x.device))
-    y = _out(params, o, B, L)
+    y = _out(params, o, B, L, layout)
+    if dh_split:  # the cache holds this rank's d_head slice of every head
+        k, v = k[..., _dh_slice(cfg)], v[..., _dh_slice(cfg)]
     Sc = cache.k.shape[1]
     length = torch.full((B,), L, dtype=torch.int32, device=x.device)
     if L >= Sc:
@@ -321,54 +455,141 @@ def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
     return shard(y, DATA, None, None), newc
 
 
-def fwd_decode(params, cfg: AttnConfig, x, cache: KVCache):
-    """One-token decode step against the cache. x: (B, 1, D)."""
-    B = x.shape[0]
-    pos = cache.length[:, None]  # (B, 1)
-    q, k, v = _qkv(params, cfg, x, x, pos)
-    # When kv heads don't divide the model axis, the cache is d_head-
-    # sharded (see cache_specs); q follows the same split.
-    if cfg.n_kv and cfg.n_kv % max(common.axis_size("model"), 1) != 0:
-        q = shard(q, DATA, None, None, "model")
-        k = shard(k, DATA, None, None, "model")
-        v = shard(v, DATA, None, None, "model")
+def _write(cfg: AttnConfig, cache: KVCache, k, v):
+    """The cache with this step's k / v written at each row's slot."""
+    B = k.shape[0]
     if cfg.window:
         # Ring-buffer write at pos % window keeps the cache O(window).
         slot = (cache.length % cache.k.shape[1])[:, None]
     else:
         slot = cache.length[:, None]
-    bidx = torch.arange(B, device=x.device)[:, None]
+    bidx = torch.arange(B, device=k.device)[:, None]
     newk, newv = cache.k.clone(), cache.v.clone()
     newk[bidx, slot.long()] = k.to(cache.k.dtype)
     newv[bidx, slot.long()] = v.to(cache.v.dtype)
+    return newk, newv
+
+
+def _attend_cache(cfg: AttnConfig, q, newk, newv, cache: KVCache, **kw):
+    """One query a row against the cache just written."""
     if cfg.window:
         # The ring holds only the last `window` positions by construction;
         # kv_len masks the slots not yet written during warm-up.
         kv_len = torch.clamp_max(cache.length + 1, cache.k.shape[1])
-        o = attend(q, newk, newv, causal=False, window=0,
-                   q_offset=cache.length, kv_len=kv_len)
-    else:
-        o = attend(q, newk, newv, causal=True, window=0,
-                   q_offset=cache.length, kv_len=cache.length + 1,
-                   kv_seq_shard=cfg.shard_cache_seq)
-    return _out(params, o, B, 1), KVCache(newk, newv, cache.length + 1)
+        return attend(q, newk, newv, causal=False, window=0,
+                      q_offset=cache.length, kv_len=kv_len, **kw)
+    return attend(q, newk, newv, causal=True, window=0,
+                  q_offset=cache.length, kv_len=cache.length + 1,
+                  kv_seq_shard=cfg.shard_cache_seq, **kw)
 
 
-def fwd_cross_decode(params, cfg: AttnConfig, x, enc_k, enc_v, enc_len=None):
-    """Cross-attention for decode/train: kv precomputed from encoder."""
+def _sum_logits(logits):
+    """The float32 logits of ``d_head`` slices summed over ``"model"``
+    (in float32, as JAX's psum of its float32 scores)."""
+    return common.reduce_from_model(logits, widen=False)
+
+
+def _gathered_cols(params, x, w, b, n, dh):
+    """This rank's columns of ``x @ w + b`` gathered over ``"model"``, as
+    ``n`` heads of ``dh``: (B, 1, n, dh)."""
+    bias = params.get(b)
+    y = _proj(x, common.model_part(params[w]),
+              None if bias is None else common.model_part(bias))
+    return _heads(common.gather_model(y, -1), n, dh)
+
+
+def _out_dh(params, o, B, L):
+    """:func:`_out` of ``o``, this rank's ``d_head`` slice of every head,
+    gathered back over ``"model"``: this rank's rows of ``wo``."""
+    o = common.gather_model(o, -1).reshape(B, L, -1)
+    n = o.shape[-1] // common.model_size()
+    rows = o[..., common.model_rank() * n:(common.model_rank() + 1) * n]
+    return _out(params, rows, B, L, "heads")
+
+
+def _decode_dh(params, cfg: AttnConfig, x, cache: KVCache):
+    """:func:`fwd_decode` on a cache split on ``d_head`` (module
+    docstring)."""
+    B = x.shape[0]
+    H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    xc = common.copy_to_model(x)
+    q = _gathered_cols(params, xc, "wq", "bq", H, dh)
+    k = _gathered_cols(params, xc, "wk", "bk", K, dh)
+    v = _gathered_cols(params, xc, "wv", "bv", K, dh)
+    q, k = _norm_rope(common.gathered({n: params[n] for n in (
+        "q_norm", "k_norm") if n in params}), cfg, q, k, cache.length[:, None])
+    sl = _dh_slice(cfg)
+    q, k, v = q[..., sl], k[..., sl], v[..., sl]
+    newk, newv = _write(cfg, cache, k, v)
+    o = _attend_cache(cfg, q, newk, newv, cache, d_head=dh,
+                      reduce_logits=_sum_logits)
+    return _out_dh(params, o, B, 1), KVCache(newk, newv, cache.length + 1)
+
+
+def fwd_decode(params, cfg: AttnConfig, x, cache: KVCache):
+    """One-token decode step against the cache. x: (B, 1, D)."""
+    if _dh_split(cfg):
+        # When kv heads don't divide the model axis, the cache is d_head-
+        # sharded (see cache_specs); q follows the same split.
+        return _decode_dh(params, cfg, x, cache)
+    B = x.shape[0]
+    pos = cache.length[:, None]  # (B, 1)
+    layout = _layout(cfg)
+    params, xc, _ = _enter(params, layout, x, x)
+    q, k, v = _qkv(params, cfg, xc, xc, pos, layout)
+    newk, newv = _write(cfg, cache, k, v)
+    o = _attend_cache(cfg, q, newk, newv, cache)
+    return _out(params, o, B, 1, layout), KVCache(newk, newv,
+                                                  cache.length + 1)
+
+
+def fwd_cross_decode(params, cfg: AttnConfig, x, enc_k, enc_v, enc_len=None,
+                     cached: bool = False):
+    """Cross-attention for decode/train: kv precomputed from encoder
+    (:func:`cross_kv`'s heads, or with ``cached`` a serving cache's, which
+    holds a ``d_head`` slice of every head where ``"model"`` splits it
+    so: :func:`_dh_split`)."""
     B, Lq, _ = x.shape
     H, dh = cfg.n_heads, cfg.d_head
-    q = _heads(_proj(x, params["wq"], params.get("bq")), H, dh)
+    dh_cache = cached and _dh_split(cfg)
+    if dh_cache and Lq == 1:  # one query against the d_head slice
+        xc = common.copy_to_model(x)
+        q = _gathered_cols(params, xc, "wq", "bq", H, dh)
+        if cfg.qk_norm:
+            q = common.rms_norm(q, common.gathered(params["q_norm"]))
+        o = attend(q[..., _dh_slice(cfg)], enc_k, enc_v, causal=False,
+                   window=0, q_offset=_zeros_b(B, x.device), kv_len=enc_len,
+                   d_head=dh, reduce_logits=_sum_logits)
+        return _out_dh(params, o, B, Lq)
+    if dh_cache:  # a prompt: the heads whole
+        enc_k = common.gather_model(enc_k, -1)
+        enc_v = common.gather_model(enc_v, -1)
+    layout = _layout(cfg)
+    params, xc, _ = _enter(params, layout, x, x)
+    if layout == "whole":
+        q = _heads(_proj(xc, params["wq"], params.get("bq")), H, dh)
+    else:
+        bq = params.get("bq")
+        q = _heads(_proj(xc, common.model_part(params["wq"]),
+                         None if bq is None else common.model_part(bq)),
+                   H // common.model_size(), dh)
     if cfg.qk_norm:
-        q = common.rms_norm(q, params["q_norm"])
+        q = common.rms_norm(q, common.model_share(params["q_norm"]))
     o = attend(q, enc_k, enc_v, causal=False, window=0,
                q_offset=_zeros_b(B, x.device), kv_len=enc_len)
-    return _out(params, o, B, Lq)
+    return _out(params, o, B, Lq, layout)
 
 
 def cross_kv(params, cfg: AttnConfig, enc_out):
-    """Precompute cross-attention K/V from encoder output."""
+    """Precompute cross-attention K/V from encoder output (this rank's
+    heads where ``"model"`` splits them)."""
     K, dh = cfg.n_kv, cfg.d_head
+    layout = _layout(cfg)
+    params, _, enc_out = _enter(params, layout, None, enc_out)
+    if layout != "whole":
+        K //= common.model_size()
+        params = {n: common.model_part(params[n])
+                  for n in ("wk", "bk", "wv", "bv") if n in params}
     k = _heads(_proj(enc_out, params["wk"], params.get("bk")), K, dh)
     v = _heads(_proj(enc_out, params["wv"], params.get("bv")), K, dh)
     return k, v

@@ -29,6 +29,21 @@ top-level leaf where they use it; :func:`data_mean` is the mean over the
 data-parallel ranks of a quantity that is not a per-row one (the MoE
 load-balancing statistics).  Both are the identity outside
 :func:`data_parallel`'s block and on plain tensors.
+
+**Tensor parallelism.**  Within :func:`tensor_parallel`'s block (the mesh
+steps install it where ``"model"`` has more than one rank) the dense
+layers compute their part of the heads, the ffn and the vocab, as
+Megatron splits them: :func:`model_part` is a leaf's ``"model"`` shard
+(the weight of a column- or row-parallel product), :func:`model_share` a
+leaf used whole inside such a layer (its grad is each rank's share),
+:func:`copy_to_model` / :func:`reduce_from_model` bracket the split
+computation, :func:`row_product` is a row-parallel partial,
+:func:`gather_model` moves a serving step's small tensors between splits,
+and :func:`vocab_lookup` / :func:`vocab_nll` work on a vocab split over
+``"model"`` (the serving steps take its greedy tokens by
+:meth:`~repro_torch.distributed.spmd.MeshPlan.vocab_argmax`).  Outside
+it :func:`model_size` is 1 and each of them is what one device computes:
+the identity, a plain lookup, the whole product.
 """
 
 from __future__ import annotations
@@ -67,6 +82,17 @@ __all__ = [
     "gathered",
     "data_mean",
     "data_parallel",
+    "tensor_parallel",
+    "model_size",
+    "model_rank",
+    "model_part",
+    "model_share",
+    "copy_to_model",
+    "reduce_from_model",
+    "row_product",
+    "gather_model",
+    "vocab_lookup",
+    "vocab_nll",
     "Params",
 ]
 
@@ -141,9 +167,18 @@ def shard(x: torch.Tensor, *axes) -> torch.Tensor:
 
 class ShardedLeaf:
     """A parameter leaf held as this rank's shard; :meth:`full` gathers
-    the whole value and ``leaf[i]`` is layer ``i`` of a stacked leaf."""
+    the whole value, :meth:`part` this rank's ``"model"`` shard (gathered
+    over the other axes), :meth:`share` the whole value whose grad on this
+    rank is its share of the whole grad, and ``leaf[i]`` is layer ``i`` of
+    a stacked leaf."""
 
     def full(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def part(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def share(self) -> torch.Tensor:
         raise NotImplementedError
 
     def __getitem__(self, i) -> "ShardedLeaf":
@@ -176,6 +211,98 @@ def data_mean(x: torch.Tensor) -> torch.Tensor:
     :func:`data_parallel`; else ``x``, the one rank's value)."""
     fn = getattr(_env, "data_mean", None)
     return x if fn is None else fn(x)
+
+
+@contextlib.contextmanager
+def tensor_parallel(tp):
+    """Within the block the layers compute their part on ``"model"``
+    through ``tp`` (a :class:`repro_torch.distributed.spmd.MeshPlan`, or
+    None: every rank computes the whole layer)."""
+    prev = getattr(_env, "tp", None)
+    _env.tp = tp
+    try:
+        yield
+    finally:
+        _env.tp = prev
+
+
+def _tp():
+    return getattr(_env, "tp", None)
+
+
+def model_size() -> int:
+    """The ranks that split the dense layers (1 outside
+    :func:`tensor_parallel`)."""
+    tp = _tp()
+    return 1 if tp is None else tp.tp_size
+
+
+def model_rank() -> int:
+    """This rank's index among them (0 outside)."""
+    tp = _tp()
+    return 0 if tp is None else tp.tp_rank
+
+
+def model_part(leaf):
+    """This rank's ``"model"`` shard of ``leaf`` (a plain tensor is
+    itself)."""
+    return leaf.part() if isinstance(leaf, ShardedLeaf) else leaf
+
+
+def model_share(leaf):
+    """``leaf`` whole, used by this rank's part of a split layer: its grad
+    here is this rank's share (a plain tensor is itself)."""
+    return leaf.share() if isinstance(leaf, ShardedLeaf) else leaf
+
+
+def copy_to_model(x):
+    """``x`` entering a split layer (its grad summed over ``"model"``)."""
+    tp = _tp()
+    return x if tp is None else tp.copy_to_model(x)
+
+
+def reduce_from_model(x, dtype=None, widen: bool = True):
+    """The sum over ``"model"`` of the partials ``x``, as ``dtype``
+    (``x``'s by default), summed one precision above it where ``widen``
+    (outside: ``x`` as ``dtype``)."""
+    tp = _tp()
+    if tp is None:
+        return x if dtype is None else x.to(dtype)
+    return tp.reduce_from_model(x, dtype, widen)
+
+
+def row_product(h, w):
+    """``einsum("blf,fd->bld", h, w)``; within :func:`tensor_parallel`
+    this rank's partial, one precision above the operands (float32 for
+    16-bit, float64 for float32)."""
+    tp = _tp()
+    if tp is None:
+        return torch.einsum("blf,fd->bld", h, w)
+    return tp.row_product(h, w)
+
+
+def gather_model(x, dim: int):
+    """Every ``"model"`` rank's ``x`` concatenated along ``dim`` (no
+    grad; outside: ``x``)."""
+    tp = _tp()
+    return x if tp is None else tp.gather_model(x, dim)
+
+
+def vocab_lookup(table, ids):
+    """The rows ``ids`` of the embedding leaf ``table`` (vocab-parallel
+    within :func:`tensor_parallel`)."""
+    tp = _tp()
+    if tp is None:
+        return gathered(table)[ids.long()]
+    return tp.vocab_lookup(model_part(table), ids)
+
+
+def vocab_nll(logits, labels):
+    """The vocab-parallel mean NLL of ``labels`` under this rank's vocab
+    columns ``logits`` (within :func:`tensor_parallel`), or None outside:
+    the caller computes it whole."""
+    tp = _tp()
+    return None if tp is None else tp.vocab_nll(logits, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -325,10 +452,11 @@ def layer(tup, *idx):
 
 
 def _weight_product(func, *args, **kwargs) -> bool:
-    """A matrix product without batch dims: ``mm`` / ``addmm``, or the
-    batch-1 ``bmm`` that ``einsum`` makes of a product with a weight."""
+    """A matrix product without batch dims: ``mm`` (a row-parallel
+    partial's ``out_dtype`` one too) / ``addmm``, or the batch-1 ``bmm``
+    that ``einsum`` makes of a product with a weight."""
     aten = torch.ops.aten
-    if func in (aten.mm.default, aten.addmm.default):
+    if func in (aten.mm.default, aten.mm.dtype, aten.addmm.default):
         return True
     return func is aten.bmm.default and args[0].shape[0] == 1
 
@@ -348,7 +476,9 @@ def remat(fn, cfg):
     (``torch.utils.checkpoint``, non-reentrant).  ``cfg.remat_policy ==
     "dots"`` keeps the outputs of the products with weights (JAX's
     ``checkpoint_dots_with_no_batch_dims``) through selective activation
-    checkpointing.  Otherwise ``fn`` itself.
+    checkpointing.  The recompute runs under the
+    :func:`tensor_parallel` and :func:`data_parallel` hooks of the
+    forward.  Otherwise ``fn`` itself.
     """
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
@@ -358,5 +488,16 @@ def remat(fn, cfg):
     if getattr(cfg, "remat_policy", None) == "dots":
         kw["context_fn"] = functools.partial(
             checkpoint.create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(checkpoint.checkpoint, fn, use_reentrant=False,
-                             **kw)
+
+    def run(*args):
+        # The recompute runs on autograd's thread for CUDA tensors: it
+        # installs the hooks this thread had at the forward.
+        tp, mean = _tp(), getattr(_env, "data_mean", None)
+
+        def body(*a):
+            with tensor_parallel(tp), data_parallel(mean):
+                return fn(*a)
+
+        return checkpoint.checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run

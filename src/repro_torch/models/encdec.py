@@ -8,8 +8,11 @@ positions on the decoder, MHA self/cross attention, tied softmax head.
 Serving: the encoder runs once; decoder prefill/decode carry a self-attn
 KV cache plus per-layer cross K/V computed once from the encoder output.
 ``remat`` acts on each encoder block and each training decoder block when
-grads are on, as JAX's ``jax.checkpoint`` there; a block's parameters are
-gathered at the top of its body (:func:`~.common.gathered`).
+grads are on, as JAX's ``jax.checkpoint`` there; a leaf is gathered
+inside the body that uses it (:func:`~.common.gathered`).  Within
+:func:`~.common.tensor_parallel` the attention and the GELU MLP compute
+their part of the heads and the ffn, and the embedding, the tied head and
+the loss their part of the vocab, as :mod:`.transformer`'s.
 """
 
 from __future__ import annotations
@@ -70,6 +73,10 @@ class EncDecCache(NamedTuple):
     kv: Any  # stacked self-attn KVCache (n_dec, ...)
     cross_k: torch.Tensor  # (n_dec, B, S_enc, H, dh)
     cross_v: torch.Tensor
+
+    # The fields the tensor-parallel layers keep split on "model" as
+    # cache_specs splits them (heads or d_head).
+    MODEL_SPLIT = ("kv", "cross_k", "cross_v")
 
 
 def _ln_init(cfg, dev):
@@ -169,10 +176,9 @@ class EncDec:
         x = shard(frames.to(cfg.dtype) + pe[None], DATA, None, None)
 
         def body(x, bp):
-            bp = common.gathered(bp)
-            h = _ln(x, bp["ln1"], cfg.norm_eps)
+            h = _ln(x, common.gathered(bp["ln1"]), cfg.norm_eps)
             x = x + attention.fwd_train(bp["attn"], cfg.enc_attn, h)
-            h = _ln(x, bp["ln2"], cfg.norm_eps)
+            h = _ln(x, common.gathered(bp["ln2"]), cfg.norm_eps)
             return x + mlp.gelu_mlp(bp["mlp"], h)
 
         body = common.remat(body, cfg)
@@ -183,8 +189,7 @@ class EncDec:
     # ------------- decoder ---------------------------------------------------
     def _dec_layer(self, bp, x, enc_out, mode, kv_c=None, cross=None):
         cfg = self.cfg
-        bp = common.gathered(bp)
-        h = _ln(x, bp["ln1"], cfg.norm_eps)
+        h = _ln(x, common.gathered(bp["ln1"]), cfg.norm_eps)
         if mode == "train":
             x = x + attention.fwd_train(bp["self"], cfg.attn, h)
         elif mode == "prefill":
@@ -193,14 +198,14 @@ class EncDec:
         else:
             a, kv_c = attention.fwd_decode(bp["self"], cfg.attn, h, kv_c)
             x = x + a
-        h = _ln(x, bp["ln_x"], cfg.norm_eps)
+        h = _ln(x, common.gathered(bp["ln_x"]), cfg.norm_eps)
         if mode == "train":
             ck, cv = attention.cross_kv(bp["cross"], cfg.cross_attn, enc_out)
         else:
             ck, cv = cross
         x = x + attention.fwd_cross_decode(bp["cross"], cfg.cross_attn, h,
-                                           ck, cv)
-        h = _ln(x, bp["ln2"], cfg.norm_eps)
+                                           ck, cv, cached=mode != "train")
+        h = _ln(x, common.gathered(bp["ln2"]), cfg.norm_eps)
         return x + mlp.gelu_mlp(bp["mlp"], h), kv_c
 
     def _dec_body(self, p, x, enc_out, mode, cache=None):
@@ -225,8 +230,10 @@ class EncDec:
                               cross_v=cache.cross_v)
 
     def _head(self, p, x):
-        head = common.gathered(p["embed"]).T.to(self.cfg.dtype)
-        return torch.einsum("...d,dv->...v", x, head)
+        """The tied head's logits: this rank's vocab columns within
+        :func:`~.common.tensor_parallel`."""
+        head = common.model_part(p["embed"]).T.to(self.cfg.dtype)
+        return torch.einsum("...d,dv->...v", common.copy_to_model(x), head)
 
     def loss(self, params, frames, tokens, labels):
         cfg = self.cfg
@@ -237,7 +244,7 @@ class EncDec:
         if L > pos_tab.shape[0]:  # long shapes exceed the native 448
             reps = -(-L // pos_tab.shape[0])
             pos_tab = pos_tab.repeat(reps, 1)
-        x = (common.gathered(p["embed"])[tokens.long()].to(cfg.dtype)
+        x = (common.vocab_lookup(p["embed"], tokens).to(cfg.dtype)
              + pos_tab[None, :L])
         x = shard(x, DATA, None, None)
         x, _ = self._dec_body(p, x, enc_out, "train")
@@ -280,7 +287,7 @@ class EncDec:
         cfg = self.cfg
         pos_tab = common.gathered(p["dec_pos"])
         idx = position % pos_tab.shape[0]
-        return (common.gathered(p["embed"])[token.long()].to(cfg.dtype)
+        return (common.vocab_lookup(p["embed"], token).to(cfg.dtype)
                 + pos_tab[idx.long()].to(cfg.dtype))
 
     def prefill(self, params, tokens, cache: EncDecCache):

@@ -2,6 +2,13 @@
 
 Port of ``repro/models/mlp.py``.  ``jax.nn.gelu`` defaults to the tanh
 approximation, and so does :func:`gelu_mlp`.
+
+Within :func:`~repro_torch.models.common.tensor_parallel` each rank
+computes its columns of the hidden layer (``wg`` / ``wu`` / ``w1`` / ``b1``
+column-parallel on their ``"model"`` shards, as JAX's hints put the ffn
+on ``"model"``) and its partial of the output (``wd`` / ``w2``
+row-parallel), summed over ``"model"`` before ``b2`` is added once.  The
+parameters may be :class:`~repro_torch.models.common.ShardedLeaf` s.
 """
 
 from __future__ import annotations
@@ -34,11 +41,14 @@ def swiglu_specs(fsdp: bool = False):
 
 
 def swiglu(params, x):
-    h = F.silu(torch.einsum("bld,df->blf", x, params["wg"]))
-    h = h * torch.einsum("bld,df->blf", x, params["wu"])
+    dtype = x.dtype
+    x = common.copy_to_model(x)
+    h = F.silu(torch.einsum("bld,df->blf", x,
+                            common.model_part(params["wg"])))
+    h = h * torch.einsum("bld,df->blf", x, common.model_part(params["wu"]))
     h = shard(h, DATA, None, "model")
-    y = torch.einsum("blf,fd->bld", h, params["wd"])
-    return shard(y, DATA, None, None)
+    y = common.row_product(h, common.model_part(params["wd"]))
+    return shard(common.reduce_from_model(y, dtype), DATA, None, None)
 
 
 def init_gelu(gen, d_model: int, d_ff: int, dtype=torch.float32, bias=True):
@@ -62,11 +72,14 @@ def gelu_specs(bias=True, fsdp: bool = False):
 
 
 def gelu_mlp(params, x):
-    h = torch.einsum("bld,df->blf", x, params["w1"])
+    dtype = x.dtype
+    x = common.copy_to_model(x)
+    h = torch.einsum("bld,df->blf", x, common.model_part(params["w1"]))
     if "b1" in params:
-        h = h + params["b1"]
+        h = h + common.model_part(params["b1"])
     h = shard(F.gelu(h, approximate="tanh"), DATA, None, "model")
-    y = torch.einsum("blf,fd->bld", h, params["w2"])
+    y = common.reduce_from_model(
+        common.row_product(h, common.model_part(params["w2"])), dtype)
     if "b2" in params:
-        y = y + params["b2"]
+        y = y + common.gathered(params["b2"])
     return shard(y, DATA, None, None)

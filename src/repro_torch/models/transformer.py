@@ -15,9 +15,15 @@ The layer parameters are stacked on a leading (n_layers, ...) axis, as
 JAX's, and the forward loops over that axis in Python where JAX scans.
 ``remat`` / ``remat_policy`` act where JAX's ``jax.checkpoint`` does, on
 each block body of ``logits_train`` (a hybrid group's body as one) when
-grads are on (:func:`~repro_torch.models.common.remat`).  A block's
-parameters are gathered (:func:`~repro_torch.models.common.gathered`) at
-the top of its body, the top-level leaves where they are used.
+grads are on (:func:`~repro_torch.models.common.remat`).  A leaf is
+gathered (:func:`~repro_torch.models.common.gathered`) inside the body
+that uses it, the top-level leaves where they are used.  Within
+:func:`~repro_torch.models.common.tensor_parallel` the attention and the
+SwiGLU MLP compute their part of the heads and the ffn
+(:mod:`.attention`, :mod:`.mlp`), the embedding, the head and the loss
+their part of the vocab (``embed`` split on its rows, ``lm_head`` on its
+columns, the tied head ``embed``'s rows); the MoE layer and the SSD
+compute whole on their leaves gathered whole.
 Parameters are a :class:`~repro_torch.models.common.ParamTree` (or the
 nested dict it holds) at JAX's paths, so
 ``convert.model_params_from_jax_numpy`` is a copy by path.
@@ -126,6 +132,10 @@ class LMCache(NamedTuple):
     kv: Any  # KVCache with leading layer dim, or None
     ssm: Any  # SSMState with leading layer dims, or None
 
+    # The fields the tensor-parallel layers keep split on "model" as
+    # cache_specs splits them (heads or d_head); the SSM state is gathered.
+    MODEL_SPLIT = ("kv",)
+
 
 class LM:
     """Functional model: params are trees at JAX's paths, methods are pure.
@@ -222,8 +232,7 @@ class LM:
     # ---------------- block bodies ------------------------------------------
     def _attn_mlp_block(self, p, x, mode, cache=None, moe_aux=None):
         cfg = self.cfg
-        p = common.gathered(p)
-        h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = common.rms_norm(x, common.gathered(p["ln1"]), cfg.norm_eps)
         if mode == "train":
             a = attention.fwd_train(p["attn"], cfg.attn, h)
         elif mode == "prefill":
@@ -231,9 +240,9 @@ class LM:
         else:
             a, cache = attention.fwd_decode(p["attn"], cfg.attn, h, cache)
         x = x + a
-        h = common.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = common.rms_norm(x, common.gathered(p["ln2"]), cfg.norm_eps)
         if cfg.block == "moe" and "moe" in p:
-            y, aux = moe_lib.fwd(p["moe"], cfg.moe, h,
+            y, aux = moe_lib.fwd(common.gathered(p["moe"]), cfg.moe, h,
                                  dropless=(mode == "decode"))
             moe_aux = aux["aux_loss"] if moe_aux is None else moe_aux + aux["aux_loss"]
         else:
@@ -251,12 +260,15 @@ class LM:
         return x + y, state
 
     def _embed(self, p, tokens):
-        x = common.gathered(p["embed"])[tokens.long()].to(self.cfg.dtype)
+        x = common.vocab_lookup(p["embed"], tokens).to(self.cfg.dtype)
         return shard(x, DATA, None, None)
 
     def _head(self, p):
+        """The head (D, V): this rank's vocab columns within
+        :func:`~.common.tensor_parallel`."""
         cfg = self.cfg
-        head = common.gathered(p["embed"] if cfg.tie_embed else p["lm_head"])
+        head = common.model_part(p["embed"] if cfg.tie_embed
+                                 else p["lm_head"])
         head = head.T if cfg.tie_embed else head
         return head.to(cfg.dtype)
 
@@ -299,7 +311,8 @@ class LM:
 
         x = common.rms_norm(x, common.gathered(p["final_norm"]),
                             cfg.norm_eps)
-        logits = torch.einsum("bld,dv->blv", x, self._head(p))
+        logits = torch.einsum("bld,dv->blv", common.copy_to_model(x),
+                              self._head(p))
         return shard(logits, DATA, None, "model"), aux
 
     def loss(self, params, tokens, labels):
@@ -406,7 +419,8 @@ class LM:
         x, cache = self._serve_layers(p, x, cache, "prefill")
         x = common.rms_norm(x, common.gathered(p["final_norm"]),
                             cfg.norm_eps)
-        logits = torch.einsum("bd,dv->bv", x[:, -1], self._head(p))
+        logits = torch.einsum("bd,dv->bv", common.copy_to_model(x[:, -1]),
+                              self._head(p))
         return shard(logits, DATA, "model"), cache
 
     def decode_step(self, params, token, cache: LMCache):
@@ -417,12 +431,17 @@ class LM:
         x, cache = self._serve_layers(p, x, cache, "decode")
         x = common.rms_norm(x, common.gathered(p["final_norm"]),
                             cfg.norm_eps)
-        logits = torch.einsum("bd,dv->bv", x[:, 0], self._head(p))
+        logits = torch.einsum("bd,dv->bv", common.copy_to_model(x[:, 0]),
+                              self._head(p))
         return shard(logits, DATA, "model"), cache
 
 
 def _nll(logits, labels):
-    """Mean token negative log-likelihood, in float32."""
+    """Mean token negative log-likelihood, in float32 (of this rank's vocab
+    columns ``logits`` within :func:`~.common.tensor_parallel`)."""
+    split = common.vocab_nll(logits, labels)
+    if split is not None:
+        return split
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

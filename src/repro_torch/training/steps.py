@@ -26,11 +26,14 @@ shardings:
   places itself (onto the model's device); the outputs are DTensors at
   ``out_specs``, the metrics plain 0-d tensors with the same value on
   every rank;
-* each rank computes its own rows of the batch; a parameter is gathered
-  from its shards where the model uses it, and its grad averaged over the
-  data axes back onto its shard, and over the other axes that hold the
-  same shard (so that its replicas stay the same bits: the CUDA
-  backward's atomics would part them);
+* each rank computes its own rows of the batch, and where ``"model"``
+  has more than one rank, its part of the heads, the ffn and the vocab of
+  the dense layers (:func:`~repro_torch.models.common.tensor_parallel`);
+  a parameter is gathered from its shards where the model uses it (a
+  tensor-parallel weight over the data axes only), and its grad reduced
+  over the data axes back onto its shard, and averaged over the other
+  axes that hold the same shard (so that its replicas stay the same bits:
+  the CUDA backward's atomics would part them);
 * with ``accum_steps`` A > 1, microbatch ``i`` is the global rows ``[i B/A,
   (i+1) B/A)``, as JAX reshapes the global batch, each rank computing its
   part of it (so the MoE load-balancing statistics, which are global
@@ -172,12 +175,13 @@ def _mesh_loss_and_grads(model, plan, params, specs, batch, batch_spec,
     parameter shards (the DTensor tree ``params`` at ``specs``, one a
     leaf), averaged over the data axes; the loss and nll are the global
     batch's."""
-    leaves = tree_lib.leaves(params)
+    names, leaves = tree_lib.leaves_with_names(params)
     flat = [spmd.local(p) for p in leaves]
     tree = tree_lib.unflatten_like(params, [
-        plan.leaf(p, s) for p, s in zip(leaves, specs)])
+        plan.leaf(p, s, n) for p, s, n in zip(leaves, specs, names)])
     micros = _microbatches(plan, batch, batch_spec, A, model.device)
-    with common.data_parallel(plan.data_mean):
+    with common.data_parallel(plan.data_mean), \
+            common.tensor_parallel(plan.tp):
         loss, aux, grads = _accumulate(model, tree, flat, micros)
     return plan.data_mean(loss), plan.data_mean(aux["nll"]), grads
 
@@ -299,16 +303,31 @@ def _argmax(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _model_split(cache) -> list[bool]:
+    """Per leaf of ``cache``, whether the serving step keeps it at its
+    ``"model"`` split: the leaves of the fields that its type names in
+    ``MODEL_SPLIT`` (the attention caches)."""
+    split = type(cache).MODEL_SPLIT
+    unknown = set(split) - set(cache._fields)
+    if unknown:
+        raise ValueError(f"{type(cache).__name__} has no field {unknown}")
+    return [f in split for f in cache._fields
+            for _ in tree_lib.leaves(getattr(cache, f))]
+
+
 def _mesh_serve_step(model, plan, method, in_specs, out_specs,
                      long_ctx: bool):
     """A prefill or decode step (``method``: ``model.prefill`` /
     ``model.decode_step``) on this rank of ``plan``'s mesh: its rows of
     the batch (none split with ``long_ctx``: every rank computes the one
-    row), every parameter and the cache gathered whole but for the rows;
-    the outputs placed at ``out_specs``."""
+    row) and, where ``"model"`` computes, its part of the dense layers;
+    the KV caches kept at their ``"model"`` split, every other cache
+    leaf gathered whole but for the rows; the outputs placed at
+    ``out_specs``."""
     pspecs, tok_spec, cache_specs = in_specs
     next_spec = out_specs[0]
     keep = () if long_ctx else plan.data_axes
+    kv_keep = keep + ((spmd.TP_AXIS,) if plan.tp is not None else ())
     dev = model.device
 
     @torch.no_grad()
@@ -316,20 +335,24 @@ def _mesh_serve_step(model, plan, method, in_specs, out_specs,
         """``(next tokens (B,) int32, cache')`` as DTensors at
         ``out_specs``."""
         params = sharding.put_tree(params, pspecs, plan.mesh, dev)
+        names, leaves = tree_lib.leaves_with_names(params)
         tree = tree_lib.unflatten_like(params, [
-            plan.leaf(p, s) for p, s in zip(
-                tree_lib.leaves(params),
-                tree_lib.prefix_leaves(params, pspecs))])
+            plan.leaf(p, s, n) for p, s, n in zip(
+                leaves, tree_lib.prefix_leaves(params, pspecs), names)])
+        leaves = tree_lib.leaves(cache)
         specs = tree_lib.prefix_leaves(cache, cache_specs)
+        keeps = [kv_keep if m else keep for m in _model_split(cache)]
         view = tree_lib.unflatten_like(cache, [
-            plan.view(c, s, keep, dev)
-            for c, s in zip(tree_lib.leaves(cache), specs)])
-        logits, cache2 = method(tree, plan.view(tokens, tok_spec, keep, dev),
-                                view)
+            plan.view(c, s, k, dev) for c, s, k in zip(leaves, specs, keeps)])
+        with common.tensor_parallel(plan.tp):
+            logits, cache2 = method(
+                tree, plan.view(tokens, tok_spec, keep, dev), view)
+            nxt = (_argmax(logits) if plan.tp is None
+                   else plan.vocab_argmax(logits))
         out = tree_lib.unflatten_like(cache2, [
-            plan.place(c, s, keep)
-            for c, s in zip(tree_lib.leaves(cache2), specs)])
-        return plan.place(_argmax(logits), next_spec, keep), out
+            plan.place(c, s, k) for c, s, k in zip(
+                tree_lib.leaves(cache2), specs, keeps)])
+        return plan.place(nxt, next_spec, keep), out
 
     serve_step.plan = plan
     return serve_step

@@ -157,7 +157,7 @@ def test_analyze_scan_flops_scale_with_trip_count():
     assert res["hbm_bytes"] == pytest.approx(7 * one["hbm_bytes"])
     assert res["collective_bytes"] == {"all-to-all": 0.0,
                                        "all-gather": 0.0, "all-reduce": 0.0,
-                                       "total": 0.0}
+                                       "reduce-scatter": 0.0, "total": 0.0}
 
 
 def test_analyze_engine_dispatch_k_multiplier():

@@ -1254,3 +1254,19 @@ def test_substrate_ranks_on_card_match_cpu(dev, tmp_path):
             assert where == "cuda", k
             assert np.array_equal(before, after), k
             assert np.array_equal(whole, orig), k
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_product_on_card_matches_einsum(dev, dtype):
+    """The row-parallel partial on the card (bf16 operands into the
+    product's float32 accumulators, ``torch.mm(..., out_dtype=)``) and
+    its backward against autograd of the float64 ``einsum``."""
+    import torch_ranks
+
+    dt = getattr(torch, dtype)
+    got = torch_ranks.row_product_errors(dt, dev)
+    out_tol, grad_tol = torch_ranks.ROW_PRODUCT_TOL[dt]
+    assert got["grad_dtypes"] == (dt, dt), got
+    assert got["out"] <= out_tol, got
+    assert got["h"] <= grad_tol and got["w"] <= grad_tol, got
+

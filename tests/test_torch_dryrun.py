@@ -43,7 +43,7 @@ KEYS = {"arch", "shape", "mesh", "status", "n_chips", "accum_steps",
         "collective_bytes_per_device", "model_flops_global",
         "model_flops_per_device", "useful_flops_ratio", "roofline",
         "dominant", "step_time_bound_s", "memory_analysis",
-        "bytes_per_device"}
+        "bytes_per_device", "model_gathered"}
 
 _FAKE_COUNT = """
 import json, torch.distributed as dist

@@ -15,6 +15,7 @@ import time
 import numpy as np
 import torch
 from torch.distributed.device_mesh import init_device_mesh
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import lss, monitor, sim, topology, wvs
 from repro_torch.engine import (AsyncShardedState, EngineConfig, ShardedLSS,
@@ -892,4 +893,190 @@ def dryrun_real_body(rank, world):
         placed = tuple(sharding.put_tree(a, s, mesh, "cpu")
                        for a, s in zip(args, in_specs))
         out[name] = cost.analyze(fn, *placed)
+    return out
+
+
+# -- tensor-parallel compute on "model" (A.10d part 1) ------------------------
+
+TP_MESHES = ((2, 2), (1, 4))  # ("data", "model")
+TP_TRAIN_ARCHS = ("yi-9b", "whisper-large-v3")
+# yi-9b smoke on (1, 4): kv 2 < 4, the d_head-split cache; command-r smoke:
+# 6 heads over 4, the heads computed whole in train and prefill; whisper
+# smoke with 6 heads (the port's own parameters, held to one process):
+# the self and cross caches split on d_head, the prompt's cross attention
+# on the gathered heads.
+WHISPER_6H = "whisper-large-v3/6-heads"
+TP_SERVE_ARCHS = {(2, 2): ("yi-9b", "whisper-large-v3"),
+                  (1, 4): ("yi-9b", "command-r-plus-104b",
+                           "whisper-large-v3", WHISPER_6H)}
+TP_FLOPS_ARCH = "yi-9b"
+
+
+class MatmulFlops(TorchDispatchMode):
+    """Counts the flops of the matrix products (``mm`` / ``bmm`` /
+    ``addmm`` / ``baddbmm``, ``2 m n k``) run inside the block."""
+
+    flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in ("mm", "bmm", "addmm", "baddbmm"):
+            a = args[1] if name in ("addmm", "baddbmm") else args[0]
+            self.flops += 2 * out.numel() * a.shape[-1]
+        return out
+
+
+def tp_serve(case: dict, mesh=None) -> np.ndarray:
+    """A prefill of ``case["tokens"]`` and ``case["decode"]`` greedy steps
+    of the arch's smoke model (``case["n_heads"]`` heads, if set) from
+    ``case["params"]`` (numpy, JAX's paths; None: the port's seed 0), on
+    ``mesh`` or in one process: the tokens (rows, 1 + decode).  An
+    enc-dec's encoder and cache are made in this process, the steps run
+    on the mesh."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import EncDecConfig, build
+    from repro_torch.training import build_for_cell
+
+    cfg = configs.get_smoke(case["arch"])
+    if case.get("n_heads"):
+        cfg = dataclasses.replace(cfg, n_heads=case["n_heads"])
+    model = build(cfg, "cpu")
+    params = step_params(cfg, case["params"])
+    toks = torch.tensor(case["tokens"])
+    rows, prompt = toks.shape
+    length = prompt + case["decode"]
+    if isinstance(cfg, EncDecConfig):
+        with torch.no_grad():
+            enc = model.encode(params, torch.tensor(case["frames"]))
+            cache = model.init_cache(params, enc, rows, length)
+    else:
+        cache = model.init_cache(rows, length)
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", prompt, rows))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", length, rows))[0]
+    tok, cache = prefill(params, toks, cache)
+    out = [tok]
+    for _ in range(case["decode"]):
+        tok, cache = decode(params, tok, cache)
+        out.append(tok)
+    return torch.stack([sharding.full_tensor(t) for t in out], 1).numpy()
+
+
+def tp_vocab(mesh, seed: int = 5) -> dict:
+    """The vocab-parallel helpers on ``mesh``'s "model" ranks against the
+    whole-vocab functions on the gathered logits: the NLL and its grad
+    (largest abs differences), and the argmax with ties placed across a
+    shard boundary and inside a shard (equal or not)."""
+    from repro_torch.distributed import spmd
+    from repro_torch.models.transformer import _nll
+
+    plan = spmd.MeshPlan(mesh)
+    m, r = plan.tp_size, plan.tp_rank
+    n = 8
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((2, 5, m * n), generator=gen) * 3
+    labels = torch.randint(0, m * n, (2, 5), generator=gen)
+    whole = logits.clone().requires_grad_(True)
+    want = _nll(whole, labels)
+    want.backward()
+    part = logits[..., r * n:(r + 1) * n].clone().requires_grad_(True)
+    got = plan.vocab_nll(part, labels)
+    got.backward()
+    grad_err = float((part.grad - whole.grad[..., r * n:(r + 1) * n])
+                     .abs().max())
+    rows = torch.randn((6, m * n), generator=gen)
+    top = float(rows.max()) + 1
+    for i, b in enumerate((n, 2 * n if m > 2 else n, m * n - n)):
+        rows[2 * i, b - 1] = rows[2 * i, b] = top  # across a boundary
+    rows[1, 1] = rows[1, 3] = top  # inside a shard
+    rows[3, 0] = rows[3, m * n - 1] = top  # first and last
+    got_arg = plan.vocab_argmax(rows[:, r * n:(r + 1) * n].contiguous())
+    return {"nll_err": abs(float(got) - float(want)), "nll": float(got),
+            "grad_err": grad_err,
+            "argmax": got_arg.numpy(),
+            "argmax_want": torch.argmax(rows, dim=-1).to(torch.int32).numpy()}
+
+
+ROW_PRODUCT_TOL = {  # of max |reference|: the forward's, the grads'
+    torch.bfloat16: (1e-5, 2.0 ** -7),  # float32 sums; one bf16 rounding
+    torch.float32: (1e-12, 1e-6),  # float64 sums; float32 sums
+}
+
+
+def row_product_errors(dtype, device, seed: int = 11) -> dict:
+    """A row-parallel partial (``spmd._RowProduct``, what
+    ``MeshPlan.row_product`` returns) of ``dtype`` operands on ``device``
+    and its grads, against autograd of the float64 ``einsum`` of the same
+    operands with the upstream grad rounded to ``dtype`` (as the backward
+    takes it): each error over the largest reference value, and the
+    result's dtype.  The shapes are all different, so a transposed grad
+    cannot pass."""
+    from repro_torch.distributed import spmd
+
+    gen = np.random.default_rng(seed)
+    h = torch.tensor(gen.standard_normal((2, 3, 24)), dtype=dtype,
+                     device=device, requires_grad=True)
+    w = torch.tensor(gen.standard_normal((24, 5)) / 5, dtype=dtype,
+                     device=device, requires_grad=True)
+    out = spmd._RowProduct.apply(h, w)
+    up = torch.tensor(gen.standard_normal(out.shape), dtype=out.dtype,
+                      device=device)
+    out.backward(up)
+    h64 = h.detach().double().requires_grad_()
+    w64 = w.detach().double().requires_grad_()
+    ref = torch.einsum("blf,fd->bld", h64, w64)
+    ref.backward(up.to(dtype).double())
+
+    def err(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    return {"dtype": out.dtype, "out": err(out.detach(), ref.detach()),
+            "h": err(h.grad, h64.grad), "w": err(w.grad, w64.grad),
+            "grad_dtypes": (h.grad.dtype, w.grad.dtype)}
+
+
+def tp_matmul_flops(case: dict, mesh=None) -> int:
+    """The matrix-product flops of one train step of ``case`` (as
+    :func:`train_case`'s) on this rank of ``mesh``, or in one process."""
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell
+
+    cfg = step_variant(case["arch"], case["variant"])
+    model = build(cfg, "cpu")
+    params = step_params(cfg, case.get("params"))
+    batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
+    rows, length = batch["tokens"].shape
+    step = build_for_cell(model, mesh, configs.ShapeCell(
+        "t", "train", length, rows), TrainHParams(
+            lr=1e-3, warmup=0, accum_steps=case["accum"]))[0]
+    opt = adamw_init(params)
+    with MatmulFlops() as counted:
+        step(params, opt, batch)
+    return counted.flops
+
+
+def tp_body(rank, world, cases):
+    """Every case of ``cases`` on each ``TP_MESHES`` mesh of the 4 ranks:
+    the train steps, the served tokens, the vocab helpers, and on (1, 4)
+    the matrix-product flops of a train step."""
+    torch.set_num_threads(1)
+    out = {}
+    for shape in TP_MESHES:
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        res = {"train": {key: train_case(c, mesh)
+                         for key, c in cases["train"].items()},
+               "serve": {arch: tp_serve(cases["serve"][arch], mesh)
+                         for arch in TP_SERVE_ARCHS[shape]},
+               "vocab": tp_vocab(mesh)}
+        if shape == (1, 4):
+            res["flops"] = tp_matmul_flops(cases["flops"], mesh)
+        out[shape] = res
     return out
