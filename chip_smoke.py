@@ -327,7 +327,16 @@ Phases, in order; any failure exits nonzero:
    train_4k multi, each in a child process started beside the kernels'
    build and awaited before phase 3 (so that no timed phase shares the
    host with their tracing): status ``ok``, the dominant term, the
-   bound, bytes per device.
+   bound, bytes per device; (e) yi-9b training, 2 of 48 layers, checked
+   as (b); then, in 4 ranks of their own, (f) qwen3-moe-235b-a22b
+   serving (2 of 94 layers, 64 experts a "model" rank; a prefill of (2,
+   4096), 32 steps) and (g) mixtral-8x7b at batch 1 (2 of 32 layers,
+   its KV ring split over "data"; a prompt past the window, 32 steps
+   writing across the two halves), each teacher-forced by the one-rank
+   steps run first in this process: tokens equal but at near ties (of
+   the logits or of a router's K-th and (K+1)-th expert), under 1 MB
+   staged a decode step a rank, no weight or KV cache gathered, no
+   expert gathered over "model".
 
 It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), phase 17's
 (``{"train": [...]}``), phase 18's (``{"distributed": {...}}``), phase
@@ -4663,7 +4672,7 @@ def _sub_pipeline(dev, sizes):
     cfg = dataclasses.replace(_sub_cfg(PIPE_ARCH, sizes), n_layers=S)
     model = build(cfg, dev)
     g = torch.Generator(device=dev).manual_seed(29)
-    blocks = common.stack_trees([model._init_block(g) for _ in range(S)])
+    blocks = common.stack_layers(lambda: model._init_block(g), S)
     xs = torch.randn((M, 1, L, cfg.d_model), generator=g,
                      device=dev).to(cfg.dtype)
     mesh = init_device_mesh("cpu", (S,), mesh_dim_names=("stage",))
@@ -4961,6 +4970,11 @@ STEP_TRAIN_ARCH, STEP_SERVE_ARCH = "mamba2-370m", "qwen3-14b"
 STEP_TP_ARCH = "yi-9b"  # (e): 2 of 48 layers at published widths
 STEP_TIE_ULPS = 2  # (c): a near tie: top-two gap within 2 bf16 ulps of top
 STEP_TIES = 1  # (c): steps a row may differ from the one-rank run, at ties
+STEP_TIES_SPLIT = 3  # (f), (g): the same, of 33 (a 151,936 or 32,000 vocab)
+STEP_ROUTE_TIE = 0.01  # (f), (g): a router's K-th, (K+1)-th probs this close
+STEP_EP_ARCH = "qwen3-moe-235b-a22b"  # (f): 64 experts a "model" rank
+STEP_LONG_ARCH = "mixtral-8x7b"  # (g): batch 1, the KV sequence on "data"
+STEP_SERVED_MAX = 1_000_000  # (f), (g): bytes staged a decode step a rank
 DRYRUN_CELLS = (("yi-9b", "train_4k", False),
                 ("qwen3-moe-235b-a22b", "train_4k", True))
 DRYRUN_TIMEOUT_S = 300  # the dry-run cells, awaited after the build
@@ -5153,6 +5167,41 @@ def _serve_ref(model, params, toks, length, steps, dev):
             tok_ms.append(dt)
 
 
+def _route_margins(model, params, toks, length, want):
+    """The one-rank run of ``toks`` (one row) fed its tokens ``want``
+    again, untimed, with the MoE router observed: for each decode step the
+    smallest relative gap, over its MoE layers, between the K-th and the
+    (K + 1)-th expert probability of the token (None for the prefill's
+    step, and where the model has no MoE)."""
+    from repro_torch.models import moe
+
+    seen, orig = [], moe.route
+
+    def route(p, cfg, x, dropless=False):
+        if x.shape[1] == 1:
+            probs = torch.softmax(torch.einsum(
+                "bld,de->ble", x.float(), p["router"]), dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            seen.append(((top[..., -2] - top[..., -1]) / top[..., -2]).min())
+        return orig(p, cfg, x, dropless)
+
+    moe.route = route
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill(params, toks,
+                                     model.init_cache(1, length))
+            out = [None]
+            for t in want[:-1]:
+                seen.clear()
+                _, cache = model.decode_step(
+                    params, torch.tensor([t], dtype=torch.int32,
+                                         device=toks.device), cache)
+                out.append(min(float(m) for m in seen) if seen else None)
+    finally:
+        moe.route = orig
+    return out
+
+
 def _bf16_ulp(x: float) -> float:
     """One bf16 ulp at ``x`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
@@ -5204,6 +5253,258 @@ def _steps_serve_full(mesh, dev, sizes):
             "staged_prefill": dict(prefill.plan.staged)}
 
 
+def _served_cfg(part, sizes):
+    """(f) qwen3-moe / (g) mixtral at published widths, 2 layers (the
+    smoke config in a rehearsal), serving weights not split over "data"
+    (``serve_fsdp`` off: a 2-layer "model" slice fits on a rank, so a
+    decode step gathers no weight): (config, the cut as printed)."""
+    import dataclasses
+
+    cfg = _sub_cfg(STEP_EP_ARCH if part == "ep" else STEP_LONG_ARCH, sizes)
+    cut = "smoke"
+    if not sizes["smoke"]:
+        cfg, cut = _zoo_cut(cfg)
+    return dataclasses.replace(cfg, serve_fsdp=False), cut
+
+
+def _served_prompt(part, cfg, sizes):
+    """(f): (2, prompt) tokens, one row a data rank.  (g): (1, P) with P
+    = window + window / 2 - decode / 2: past the window, so the ring
+    wraps, and the decode steps write slots window / 2 - decode / 2 on,
+    across the boundary of the two data ranks' halves.  Returns (tokens,
+    P, decode steps)."""
+    T = sizes["decode"]
+    if part == "ep":
+        rows, P = 2, sizes["prompt"]
+    else:
+        rows, P = 1, cfg.window + cfg.window // 2 - T // 2
+    toks = torch.randint(0, cfg.vocab, (rows, P), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(23))
+    return toks, P, T
+
+
+def served_refs(dev, sizes):
+    """(f), (g): each row alone through the one-rank steps, in this
+    process before the ranks start (four whole copies of the parameters
+    beside the ranks' shards would not fit on the card): the tokens, the
+    (top logit, top-two gap) of each step, prefill ms, ms a token and the
+    peak memory.  The parameters are freed after."""
+    from repro_torch.models import build
+
+    out = {}
+    for part in ("ep", "long"):
+        cfg, cut = _served_cfg(part, sizes)
+        toks, P, T = _served_prompt(part, cfg, sizes)
+        model = build(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(17))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ref = [_serve_ref(model, params, toks[r:r + 1].to(dev), P + T, T,
+                          dev) for r in range(toks.shape[0])]
+        margins = [_route_margins(model, params, toks[r:r + 1].to(dev),
+                                  P + T, x[0]) for r, x in enumerate(ref)]
+        out[part] = {"cut": cut, "want": [x[0] for x in ref],
+                     "gaps": [[(*g, m) for g, m in zip(x[1], ms)]
+                              for x, ms in zip(ref, margins)],
+                     "prefill_ms": [x[2] for x in ref],
+                     "token_ms": [t for x in ref for t in x[3]],
+                     "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                 if dev.type == "cuda" else None)}
+        del params, model, ref
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _card_memory(dev) -> dict | None:
+    """GB this process holds on the card (allocated, reserved) and free
+    on it (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info()
+    return {"allocated_gb": round(torch.cuda.memory_allocated() / 1e9, 3),
+            "reserved_gb": round(torch.cuda.memory_reserved() / 1e9, 3),
+            "free_gb": round(free / 1e9, 3)}
+
+
+def _placed_params(mesh, model, spec, dev):
+    """The seed-17 parameters of ``model`` at ``spec`` on this rank: made
+    whole on ``dev`` and sliced one rank at a time (the whole copies of
+    the four ranks at once would not fit beside the shards)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+
+    placed = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            whole = model.init(torch.Generator(device=dev).manual_seed(17))
+            placed = sharding.put_tree(whole, spec, mesh, dev)
+            del whole
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return placed
+
+
+def _steps_served_split(mesh, dev, sizes, part, ref):
+    """(f) / (g) on the (2, 2) mesh: the prefill of :func:`_served_prompt`
+    and ``decode`` greedy steps teacher-forced by the one-rank run's
+    tokens ``ref["want"]`` (as (c)): (f) the experts split over "model",
+    (g) the KV sequence over "data"."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding, spmd
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    cfg, _ = _served_cfg(part, sizes)
+    toks, P, T = _served_prompt(part, cfg, sizes)
+    rows = toks.shape[0]
+    model = build(cfg, dev)
+    prefill, in_specs = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", P, rows))[:2]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", P + T, rows))[0]
+    mem = _card_memory(dev)
+    print(f"[mesh-steps] ({part}) rank {mesh.get_rank()} before its "
+          f"parameters: {mem}", flush=True)
+    params = _placed_params(mesh, model, in_specs[0], dev)
+    want = torch.tensor(ref["want"], dtype=torch.int32)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (tok, cache), pf_ms = _timed(dev, lambda: prefill(
+        params, toks.to(dev), model.init_cache(rows, P + T)))
+    served, tok_ms = [tok], []
+    for t in range(T):
+        feed = want[:, t].to(dev)
+        (tok, cache), dt = _timed(dev, lambda: decode(params, feed, cache))
+        served.append(tok)
+        tok_ms.append(dt)
+    got = torch.stack([sharding.full_tensor(t, device="cpu")
+                       for t in served], 1)
+    k = cache.kv.k
+    return {"tokens": got, "prompt": [rows, P], "prefill_ms": pf_ms,
+            "token_ms": tok_ms,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if dev.type == "cuda" else None),
+            "staged_decode": dict(decode.plan.staged),
+            "staged_prefill": dict(prefill.plan.staged),
+            "model_gathered": sorted(prefill.plan.model_gathered
+                                     | decode.plan.model_gathered),
+            "kv_shard": list(spmd.local(k).shape), "kv_whole": list(k.shape),
+            "experts": cfg.moe.n_experts, "memory_at_start": mem}
+
+
+def _served_near_tie(gap) -> bool:
+    """Whether a step's (top logit, top-two gap[, router margin]) is a
+    near tie (:func:`_served_ties`)."""
+    margin = gap[2] if len(gap) > 2 else None
+    return (gap[1] <= STEP_TIE_ULPS * _bf16_ulp(gap[0])
+            or (margin is not None and margin <= STEP_ROUTE_TIE))
+
+
+def _served_ties(label, sv, want, gaps, limit):
+    """The near ties of a teacher-forced serving part, and its faults:
+    every rank's tokens must equal rank 0's, and each row's the one-rank
+    run's ``want`` but at near ties, at most ``limit`` a row: the top-two
+    gap within ``STEP_TIE_ULPS`` bf16 ulps of the top logit, or (a gap
+    entry's third value, :func:`_route_margins`) a MoE router's K-th and
+    (K + 1)-th expert probabilities within ``STEP_ROUTE_TIE`` of each
+    other, where a token may go to another expert.  Returns ([(row,
+    step, gap entry)], [fault, ...])."""
+    for r, x in enumerate(sv):
+        if not np.array_equal(x["tokens"], sv[0]["tokens"]):
+            return [], [f"mesh steps ({label}) rank {r}: tokens differ "
+                        f"from rank 0's"]
+    got, want = np.asarray(sv[0]["tokens"]), np.asarray(want)
+    ties, faults = [], []
+    for row_ in range(got.shape[0]):
+        bad = [t for t in range(got.shape[1]) if got[row_, t] !=
+               int(want[row_, t])]
+        near = [(t, gaps[row_][t]) for t in bad
+                if _served_near_tie(gaps[row_][t])]
+        if len(near) < len(bad) or len(bad) > limit:
+            faults.append(
+                f"mesh steps ({label}) row {row_}: steps {bad} differ from "
+                f"the one-rank run (near ties {near}; (top logit, gap) "
+                f"{[gaps[row_][t] for t in bad]})")
+        ties += [(row_, t, g) for t, g in near]
+    return ties, faults
+
+
+def _served_row(label, part, ranks, refs, gpu):
+    """(f) / (g): the checks and the row of a split serving part: tokens
+    as the one-rank run's (:func:`_served_ties`), under
+    ``STEP_SERVED_MAX`` bytes staged a decode step on every rank, no
+    weight gathered (and (f): no expert leaf over "model"; (g): no KV
+    cache gathered, each rank's cache half the sequence)."""
+    sv = [r[part] for r in ranks]
+    ref = refs["ep" if part == "ep_serve" else "long"]
+    ties, faults = _served_ties(label, sv, ref["want"], ref["gaps"],
+                                STEP_TIES_SPLIT)
+    n_dec = STEP_SIZES["decode"]
+    per_step = [sum(x["staged_decode"].values()) / n_dec for x in sv]
+    if max(per_step) >= STEP_SERVED_MAX:
+        faults.append(f"mesh steps ({label}): {max(per_step)} bytes staged "
+                      f"a decode step a rank")
+    for r, x in enumerate(sv):
+        if x["staged_decode"]["gather"] or x["staged_decode"]["kv"]:
+            faults.append(f"mesh steps ({label}) rank {r}: a decode step "
+                          f"gathered {x['staged_decode']}")
+        if part == "ep_serve" and any("moe" in n for n in
+                                      x["model_gathered"]):
+            faults.append(f"mesh steps ({label}) rank {r}: experts gathered "
+                          f"over \"model\": {x['model_gathered']}")
+        if part == "long_serve" and x["kv_shard"][2] * 2 != x["kv_whole"][2]:
+            faults.append(f"mesh steps ({label}) rank {r}: KV cache "
+                          f"{x['kv_shard']} of {x['kv_whole']}")
+    arch = STEP_EP_ARCH if part == "ep_serve" else STEP_LONG_ARCH
+    got = np.asarray(sv[0]["tokens"])
+    tok_ms = [t for x in sv for t in x["token_ms"]]
+    row = {"arch": arch, "cut": ref["cut"], "prompt": sv[0]["prompt"],
+           "decode": n_dec,
+           "prefill_ms_by_rank": [x["prefill_ms"] for x in sv],
+           "token_ms_median": float(np.median(tok_ms)),
+           "ref_prefill_ms": ref["prefill_ms"],
+           "ref_token_ms_median": float(np.median(ref["token_ms"])),
+           "staged_bytes_decode_steps": sv[0]["staged_decode"],
+           "staged_bytes_a_decode_step_by_rank": per_step,
+           "staged_bytes_prefill": sv[0]["staged_prefill"],
+           "peak_gb_by_rank": [x["peak_gb"] for x in sv],
+           "ref_peak_gb": ref["peak_gb"],
+           "model_gathered": sv[0]["model_gathered"],
+           "kv_shard": sv[0]["kv_shard"], "kv_whole": sv[0]["kv_whole"],
+           "near_ties": ties, "tokens_head": got[:, :8].tolist()}
+    E = sv[0]["experts"]
+    what = (f"its {E} experts {E // 2} a \"model\" rank"
+            if part == "ep_serve" else
+            f"batch 1 (long_ctx), its KV ring of {row['kv_whole'][2]} slots "
+            f"{row['kv_shard'][2]} a \"data\" rank")
+    print(f"[mesh-steps] ({label}) {arch} bf16 ({row['cut']}) on (data 2, "
+          f"model 2), {what}: a prefill of {tuple(row['prompt'])} "
+          f"{max(row['prefill_ms_by_rank']):.1f} ms (slowest rank), then "
+          f"{n_dec} greedy steps teacher-forced at "
+          f"{row['token_ms_median']:.1f} ms a token (median over the ranks);"
+          f" the one-rank steps on each row alone: prefill "
+          f"{max(row['ref_prefill_ms']):.1f} ms, "
+          f"{row['ref_token_ms_median']:.1f} ms a token, peak "
+          f"{row['ref_peak_gb']} GB; every token equal to the one-rank "
+          f"run's but at near ties (top-two gap within {STEP_TIE_ULPS} bf16 "
+          f"ulps, or a router's K-th and (K+1)-th expert probabilities "
+          f"within {STEP_ROUTE_TIE:.0%}; at most {STEP_TIES_SPLIT} a row; "
+          f"(top, gap, router margin)): {ties or 'none'}; "
+          f"staged bytes a decode "
+          f"step a rank {[round(b) for b in per_step]} (the {n_dec} steps, "
+          f"rank 0: {row['staged_bytes_decode_steps']}; prefill "
+          f"{row['staged_bytes_prefill']}); peak GB a rank "
+          f"{[g if g is None else round(g, 2) for g in row['peak_gb_by_rank']]};"
+          f" leaves gathered over \"model\": {row['model_gathered']}; "
+          f"tokens[:, :8] {row['tokens_head']}; {gpu}", flush=True)
+    if faults:  # after the row is printed
+        raise AssertionError("; ".join(faults))
+    return row
+
+
 def _mesh_step_rank(rank, world, dev, sizes):
     """Phase 19 on one of 4 ranks: (a) on the card and on the CPU, (b),
     (c), (e), with the kernel counters zeroed before and read after."""
@@ -5226,6 +5527,28 @@ def _mesh_step_rank(rank, world, dev, sizes):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         out[key] = fn()
+    _sync(dev)
+    out["counts"] = kernels.counts()
+    return out
+
+
+def _served_rank(rank, world, dev, sizes, refs):
+    """Phase 19 (f), (g) on one of 4 ranks, in ranks of their own (the
+    parameters of (f) need the card's memory free of (a)-(e)'s), with the
+    kernel counters zeroed before and read after."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    kernels.reset_counts()
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out = {}
+    for key, part in (("ep_serve", "ep"), ("long_serve", "long")):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[key] = _steps_served_split(mesh, dev, sizes, part, refs[part])
     _sync(dev)
     out["counts"] = kernels.counts()
     return out
@@ -5260,19 +5583,32 @@ def phase_mesh_steps(dev, gpu, recs):
     tensor-parallel on "model": (a) card == CPU at smoke size, (b)
     mamba2-370m whole training, (c) qwen3-14b serving, teacher-forced,
     (d) the records ``recs`` of the dry-run cells (:func:`start_dryruns`),
-    (e) yi-9b training (2 of 48 layers).  No kernel launches: the counters, zeroed on
-    every rank, must read 0.  Returns the rows."""
+    (e) yi-9b training (2 of 48 layers), (f) qwen3-moe serving with its
+    experts split over "model" and (g) mixtral serving at batch 1 with its
+    KV sequence split over "data" (2 layers each; both teacher-forced by
+    the one-rank runs, made here first).  No kernel launches: the
+    counters, zeroed on every rank, must read 0.  Returns the rows."""
     from repro_torch.distributed import launch
     from repro_torch.launch import dryrun
 
     kernels.reset_counts()
     t0 = time.perf_counter()
+    refs = served_refs(dev, STEP_SIZES)
+    refs_s = time.perf_counter() - t0
+    print(f"[mesh-steps] (f), (g) one-rank runs in {refs_s:.1f} s; this "
+          f"process after them: {_card_memory(dev)}", flush=True)
+    t0 = time.perf_counter()
     ranks = launch.spawn(_mesh_step_rank, STEP_RANKS,
                          timeout_s=STEP_TIMEOUT_S,
                          args=(str(dev), STEP_SIZES))
     spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = launch.spawn(_served_rank, STEP_RANKS, timeout_s=STEP_TIMEOUT_S,
+                          args=(str(dev), STEP_SIZES, refs))
+    served_s = time.perf_counter() - t0
     rows = {"ranks": STEP_RANKS, "mesh": [2, 2], "sizes": dict(STEP_SIZES),
-            "launch_s": spawn_s, "gpu": gpu}
+            "launch_s": spawn_s, "served_launch_s": served_s,
+            "one_rank_refs_s": refs_s, "gpu": gpu}
 
     # (a) the card against the CPU
     worst = {"loss": 0.0, "params": 0.0, "flips": 0.0}
@@ -5367,27 +5703,14 @@ def phase_mesh_steps(dev, gpu, recs):
     # (c) serving at published width, teacher-forced
     sv = [r["serve"] for r in ranks]
     want, gaps = sv[0]["want"], sv[0]["gaps"]
-    ties = []
     for r, x in enumerate(sv):
-        if not np.array_equal(x["tokens"], sv[0]["tokens"]):
-            raise AssertionError(f"mesh steps (c) rank {r}: tokens differ "
-                                 f"from rank 0's")
         if not np.array_equal(x["want"], want):
             raise AssertionError(f"mesh steps (c) rank {r}: the one-rank "
                                  f"runs differ from rank 0's")
+    ties, faults = _served_ties("c", sv, want, gaps, STEP_TIES)
+    if faults:
+        raise AssertionError(faults[0])
     got = np.asarray(sv[0]["tokens"])
-    for row_ in range(got.shape[0]):
-        bad = [t for t in range(got.shape[1]) if got[row_, t] !=
-               int(want[row_, t])]
-        near = [(t, gaps[row_][t]) for t in bad
-                if gaps[row_][t][1] <= STEP_TIE_ULPS * _bf16_ulp(
-                    gaps[row_][t][0])]
-        if len(near) < len(bad) or len(bad) > STEP_TIES:
-            raise AssertionError(
-                f"mesh steps (c) row {row_}: steps {bad} differ from the "
-                f"one-rank run (near ties {near}; (top logit, gap) "
-                f"{[gaps[row_][t] for t in bad]})")
-        ties += [(row_, t, g) for t, g in near]
     tok_ms = [t for x in sv for t in x["token_ms"]]
     n_dec = STEP_SIZES["decode"]
     staged_dec = sv[0]["staged_decode"]
@@ -5420,6 +5743,10 @@ def phase_mesh_steps(dev, gpu, recs):
           f"{staged_dec}; prefill {row['staged_bytes_prefill']}); "
           f"tokens[:, :8] {row['tokens_head']}; {gpu}", flush=True)
 
+    # (f) the experts on "model", (g) the KV sequence on "data"
+    for part, label in (("ep_serve", "f"), ("long_serve", "g")):
+        rows[part] = _served_row(label, part, served, refs, gpu)
+
     # (d) the dry-run
     rows["dryrun"] = recs
     for rec in recs:
@@ -5442,16 +5769,18 @@ def phase_mesh_steps(dev, gpu, recs):
               f"{gpu}", flush=True)
 
     counts = kernels.counts()
-    totals = {key: counts[key] + sum(r["counts"][key] for r in ranks)
+    totals = {key: counts[key] + sum(r["counts"][key]
+                                     for r in ranks + served)
               for key in KERNELS}
     if any(totals.values()):
         raise AssertionError(f"mesh steps: a kernel launched: {totals}")
     rows["kernel_launches"] = totals
     rows["kernel_launches_by_rank"] = [[r["counts"][k] for k in KERNELS]
-                                       for r in ranks]
+                                       for r in ranks + served]
     print(f"[mesh-steps] launches of {', '.join(KERNELS)} over phase 19, by "
-          f"rank: {rows['kernel_launches_by_rank']}; launch "
-          f"{spawn_s:.1f} s", flush=True)
+          f"rank ((a)-(e), then (f), (g)): "
+          f"{rows['kernel_launches_by_rank']}; launches {spawn_s:.1f} s and "
+          f"{served_s:.1f} s", flush=True)
     return rows
 
 

@@ -28,12 +28,30 @@ more than one rank):
   gold logit reduced over ``"model"``) and :meth:`MeshPlan.vocab_argmax`
   (each rank's max and its first index gathered; the largest wins, the
   lowest index on ties, as ``torch.argmax``);
-* what JAX does not split there (MoE experts and router, the SSD's
-  leaves, attention whose heads the axis does not divide in train and
-  prefill) is computed whole on every ``"model"`` rank, its leaves
-  gathered whole (:meth:`_Leaf.full`), on inputs that are the same on
-  those ranks after the reductions.  :attr:`MeshPlan.model_gathered`
-  names the leaves gathered over ``"model"``.
+* the MoE layer (:mod:`repro_torch.models.moe`): each rank computes its
+  experts (``shard_experts``) or every expert's part of the ffn, on the
+  tokens that every ``"model"`` rank holds alike (no all-to-all), and its
+  (B, L, D) partial of the combine is summed over ``"model"`` as a
+  row-parallel product's;
+* what JAX does not split there (the SSD's leaves, attention whose heads
+  the axis does not divide in train and prefill, a MoE whose experts or
+  ffn it does not divide) is computed whole on every ``"model"`` rank,
+  its leaves gathered whole (:meth:`_Leaf.full`), on inputs that are the
+  same on those ranks after the reductions.
+  :attr:`MeshPlan.model_gathered` names the leaves gathered over
+  ``"model"``, and those of a layer computed whole there (a MoE whose
+  leaves stay whole on the axis:
+  :func:`~repro_torch.models.common.computed_whole`).
+
+**Sequence parallelism at ``long_ctx``.**  A serving step of batch 1
+(``long_ctx``) keeps the KV caches split on their sequence dim over
+``"data"``, as JAX's ``cache_specs(long_ctx=True)`` stores them: every
+data rank computes the one row, a prefill the prompt whole, then keeps
+its slice of the cache; a decode step writes the new token's k / v only
+on the rank whose slice holds its slot, and attends over its slice, the
+slices' float32 softmax statistics combined by log-sum-exp over the data
+axes (:class:`SeqSlice`, installed with
+:func:`~repro_torch.models.common.seq_parallel`).
 
 **The grads.**  A parameter is held as this rank's shard (:meth:`MeshPlan.leaf`,
 a :class:`~repro_torch.models.common.ShardedLeaf`).  The models gather a
@@ -56,12 +74,28 @@ atomics (the MoE counts are integers), and gloo's reductions give every
 rank the same bits, so the loss and the served tokens and caches are the
 same bits on those ranks.
 
+**Which grads are partial.**  A leaf used whole inside a split layer
+(``wk`` / ``wv`` where ``"model"`` does not divide the kv heads, the qk
+norms) gets on each rank its share of the grad, summed over ``"model"``
+(:meth:`_Leaf.share`); a leaf used outside one (the norms, the SSD, the
+MoE router) gets the whole grad on each rank, averaged
+(:meth:`_Leaf.full`).  So the MoE's router, its softmax, top-k and
+load-balancing ``aux`` run outside the expert-parallel region, alike on
+every ``"model"`` rank (inside it the router's grad would be summed m
+times); the two tensors that enter the region, the tokens of the
+dispatch and the combine weights, enter through
+:meth:`MeshPlan.copy_to_model`, whose backward sums each rank's share of
+their grads over ``"model"`` (a rank's dispatch and combine touch only
+its own experts' slots); the load-balancing statistics stay means over
+the data axes (:meth:`MeshPlan.data_mean`).
+
 * :meth:`MeshPlan.data_mean` is the mean over the data axes of a value
   that is not a per-row one (the MoE load-balancing statistics), with the
   same mean in its backward.
 * :meth:`MeshPlan.view` is a batch or cache input as this rank computes
   it (its rows, every other dim whole but the axes kept: the KV caches
-  stay split on ``"model"``), from a DTensor at the input's spec
+  stay split on ``"model"``, and at ``long_ctx`` on their sequence over
+  ``"data"``), from a DTensor at the input's spec
   (gathered over the storage axes) or from a whole tensor every rank
   holds (sliced); :meth:`MeshPlan.place` makes an output of it a DTensor
   at its spec.  :func:`repro_torch.distributed.sharding.put_tree` places
@@ -70,9 +104,14 @@ same bits on those ranks.
 Every collective goes through :mod:`repro_torch.distributed.collective`
 (staged through pinned host memory on gloo with CUDA tensors, counted by
 :func:`repro_torch.launch.cost.analyze`); :attr:`MeshPlan.staged` counts
-the bytes a rank copies to the host, by purpose: ``"gather"`` (leaves),
-``"reduce"`` (grads), ``"stats"`` (MoE and metric means) and ``"tp"``
-(the activations reduced or gathered over ``"model"``).
+the bytes a rank copies to the host, by purpose: ``"gather"`` (leaves,
+and serving inputs other than the KV caches), ``"kv"`` (KV caches
+gathered by :meth:`MeshPlan.view`), ``"reduce"`` (grads), ``"stats"``
+(MoE and metric means), ``"tp"`` (the activations reduced or gathered
+over ``"model"``) and ``"seq"`` (the log-sum-exp combine over the data
+axes); :attr:`MeshPlan.sent` the bytes of this rank's tensors the
+collectives take, by the same purposes, on any device (on the CPU nothing
+is staged).
 """
 
 from __future__ import annotations
@@ -86,13 +125,9 @@ from torch.distributed.tensor import DTensor
 from ..models import common
 from . import collective, sharding
 
-__all__ = ["MeshPlan", "is_multi_device", "TP_AXIS"]
+__all__ = ["MeshPlan", "SeqSlice", "is_multi_device", "TP_AXIS"]
 
 TP_AXIS = "model"  # the axis the dense layers compute on
-# Partials summed over "model" one precision up: 16-bit in float32, float32
-# in float64 (each is exact in the wider type).
-_WIDER = {torch.bfloat16: torch.float32, torch.float16: torch.float32,
-          torch.float32: torch.float64}
 
 
 def is_multi_device(mesh) -> bool:
@@ -123,14 +158,15 @@ class _Leaf(common.ShardedLeaf):
             raise ValueError(f"the stacked dim is split over {self.axes[0]}")
         return _Leaf(self.plan, self.local[i], self.axes[1:], self.name)
 
-    def _whole(self, share: bool) -> torch.Tensor:
-        if self.plan.tp_size > 1 and any(TP_AXIS in ax for ax in self.axes):
+    def _whole(self, share: bool, named: bool = False) -> torch.Tensor:
+        if self.plan.tp_size > 1 and (named or any(TP_AXIS in ax
+                                                   for ax in self.axes)):
             self.plan.model_gathered.add(self.name)
         return _Gather.apply(self.local, self.plan, self.axes, self.axes,
                              share)
 
-    def full(self) -> torch.Tensor:
-        return self._whole(False)
+    def full(self, named: bool = False) -> torch.Tensor:
+        return self._whole(False, named)
 
     def share(self) -> torch.Tensor:
         return self._whole(True)
@@ -203,11 +239,12 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 def _mm_wide(a, b):
-    """``a @ b`` (2-D) one precision above the operands (:data:`_WIDER`):
-    16-bit operands on the card (and ``meta``) into the product's own
+    """``a @ b`` (2-D) one precision above the operands
+    (:data:`~repro_torch.models.common.WIDER`): 16-bit operands on the
+    card (and ``meta``) into the product's own
     float32 accumulators (``torch.mm(..., out_dtype=torch.float32)``);
     elsewhere, and float32 ones, cast up first (exact)."""
-    wide = _WIDER[a.dtype]
+    wide = common.WIDER[a.dtype]
     if wide is torch.float32 and a.device.type in ("cuda", "meta"):
         return torch.mm(a, b, out_dtype=wide)
     return torch.mm(a.to(wide), b.to(wide))
@@ -291,7 +328,9 @@ class MeshPlan:
         self.n_data = math.prod(self.sizes[a] for a in self.data_axes)
         self.tp_size = self.sizes.get(TP_AXIS, 1)
         self.tp_rank = self.coord.get(TP_AXIS, 0)
-        self.staged = {"gather": 0, "reduce": 0, "stats": 0, "tp": 0}
+        self.staged = {"gather": 0, "kv": 0, "reduce": 0, "stats": 0,
+                       "tp": 0, "seq": 0}
+        self.sent = dict(self.staged)
         self.model_gathered: set[str] = set()
 
     @property
@@ -318,19 +357,24 @@ class MeshPlan:
                                      self._spec(axes), self.coord)
 
     # -- collectives ---------------------------------------------------------
-    def _gather_dim(self, x, d: int, axis: str):
+    def _count(self, purpose: str, x, group) -> None:
+        """Tally a collective of this rank's ``x`` over ``group``."""
+        self.sent[purpose] += x.numel() * x.element_size()
+        self.staged[purpose] += collective.staged_bytes(x, group)
+
+    def _gather_dim(self, x, d: int, axis: str, purpose: str):
         group = self.groups[axis]
         moved = x.movedim(d, 0).contiguous()
-        self.staged["gather"] += collective.staged_bytes(moved, group)
+        self._count(purpose, moved, group)
         return collective.all_gather(moved, group=group).movedim(0, d)
 
-    def gather(self, x, axes):
+    def gather(self, x, axes, purpose: str = "gather"):
         """``x``, this rank's part of a value split over ``axes`` (one tuple
         a dim), all-gathered whole: a dim's innermost axis first."""
         for d, dim_axes in enumerate(axes):
             for a in reversed(dim_axes):
                 if self.sizes[a] > 1:
-                    x = self._gather_dim(x, d, a)
+                    x = self._gather_dim(x, d, a, purpose)
         return x
 
     def _scatter(self, x, d: int, axis: str, purpose: str):
@@ -338,7 +382,7 @@ class MeshPlan:
         rank's part."""
         group = self.groups[axis]
         moved = x.movedim(d, 0).contiguous()
-        self.staged[purpose] += collective.staged_bytes(moved, group)
+        self._count(purpose, moved, group)
         return collective.reduce_scatter(moved, group=group).movedim(0, d)
 
     def _chunk(self, x, d: int, axis: str):
@@ -349,7 +393,7 @@ class MeshPlan:
     def _all_reduce(self, x, axis: str, purpose: str,
                     op=dist.ReduceOp.SUM):
         group = self.groups[axis]
-        self.staged[purpose] += collective.staged_bytes(x, group)
+        self._count(purpose, x, group)
         return collective.all_reduce(x, op=op, group=group)
 
     def reduce_grad(self, g, axes, gathered, share: bool):
@@ -398,8 +442,7 @@ class MeshPlan:
             return x
         for a in self.data_axes:
             if self.sizes[a] > 1:
-                self.staged[purpose] += collective.staged_bytes(
-                    x, self.groups[a])
+                self._count(purpose, x, self.groups[a])
                 x = collective.all_reduce(x, group=self.groups[a])
         return x / self.n_data
 
@@ -432,7 +475,7 @@ class MeshPlan:
         (float32 for 16-bit, float64 for float32)."""
         dtype = x.dtype if dtype is None else dtype
         if widen:
-            x = x.to(_WIDER.get(dtype, dtype))
+            x = x.to(common.WIDER.get(dtype, dtype))
         return self._all_reduce(x, TP_AXIS, "tp").to(dtype)
 
     def model_max(self, x):
@@ -447,7 +490,7 @@ class MeshPlan:
             raise ValueError("gather_model carries no grad")
         group = self.groups[TP_AXIS]
         moved = x.movedim(dim, 0).contiguous()
-        self.staged["tp"] += collective.staged_bytes(moved, group)
+        self._count("tp", moved, group)
         return collective.all_gather(moved, group=group).movedim(0, dim)
 
     def copy_to_model(self, x):
@@ -507,11 +550,13 @@ class MeshPlan:
         uses it."""
         return _Leaf(self, local(x), self.dim_axes(spec, x.ndim), name)
 
-    def view(self, x, spec, keep, device) -> torch.Tensor:
+    def view(self, x, spec, keep, device,
+             purpose: str = "gather") -> torch.Tensor:
         """This rank's part of the input ``x`` at ``spec`` under the axes
         ``keep`` (its rows), whole on every other axis: a DTensor at
-        ``spec`` is gathered over the axes not kept, anything else is
-        taken whole (a DTensor elsewhere gathered first) and sliced."""
+        ``spec`` is gathered over the axes not kept (staged under
+        ``purpose``), anything else is taken whole (a DTensor elsewhere
+        gathered first) and sliced."""
         axes = self.dim_axes(spec, x.ndim)
         kept = [tuple(a for a in ax if a in keep) for ax in axes]
         for ax, k in zip(axes, kept):
@@ -520,11 +565,27 @@ class MeshPlan:
                                  f"{ax} keeps only {k}")
         if sharding.is_placed(x, self.mesh, spec):
             return self.gather(local(x), [() if k else ax
-                                          for ax, k in zip(axes, kept)])
+                                          for ax, k in zip(axes, kept)],
+                               purpose)
         whole = sharding.full_tensor(x) if isinstance(x, DTensor) else x
         part = whole[self.slices(whole.shape, kept)]
         return part.to(device, copy=True,
                        memory_format=torch.contiguous_format)
+
+    def seq_slice(self, spec, shape):
+        """The :class:`SeqSlice` of a KV cache leaf of ``shape`` at
+        ``spec`` whose sequence dim (2: layer, batch, sequence, ...) the
+        data axes split, or None where they split none of it or do not
+        divide it (the cache is then gathered whole)."""
+        axes = self.dim_axes(spec, len(shape))
+        seq = tuple(a for a in axes[2] if a in self.data_axes
+                    and self.sizes[a] > 1)
+        n = math.prod(self.sizes[a] for a in seq)
+        if not seq or shape[2] % n:
+            return None
+        sl = self.slices(shape, [() if d != 2 else axes[2]
+                                 for d in range(len(shape))])[2]
+        return SeqSlice(self, seq, sl.start, sl.stop - sl.start, shape[2])
 
     def place(self, t, spec, keep) -> DTensor:
         """``t``, this rank's part of an output under the axes ``keep``
@@ -557,3 +618,27 @@ class MeshPlan:
             part = torch.sum(torch.square(g.float())) / (world // split)
             total = part if total is None else total + part
         return self.sum_over_mesh(total)
+
+
+class SeqSlice:
+    """The hook of :func:`~repro_torch.models.common.seq_parallel`: this
+    rank holds the positions ``[offset, offset + length)`` of a KV
+    sequence of ``total`` positions split over the data axes ``axes`` (the
+    ranks that hold the other slices of the same row)."""
+
+    def __init__(self, plan: MeshPlan, axes, offset: int, length: int,
+                 total: int):
+        self.plan, self.axes = plan, tuple(axes)
+        self.offset, self.length, self.total = offset, length, total
+
+    def max(self, x):
+        """The max of ``x`` over the slices (one all-reduce an axis)."""
+        for a in self.axes:
+            x = self.plan._all_reduce(x, a, "seq", op=dist.ReduceOp.MAX)
+        return x
+
+    def sum(self, x):
+        """The sum of ``x`` over the slices."""
+        for a in self.axes:
+            x = self.plan._all_reduce(x, a, "seq")
+        return x

@@ -49,9 +49,10 @@ An ``"ok"`` record has JAX's keys where the meaning carries: ``arch``,
   counterpart (the step updates its arguments in place);
 * ``accum_steps`` is recorded, and so is ``model_gathered``: the paths of
   the parameters rank 0's step still gathers whole over ``"model"`` (the
-  MoE's and the SSD's leaves, attention whose heads ``"model"`` does not
-  divide, a ``"kv_whole"`` layer's ``wk`` / ``wv``), the work A.10d
-  parts 2 and 3 leave.
+  SSD's leaves, attention whose heads ``"model"`` does not divide, a
+  ``"kv_whole"`` layer's ``wk`` / ``wv``, a MoE's where ``"model"``
+  divides neither its experts nor their ffn), the work A.10d part 3
+  leaves.
 
 The roofline's constants are an H100 SXM's, not JAX's v5e ones.
 """

@@ -43,6 +43,29 @@ over ``"model"``, contracts QK^T on its ``d_head`` slice, sums the
 logits over ``"model"``, and gathers o back before the row-parallel
 ``wo``.  Outside the block every rank computes everything (the
 ``"whole"`` layout), as on one device.
+
+**The KV sequence on ``"data"``.**  Within
+:func:`~repro_torch.models.common.seq_parallel` (a batch-1 serving step
+whose ``"data"`` ranks split the cache's sequence) a cache holds this
+rank's slice of the slots, ``[offset, offset + length)`` of ``total``:
+
+* prefill computes the prompt whole on every rank (there are no rows to
+  split) and keeps the slice of the cache, the window's rolled ring too;
+* decode computes the new token's slot in whole-cache positions (the
+  ring's ``length % total`` for a windowed arch); only the rank whose
+  slice holds it writes it, at ``slot - offset``, by a masked index (no
+  host sync);
+* the query attends over the slice (:func:`_attend_seq`), masked by the
+  keys' absolute positions: a float32 max ``m_r``, ``l_r = Σ exp(s −
+  m_r)`` and ``acc_r = Σ exp(s − m_r) v`` a rank, combined by log-sum-exp
+  (``M`` the max over the slices, then the sum of ``exp(m_r − M) l_r``
+  and ``exp(m_r − M) acc_r``, packed in one all-reduce), then ``acc /
+  l``.  A slice all masked (a long cache's upper part after a prefill)
+  has ``m_r = NEG`` and ``exp(s − m_r) = 1`` on every key, harmless only
+  because ``exp(m_r − M)`` is then 0: neither normalising a slice before
+  the combine nor taking ``M`` from one slice would be right.  Where
+  ``"model"`` also splits ``d_head``, the logits are summed over
+  ``"model"`` first.
 """
 
 from __future__ import annotations
@@ -437,50 +460,104 @@ def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
     y = _out(params, o, B, L, layout)
     if dh_split:  # the cache holds this rank's d_head slice of every head
         k, v = k[..., _dh_slice(cfg)], v[..., _dh_slice(cfg)]
-    Sc = cache.k.shape[1]
+    sp = common.seq_split()
+    lo, Sc = (0, cache.k.shape[1]) if sp is None else (sp.offset, sp.total)
+    n = cache.k.shape[1]  # this rank's slots: [lo, lo + n) of Sc
     length = torch.full((B,), L, dtype=torch.int32, device=x.device)
     if L >= Sc:
         # Window-capped ring cache: keep the last Sc tokens, placing absolute
         # position p at slot p % Sc so decode's ring writes line up.
         shift = L % Sc
-        kw = torch.roll(k[:, L - Sc:], shift, dims=1)
-        vw = torch.roll(v[:, L - Sc:], shift, dims=1)
+        kw = torch.roll(k[:, L - Sc:], shift, dims=1)[:, lo:lo + n]
+        vw = torch.roll(v[:, L - Sc:], shift, dims=1)[:, lo:lo + n]
         newc = KVCache(k=kw.to(cache.k.dtype), v=vw.to(cache.v.dtype),
                        length=length)
     else:
         newk, newv = cache.k.clone(), cache.v.clone()
-        newk[:, :L] = k
-        newv[:, :L] = v
+        hi = min(lo + n, L)  # the prompt's positions in this rank's slice
+        if hi > lo:
+            newk[:, :hi - lo] = k[:, lo:hi]
+            newv[:, :hi - lo] = v[:, lo:hi]
         newc = KVCache(k=newk, v=newv, length=length)
     return shard(y, DATA, None, None), newc
 
 
+def _total(cache: KVCache) -> int:
+    """The whole cache's slots (this rank's slice within
+    :func:`~.common.seq_parallel`)."""
+    sp = common.seq_split()
+    return cache.k.shape[1] if sp is None else sp.total
+
+
 def _write(cfg: AttnConfig, cache: KVCache, k, v):
-    """The cache with this step's k / v written at each row's slot."""
+    """The cache with this step's k / v written at each row's slot (on a
+    slice of the sequence: by the rank whose slice holds it, the others'
+    slices unchanged)."""
     B = k.shape[0]
     if cfg.window:
         # Ring-buffer write at pos % window keeps the cache O(window).
-        slot = (cache.length % cache.k.shape[1])[:, None]
+        slot = (cache.length % _total(cache))[:, None]
     else:
         slot = cache.length[:, None]
     bidx = torch.arange(B, device=k.device)[:, None]
     newk, newv = cache.k.clone(), cache.v.clone()
-    newk[bidx, slot.long()] = k.to(cache.k.dtype)
-    newv[bidx, slot.long()] = v.to(cache.v.dtype)
+    k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    sp = common.seq_split()
+    if sp is not None:  # a masked write at the clamped local slot
+        slot = slot - sp.offset
+        mine = ((slot >= 0) & (slot < sp.length))[..., None, None]
+        slot = torch.clamp(slot, 0, sp.length - 1)
+        k = torch.where(mine, k, newk[bidx, slot.long()])
+        v = torch.where(mine, v, newv[bidx, slot.long()])
+    newk[bidx, slot.long()] = k
+    newv[bidx, slot.long()] = v
     return newk, newv
 
 
 def _attend_cache(cfg: AttnConfig, q, newk, newv, cache: KVCache, **kw):
     """One query a row against the cache just written."""
+    sp = common.seq_split()
     if cfg.window:
         # The ring holds only the last `window` positions by construction;
         # kv_len masks the slots not yet written during warm-up.
-        kv_len = torch.clamp_max(cache.length + 1, cache.k.shape[1])
-        return attend(q, newk, newv, causal=False, window=0,
-                      q_offset=cache.length, kv_len=kv_len, **kw)
-    return attend(q, newk, newv, causal=True, window=0,
-                  q_offset=cache.length, kv_len=cache.length + 1,
-                  kv_seq_shard=cfg.shard_cache_seq, **kw)
+        kv_len = torch.clamp_max(cache.length + 1, _total(cache))
+        args = dict(causal=False, window=0, q_offset=cache.length,
+                    kv_len=kv_len)
+    else:
+        args = dict(causal=True, window=0, q_offset=cache.length,
+                    kv_len=cache.length + 1)
+    if sp is not None:
+        return _attend_seq(q, newk, newv, sp, **args, **kw)
+    return attend(q, newk, newv, **args, kv_seq_shard=cfg.shard_cache_seq,
+                  **kw)
+
+
+def _attend_seq(q, k, v, sp, *, causal, window, q_offset, kv_len,
+                d_head=None, reduce_logits=None):
+    """:func:`attend` of one query a row against this rank's slice of the
+    KV sequence (``sp``, :class:`~repro_torch.distributed.spmd.SeqSlice`),
+    the slices combined by log-sum-exp (module docstring)."""
+    B, Lq, H, dh = q.shape
+    n, K = k.shape[1], k.shape[2]
+    g = H // K
+    qg = q.reshape(B, Lq, K, g, dh)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d_head or dh),
+                                          device=q.device))
+    logits = torch.einsum("blkgh,bskh->bklgs", qg.float() * scale,
+                          k.float())  # (B, K, Lq, g, n)
+    if reduce_logits is not None:  # a d_head slice's partial logits
+        logits = reduce_logits(logits)
+    qpos = _offsets(q_offset, B, q.device) + torch.arange(Lq, device=q.device)
+    kpos = sp.offset + torch.arange(n, device=q.device)
+    m = _mask(qpos, kpos, causal, window, kv_len)
+    s = torch.where(m[:, None, :, None, :], logits, NEG)
+    m_r = s.amax(dim=-1)  # (B, K, Lq, g): NEG where the slice is masked
+    p = torch.exp(s - m_r[..., None])
+    c = torch.exp(m_r - sp.max(m_r))  # exactly 0 for a masked slice
+    acc = _dot32("bklgs,bskh->bklgh", p, v) * c[..., None]
+    tot = sp.sum(torch.cat([(p.sum(dim=-1) * c)[..., None], acc], dim=-1))
+    out = tot[..., 1:] / tot[..., :1]  # (B, K, Lq, g, dh)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Lq, H, dh).to(v.dtype)
 
 
 def _sum_logits(logits):

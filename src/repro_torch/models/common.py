@@ -44,6 +44,13 @@ and :func:`vocab_lookup` / :func:`vocab_nll` work on a vocab split over
 :meth:`~repro_torch.distributed.spmd.MeshPlan.vocab_argmax`).  Outside
 it :func:`model_size` is 1 and each of them is what one device computes:
 the identity, a plain lookup, the whole product.
+
+**Sequence parallelism.**  Within :func:`seq_parallel`'s block (the mesh
+serving steps install it at ``long_ctx``, where ``"data"`` splits the KV
+sequence as JAX's ``cache_specs(long_ctx=True)`` stores it) the attention
+caches hold this rank's slice of the sequence: :func:`seq_split` is the
+hook (the slice's offset and length, the whole length, and the max and
+sum over the ranks that split the sequence), None outside.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ __all__ = [
     "shard",
     "pspec",
     "DATA",
+    "WIDER",
     "rms_norm",
     "layer_norm",
     "rope",
@@ -72,7 +80,7 @@ __all__ = [
     "ParamTree",
     "as_tree",
     "tree_index",
-    "stack_trees",
+    "stack_layers",
     "stack_specs",
     "stack",
     "layer",
@@ -80,6 +88,7 @@ __all__ = [
     "remat",
     "ShardedLeaf",
     "gathered",
+    "computed_whole",
     "data_mean",
     "data_parallel",
     "tensor_parallel",
@@ -93,6 +102,8 @@ __all__ = [
     "gather_model",
     "vocab_lookup",
     "vocab_nll",
+    "seq_parallel",
+    "seq_split",
     "Params",
 ]
 
@@ -100,6 +111,10 @@ Params = Any  # nested dict of tensors, or a ParamTree
 
 # Batch-sharding axes: pod (if present) composes with data.
 DATA = ("pod", "data")
+# Partials summed over "model" one precision up: 16-bit in float32, float32
+# in float64 (each is exact in the wider type).
+WIDER = {torch.bfloat16: torch.float32, torch.float16: torch.float32,
+         torch.float32: torch.float64}
 
 _env = threading.local()
 
@@ -172,7 +187,7 @@ class ShardedLeaf:
     rank is its share of the whole grad, and ``leaf[i]`` is layer ``i`` of
     a stacked leaf."""
 
-    def full(self) -> torch.Tensor:
+    def full(self, named: bool = False) -> torch.Tensor:
         raise NotImplementedError
 
     def part(self) -> torch.Tensor:
@@ -192,6 +207,16 @@ def gathered(tree):
     if isinstance(tree, dict):
         return {k: gathered(v) for k, v in tree.items()}
     return tree.full() if isinstance(tree, ShardedLeaf) else tree
+
+
+def computed_whole(tree):
+    """:func:`gathered`, for a layer that every ``"model"`` rank computes
+    whole within :func:`tensor_parallel` because the axis does not divide
+    it: its leaves are named among those gathered over ``"model"`` (the
+    compute the split leaves undone)."""
+    if isinstance(tree, dict):
+        return {k: computed_whole(v) for k, v in tree.items()}
+    return tree.full(named=True) if isinstance(tree, ShardedLeaf) else tree
 
 
 @contextlib.contextmanager
@@ -303,6 +328,25 @@ def vocab_nll(logits, labels):
     the caller computes it whole."""
     tp = _tp()
     return None if tp is None else tp.vocab_nll(logits, labels)
+
+
+@contextlib.contextmanager
+def seq_parallel(sp):
+    """Within the block the attention caches hold the slice of the KV
+    sequence that ``sp`` describes (a
+    :class:`repro_torch.distributed.spmd.SeqSlice`, or None: the whole
+    sequence)."""
+    prev = getattr(_env, "sp", None)
+    _env.sp = sp
+    try:
+        yield
+    finally:
+        _env.sp = prev
+
+
+def seq_split():
+    """The hook of :func:`seq_parallel`'s block (None outside)."""
+    return getattr(_env, "sp", None)
 
 
 # ---------------------------------------------------------------------------
@@ -420,13 +464,29 @@ def tree_index(tree: dict, i) -> dict:
             for k, v in tree.items()}
 
 
-def stack_trees(trees):
-    """Like trees of tensors -> one tree, each leaf stacked on a new
-    leading (layer) axis."""
-    return {k: stack_trees([t[k] for t in trees])
-            if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees])
-            for k in trees[0]}
+def stack_layers(make, n: int):
+    """``n`` like trees of tensors from ``make()`` as one tree, each leaf
+    stacked on a new leading (layer) axis, holding the stack and one tree
+    at a time: each tree is copied into the stacked leaves and dropped."""
+    def empty(tree):
+        return {k: empty(v) if isinstance(v, dict)
+                else v.new_empty((n, *v.shape)) for k, v in tree.items()}
+
+    def put(dst, tree, i):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    tree = make()
+    out = empty(tree)
+    for i in range(n):
+        if i:
+            tree = make()
+        put(out, tree, i)
+        del tree
+    return out
 
 
 def stack_specs(tree):

@@ -129,10 +129,10 @@ class EncDec:
                                         cfg.dtype, scale=0.02),
             "dec_pos": common.normal_init(gen, (cfg.max_dec, cfg.d_model),
                                           cfg.dtype, scale=0.02),
-            "enc": common.stack_trees([self._enc_block(gen)
-                                 for _ in range(cfg.n_enc)]),
-            "dec": common.stack_trees([self._dec_block(gen)
-                                 for _ in range(cfg.n_dec)]),
+            "enc": common.stack_layers(lambda: self._enc_block(gen),
+                                       cfg.n_enc),
+            "dec": common.stack_layers(lambda: self._dec_block(gen),
+                                       cfg.n_dec),
             "enc_ln": _ln_init(cfg, dev),
             "dec_ln": _ln_init(cfg, dev),
         })

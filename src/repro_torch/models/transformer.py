@@ -20,10 +20,11 @@ gathered (:func:`~repro_torch.models.common.gathered`) inside the body
 that uses it, the top-level leaves where they are used.  Within
 :func:`~repro_torch.models.common.tensor_parallel` the attention and the
 SwiGLU MLP compute their part of the heads and the ffn
-(:mod:`.attention`, :mod:`.mlp`), the embedding, the head and the loss
-their part of the vocab (``embed`` split on its rows, ``lm_head`` on its
-columns, the tied head ``embed``'s rows); the MoE layer and the SSD
-compute whole on their leaves gathered whole.
+(:mod:`.attention`, :mod:`.mlp`), the MoE layer its experts or its
+experts' ffn (:mod:`.moe`), the embedding, the head and the loss their
+part of the vocab (``embed`` split on its rows, ``lm_head`` on its
+columns, the tied head ``embed``'s rows); the SSD computes whole on its
+leaves gathered whole.
 Parameters are a :class:`~repro_torch.models.common.ParamTree` (or the
 nested dict it holds) at JAX's paths, so
 ``convert.model_params_from_jax_numpy`` is a copy by path.
@@ -173,15 +174,15 @@ class LM:
         gen = (generator if generator is not None
                else common.default_generator(self.device))
         dev = common.init_device(gen)
-        layers = [self._init_block(gen) for _ in range(cfg.n_layers)]
+        blocks = common.stack_layers(lambda: self._init_block(gen),
+                                     cfg.n_layers)
         params = {
             "embed": common.normal_init(gen, (cfg.vocab, cfg.d_model),
                                         cfg.dtype, scale=0.02),
-            "blocks": common.stack_trees(layers),
+            "blocks": blocks,
             "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype,
                                      device=dev),
         }
-        del layers
         if not cfg.tie_embed:
             params["lm_head"] = common.normal_init(
                 gen, (cfg.d_model, cfg.vocab), cfg.dtype)
@@ -242,7 +243,7 @@ class LM:
         x = x + a
         h = common.rms_norm(x, common.gathered(p["ln2"]), cfg.norm_eps)
         if cfg.block == "moe" and "moe" in p:
-            y, aux = moe_lib.fwd(common.gathered(p["moe"]), cfg.moe, h,
+            y, aux = moe_lib.fwd(p["moe"], cfg.moe, h,
                                  dropless=(mode == "decode"))
             moe_aux = aux["aux_loss"] if moe_aux is None else moe_aux + aux["aux_loss"]
         else:

@@ -321,13 +321,18 @@ def _mesh_serve_step(model, plan, method, in_specs, out_specs,
     ``model.decode_step``) on this rank of ``plan``'s mesh: its rows of
     the batch (none split with ``long_ctx``: every rank computes the one
     row) and, where ``"model"`` computes, its part of the dense layers;
-    the KV caches kept at their ``"model"`` split, every other cache
-    leaf gathered whole but for the rows; the outputs placed at
-    ``out_specs``."""
+    the KV caches kept at their ``"model"`` split and, with ``long_ctx``,
+    at their sequence split over the data axes (the attention on this
+    rank's slice of the sequence: :func:`~.common.seq_parallel`), every
+    other cache leaf gathered whole but for the rows; the outputs placed
+    at ``out_specs``.  Where the data axes do not divide a ``long_ctx``
+    cache's length its KV sequence is gathered whole, as it was before
+    the sequence split (and placing the output raises, as JAX's
+    placement does)."""
     pspecs, tok_spec, cache_specs = in_specs
     next_spec = out_specs[0]
     keep = () if long_ctx else plan.data_axes
-    kv_keep = keep + ((spmd.TP_AXIS,) if plan.tp is not None else ())
+    model_keep = (spmd.TP_AXIS,) if plan.tp is not None else ()
     dev = model.device
 
     @torch.no_grad()
@@ -341,10 +346,17 @@ def _mesh_serve_step(model, plan, method, in_specs, out_specs,
                 leaves, tree_lib.prefix_leaves(params, pspecs), names)])
         leaves = tree_lib.leaves(cache)
         specs = tree_lib.prefix_leaves(cache, cache_specs)
-        keeps = [kv_keep if m else keep for m in _model_split(cache)]
+        split = _model_split(cache)
+        sp = None
+        if long_ctx:  # the KV sequence split over the data axes
+            sp = next((plan.seq_slice(s, c.shape) for c, s, m in zip(
+                leaves, specs, split) if m and c.ndim > 2), None)
+        kv_keep = keep + model_keep + (plan.data_axes if sp else ())
+        keeps = [kv_keep if m else keep for m in split]
         view = tree_lib.unflatten_like(cache, [
-            plan.view(c, s, k, dev) for c, s, k in zip(leaves, specs, keeps)])
-        with common.tensor_parallel(plan.tp):
+            plan.view(c, s, k, dev, "kv" if m else "gather")
+            for c, s, k, m in zip(leaves, specs, keeps, split)])
+        with common.tensor_parallel(plan.tp), common.seq_parallel(sp):
             logits, cache2 = method(
                 tree, plan.view(tokens, tok_spec, keep, dev), view)
             nxt = (_argmax(logits) if plan.tp is None

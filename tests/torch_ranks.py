@@ -658,6 +658,20 @@ def step_variant(arch: str, variant: str):
     return cfg
 
 
+def case_cfg(case: dict):
+    """:func:`step_variant` of a case (``variant`` "smoke" by default),
+    with its ``n_kv`` / ``n_experts`` overrides, where set."""
+    import dataclasses
+
+    cfg = step_variant(case["arch"], case.get("variant", "smoke"))
+    if case.get("n_kv"):
+        cfg = dataclasses.replace(cfg, n_kv=case["n_kv"])
+    if case.get("n_experts"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=case["n_experts"]))
+    return cfg
+
+
 def step_params(cfg, params_np=None):
     """The parameters of a case: JAX's (numpy, by path) or the port's own
     from seed 0, on the CPU."""
@@ -705,7 +719,7 @@ def train_case(case: dict, mesh=None) -> dict:
     from repro_torch.optim import adamw_init
     from repro_torch.training import TrainHParams, build_for_cell
 
-    cfg = step_variant(case["arch"], case["variant"])
+    cfg = case_cfg(case)
     model = build(cfg, "cpu")
     if case.get("skew") and mesh is not None:
         _skew_loss(model, mesh, case["skew"])
@@ -746,7 +760,8 @@ def train_case(case: dict, mesh=None) -> dict:
         out[key] = tree.unflatten_like(t, full)
     out.update(step=int(sharding.full_tensor(opt.step)), bitwise=bitwise,
                placements=[(tuple(a), tuple(b) + (None,) * (len(a) - len(b)))
-                           for a, b in placed])
+                           for a, b in placed],
+               model_gathered=sorted(step.plan.model_gathered))
     return out
 
 
@@ -758,7 +773,7 @@ def moe_grads(case: dict, mesh=None) -> dict:
     from repro_torch.models import build
     from repro_torch.training import steps
 
-    cfg = step_variant(case["arch"], case["variant"])
+    cfg = case_cfg(case)
     model = build(cfg, "cpu")
     params = step_params(cfg)
     batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
@@ -1048,7 +1063,7 @@ def tp_matmul_flops(case: dict, mesh=None) -> int:
     from repro_torch.optim import adamw_init
     from repro_torch.training import TrainHParams, build_for_cell
 
-    cfg = step_variant(case["arch"], case["variant"])
+    cfg = case_cfg(case)
     model = build(cfg, "cpu")
     params = step_params(cfg, case.get("params"))
     batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
@@ -1078,5 +1093,128 @@ def tp_body(rank, world, cases):
                "vocab": tp_vocab(mesh)}
         if shape == (1, 4):
             res["flops"] = tp_matmul_flops(cases["flops"], mesh)
+        out[shape] = res
+    return out
+
+
+# -- experts on "model" and the KV sequence on "data" (A.10d part 2) ----------
+
+EP_MESHES = ((2, 2), (1, 4))  # ("data", "model"): the train and MoE cases
+LONG_MESHES = ((2, 2), (4, 1))  # long_ctx: "data" splits the sequence
+EP_ARCHS = ("qwen3-moe-235b-a22b", "mixtral-8x7b")  # E, d_ff on "model"
+EP_WHOLE_EXPERTS = 6  # qwen3-moe smoke with 6 experts: 4 do not divide them
+EP_PROMPT, EP_DECODE, EP_LEN = 12, 3, 16  # a prefill, greedy steps, cache
+CACHE_FILL_SEED = 23  # the long_ctx caches start as noise, not zeros
+# The long_ctx cases (batch 1, the port's seed-0 parameters): the prompt,
+# the cache's length, the meshes, overrides.  "yi-9b/masked": the slices
+# above position 12 of 32 stay masked after the prefill (a (4, 1) rank's
+# whole slice; on (2, 2) the upper half); "yi-9b/1-kv": one kv head, so
+# "model" splits d_head while "data" splits the sequence; mixtral's 46
+# tokens pass its 32 window: the ring wraps across slice boundaries, and
+# the decode steps write slots 14, 15, 16, across the one at 16.
+LONG_CASES = {
+    "yi-9b": dict(arch="yi-9b", prompt=12, length=16, meshes=LONG_MESHES),
+    "yi-9b/masked": dict(arch="yi-9b", prompt=12, length=32,
+                         meshes=LONG_MESHES),
+    "yi-9b/1-kv": dict(arch="yi-9b", prompt=12, length=16, n_kv=1,
+                       meshes=((2, 2),)),
+    "zamba2-2.7b": dict(arch="zamba2-2.7b", prompt=12, length=16,
+                        meshes=LONG_MESHES),
+    "mixtral-8x7b": dict(arch="mixtral-8x7b", prompt=46, length=49,
+                         meshes=LONG_MESHES),
+}
+
+
+def fill_cache(cache, seed: int = CACHE_FILL_SEED):
+    """``cache`` (an ``LMCache``) with its KV caches' k and v drawn from
+    ``seed`` (standard normal): slots no step writes must come out as
+    they went in, and noise in the masked ones must not leak."""
+    gen = torch.Generator().manual_seed(seed)
+    kv = cache.kv
+    return cache._replace(kv=kv._replace(
+        k=torch.randn(kv.k.shape, generator=gen).to(kv.k.dtype),
+        v=torch.randn(kv.v.shape, generator=gen).to(kv.v.dtype)))
+
+
+def initial_cache(case: dict, model=None):
+    """The cache a :func:`seq_serve` case starts from: empty, or noise
+    (:func:`fill_cache`) where ``case["fill"]``."""
+    from repro_torch.models import build
+
+    model = build(case_cfg(case), "cpu") if model is None else model
+    cache = model.init_cache(len(case["tokens"]), case["length"])
+    return fill_cache(cache) if case.get("fill") else cache
+
+
+def seq_serve(case: dict, mesh=None) -> dict:
+    """A prefill of ``case["tokens"]`` (rows, prompt) and ``case["decode"]``
+    greedy steps of ``case_cfg(case)`` from ``case["params"]`` (numpy,
+    JAX's paths; None: the port's seed 0) against a cache of
+    ``case["length"]`` (filled by :func:`fill_cache` where ``case["fill"]``),
+    on ``mesh`` or in one process: the tokens (rows, 1 + decode) and,
+    after the prefill and each step, the KV caches' k and v (on a mesh:
+    this rank's shard and its spec), and on a mesh the bytes the steps'
+    collectives took (``plan.sent``) and this rank's coordinate."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    cfg = case_cfg(case)
+    model = build(cfg, "cpu")
+    params = step_params(cfg, case.get("params"))
+    toks = torch.tensor(case["tokens"])
+    rows, prompt = toks.shape
+    cache = initial_cache(case, model)
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", prompt, rows))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", case["length"], rows))[0]
+
+    def kv_state(c):
+        if mesh is None:
+            return {f: getattr(c.kv, f).numpy() for f in ("k", "v")}
+        return {f: (sharding._spec_of(getattr(c.kv, f)),
+                    getattr(c.kv, f).to_local().numpy()) for f in ("k", "v")}
+
+    tok, cache = prefill(params, toks, cache)
+    out, kv = [tok], [kv_state(cache)]
+    for _ in range(case["decode"]):
+        tok, cache = decode(params, tok, cache)
+        out.append(tok)
+        kv.append(kv_state(cache))
+    res = {"tokens": torch.stack([sharding.full_tensor(t) for t in out],
+                                 1).numpy(), "kv": kv}
+    if mesh is not None:
+        res.update(sent_prefill=dict(prefill.plan.sent),
+                   sent_decode=dict(decode.plan.sent),
+                   sizes=dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+                   coord=dict(zip(mesh.mesh_dim_names,
+                                  mesh.get_coordinate())))
+    return res
+
+
+def ep_body(rank, world, cases):
+    """The cases of ``cases`` on each mesh of the 4 ranks: on
+    ``EP_MESHES`` the MoE train steps, the router grads and the MoE
+    serving cases; on (1, 4) also the 6-expert step and the
+    matrix-product flops; the long_ctx cases on their meshes."""
+    torch.set_num_threads(1)
+    out = {}
+    for shape in dict.fromkeys(EP_MESHES + LONG_MESHES):
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        res = {"serve": {name: seq_serve(c, mesh)
+                         for name, c in cases["serve"].items()
+                         if shape in c["meshes"]}}
+        if shape in EP_MESHES:
+            res["train"] = {key: train_case(c, mesh)
+                            for key, c in cases["train"].items()}
+            res["router"] = {arch: moe_grads(c, mesh)
+                             for arch, c in cases["router"].items()}
+        if shape == (1, 4):
+            res["whole"] = train_case(cases["whole"], mesh)
+            res["flops"] = {arch: tp_matmul_flops(c, mesh)
+                            for arch, c in cases["flops"].items()}
         out[shape] = res
     return out
