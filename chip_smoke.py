@@ -277,8 +277,9 @@ Phases, in order; any failure exits nonzero:
    and required to read 0 after: (a) the 4-ring LocalSGD case of
    ``tests/test_torch_localsgd.py`` on 4 ranks of the card and on the same
    ranks on the CPU: the synced flag equal at every gate call, the params
-   within 1e-5; (b) LocalSGD on mamba2-370m whole at published widths
-   (bf16, float32 moments, remat), a data ring of 4 ranks, each rank's
+   within 1e-5; (b) LocalSGD on mamba2-370m at published widths, 24 of
+   its 48 layers (bf16, float32 moments, remat), a data ring of 4 ranks,
+   each rank's
    own (1, 4096) row of a ``TokenSource`` global batch placed by
    ``make_batch_fn(mesh=...)`` (the train_4k length, the global batch cut
    from 256 to 4), 8 local train steps each followed by the gate, tau 4x
@@ -287,10 +288,11 @@ Phases, in order; any failure exits nonzero:
    params bitwise equal (sha256) and the anchor equal to them; ms a local
    step, a gate (drift, monitor step, the all-reduced any, the sync
    all-reduce), staged bytes a sync, effective and physical monitor
-   sends, peak memory; (c) mamba2-370m's params and a seeded AdamW state
-   (3.7 GB) placed on (data 2, model 2) by ``model.param_specs()`` with
-   ``elastic.reshard`` and saved from 4 ranks, then a second launch of 2
-   ranks ``remesh(model_axis=2)`` -> (1, 2) loads with ``shardings``:
+   sends, peak memory; (c) the same 24-layer mamba2-370m's params and a
+   seeded AdamW state placed on (data 2, model 2) by
+   ``model.param_specs()`` with ``elastic.reshard`` and saved from 4 ranks,
+   then a second launch of 2 ranks ``remesh(model_axis=2)`` -> (1, 2) loads
+   with ``shardings``:
    every local shard bitwise its slice of the saved leaf (sha256 per leaf
    per rank), save and load ms and GB/s, the checkpoint deleted after;
    (d) four qwen3-14b decoder layers at published widths (bf16, seeded)
@@ -308,13 +310,15 @@ Phases, in order; any failure exits nonzero:
    launch counters zeroed on every rank and required to read 0 after:
    (a) at smoke size in float32, on the card and on the same ranks with
    CPU shards: two yi-9b train steps at accum 2 on (4, 32), a qwen3-moe
-   step (FSDP, remat, accum 2), a yi-9b prefill of (4, 12) and three
+   and a zamba2 step (FSDP, remat, accum 2), a yi-9b prefill of (4, 12)
+   and three
    greedy steps: losses and gnorms within 1e-4, params within (1e-4,
    1e-5) but for AdamW sign flips (under 1e-3 of a leaf, each under
    2 lr a step), tokens equal; (b) mamba2-370m whole (bf16, float32
-   moments, remat), a (2, 4096) ``TokenSource`` global batch (one row a
-   data rank), one untimed and two timed steps, with the default
-   (non-deterministic) CUDA algorithms: ms a step, staged bytes a step a
+   moments, remat; the SSD's heads split over "model"), a (2, 4096)
+   ``TokenSource`` global batch (one row a data rank), one untimed and two
+   timed steps, with the default (non-deterministic) CUDA algorithms: ms a
+   step, staged bytes a step a
    rank (gathers, grad reduction, means: ``fn.plan.staged``), peak
    memory a rank after the first step; after every step the gathered
    params equal on every rank (sha256) and every local shard, each
@@ -336,7 +340,22 @@ Phases, in order; any failure exits nonzero:
    steps run first in this process: tokens equal but at near ties (of
    the logits or of a router's K-th and (K+1)-th expert), under 1 MB
    staged a decode step a rank, no weight or KV cache gathered, no
-   expert gathered over "model".
+   expert gathered over "model", and (h) zamba2-2.7b serving (one 6-layer
+   group; the SSD's heads and the shared attention's split over "model";
+   a prefill of (2, 4096), 32 steps, teacher-forced as (f): every step's
+   logits within twice the one-rank bf16 run's own largest deviation
+   from a float32 run of the same weights, tokens equal but where the
+   top-two gap is within twice that step's logit err, a float32 prefill
+   within 1e-4 of the one-rank float32 prefill's logits, under 1 MB
+   staged a decode step a rank, no leaf gathered over "model" by a
+   decode step, the SSM state half the heads a rank); then, in 8 ranks
+   of their own on a (data 1, model 8) mesh, (i) whisper-large-v3 (2 + 2 layers), whose 20 heads 8
+   does not divide: a float32 train step (remat) of a (2, 128) batch held
+   to the one-rank step (loss and gnorm within 1e-4; each leaf's params,
+   where the one-rank grads clear the CPU parity tests' noise gate,
+   within 2e-3 with at most 1e-3 of them past (a)'s tolerance),
+   shards bitwise and replicas equal, and a bf16 prefill of (2, 120) and
+   8 steps teacher-forced by the one-rank run.
 
 It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), phase 17's
 (``{"train": [...]}``), phase 18's (``{"distributed": {...}}``), phase
@@ -4454,6 +4473,19 @@ SUB_SIZES = {"len": 4096,  # configs.SHAPES' train_4k length
              "smoke": False}  # the archs' smoke configs (CPU rehearsal only)
 SUB_TOL = 1e-5  # (a): the card's params against the CPU's
 SUB_ARCH, PIPE_ARCH = "mamba2-370m", "qwen3-14b"
+# (b), (c): mamba2-370m at 24 of its 48 layers (the script's time limit:
+# phase 19's (h) and (i) took the ~40 s this cut saves).
+SUB_LAYERS = 24
+
+
+def _sub_arch_cfg(sizes):
+    """(b), (c): ``SUB_ARCH`` at published widths cut to ``SUB_LAYERS``
+    layers (the smoke config in a rehearsal)."""
+    import dataclasses
+
+    cfg = _sub_cfg(SUB_ARCH, sizes)
+    return cfg if sizes["smoke"] else dataclasses.replace(
+        cfg, n_layers=SUB_LAYERS)
 
 
 def _sub_cfg(arch, sizes):
@@ -4533,7 +4565,8 @@ def _time_parts(gate, dev, times):
 
 
 def _sub_localsgd_full(dev, sizes):
-    """(b) LocalSGD on mamba2-370m whole: ``sizes["steps"]`` local train
+    """(b) LocalSGD on mamba2-370m (``SUB_LAYERS`` layers):
+    ``sizes["steps"]`` local train
     steps on this rank's row of a ``TokenSource`` batch placed by
     ``make_batch_fn(mesh=...)``, each followed by the gate; tau = 4x the
     global mean drift after step 1 (all-gathered outside the gate)."""
@@ -4547,7 +4580,7 @@ def _sub_localsgd_full(dev, sizes):
     from repro_torch.training import (LocalSGDConfig, TrainHParams,
                                       build_for_cell, make_localsgd)
 
-    cfg, L = _sub_cfg(SUB_ARCH, sizes), sizes["len"]
+    cfg, L = _sub_arch_cfg(sizes), sizes["len"]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     model = build(cfg, dev)
@@ -4643,7 +4676,7 @@ def _sub_elastic_save(dev, sizes, ckpt):
     from repro_torch.distributed import elastic
     from repro_torch.models import build
 
-    model = build(_sub_cfg(SUB_ARCH, sizes), dev)
+    model = build(_sub_arch_cfg(sizes), dev)
     state = _elastic_state(model, dev)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     placed = elastic.reshard(state, _elastic_specs(model, mesh), mesh)
@@ -4741,7 +4774,7 @@ def _restore_rank(rank, world, dev, sizes, ckpt):
     if dev.type == "cuda":
         torch.cuda.set_device(0)
     kernels.reset_counts()
-    model = build(_sub_cfg(SUB_ARCH, sizes), dev)
+    model = build(_sub_arch_cfg(sizes), dev)
     mesh, info = elastic.remesh(model_axis=2)
     like = _elastic_state(model, dev)
     spec_tree = _elastic_specs(model, mesh)
@@ -4850,7 +4883,7 @@ def phase_substrate(dev, gpu):
            "phys_sends": phys, "losses_rank0": lsgd[0]["losses"],
            "peak_gb_by_rank": [x["peak_gb"] for x in lsgd]}
     rows["localsgd"] = row
-    print(f"[substrate] (b) LocalSGD {SUB_ARCH} whole "
+    print(f"[substrate] (b) LocalSGD {SUB_ARCH} ({SUB_LAYERS} of 48 layers) "
           f"({row['params'] / 1e9:.3f} B params, bf16, float32 moments, "
           f"remat) on a data ring of {SUB_RANKS} ranks, one (1, "
           f"{SUB_SIZES['len']}) row a rank: tau {row['tau']:.6g} (4x the "
@@ -4891,7 +4924,8 @@ def phase_substrate(dev, gpu):
                        "remesh": restored[0]["info"],
                        "leaves": len(restored[0]["digests"]),
                        "values_by_rank": [x["values"] for x in restored]}
-    print(f"[substrate] (c) elastic: {SUB_ARCH} params + AdamW state "
+    print(f"[substrate] (c) elastic: {SUB_ARCH} ({SUB_LAYERS} of 48 "
+          f"layers) params + AdamW state "
           f"({gb:.3f} GB) placed on (data 2, model 2) by param_specs and "
           f"saved from 4 ranks in {save_ms:.1f} ms "
           f"({rows['elastic']['save_gb_s']:.3f} GB/s); a second launch of 2 "
@@ -4961,20 +4995,49 @@ STEP_TIMEOUT_S = 900  # the launch.spawn of phase 19
 # The sizes the ranks run at (passed to them; a CPU rehearsal shrinks these).
 STEP_SIZES = {"len": 4096,  # (b), (e): configs.SHAPES' train_4k length
               "train_steps": 3,  # (b), (e): one untimed, then two timed
-              "prompt": 4096, "decode": 32,  # (c)
-              "smoke": False}  # the archs' smoke configs (CPU rehearsal)
+              "prompt": 4096, "decode": 32,  # (c), (f), (h)
+              # (i): a (2, 128) train step, a (2, 120) prompt and 8 greedy
+              # steps (8 ranks' gloo sums bound it: a (2, 448) step took
+              # 27 s on one H100)
+              "uneven_len": 128, "uneven_prompt": 120, "uneven_decode": 8,
+              "smoke": False,  # the archs' smoke configs (CPU rehearsal)
+              "uneven_heads": None}  # (i) a rehearsal's heads (smoke: 4)
 STEP_TOL = 1e-4  # (a): losses and gnorms rtol, card against the CPU
 STEP_PARAM_TOL = (1e-4, 1e-5)  # (a): params rtol, atol (lr 1e-3)
 STEP_FLIPS = 1e-3  # (a): share of params allowed past it (AdamW sign flips)
 STEP_TRAIN_ARCH, STEP_SERVE_ARCH = "mamba2-370m", "qwen3-14b"
 STEP_TP_ARCH = "yi-9b"  # (e): 2 of 48 layers at published widths
 STEP_TIE_ULPS = 2  # (c): a near tie: top-two gap within 2 bf16 ulps of top
+# (h): the mesh's float32 prefill against the one-rank float32 prefill of
+# the same weights: max abs logit err over the largest |logit| (a fault of
+# the split SSD shows here, above bf16's round-off)
+STEP_SSD_F32_TOL = 1e-4
+# (h): every bf16 step's max abs logit err against the one-rank run within
+# this many times the one-rank run's own largest deviation from its
+# float32 run (two runs each within d of float32 are within 2 d of each
+# other); a flipped step is a tie where its top-two gap is within twice
+# that step's err (the logits moved by it can swap the two)
+STEP_SSD_DEV = 2.0
 STEP_TIES = 1  # (c): steps a row may differ from the one-rank run, at ties
 STEP_TIES_SPLIT = 3  # (f), (g): the same, of 33 (a 151,936 or 32,000 vocab)
 STEP_ROUTE_TIE = 0.01  # (f), (g): a router's K-th, (K+1)-th probs this close
 STEP_EP_ARCH = "qwen3-moe-235b-a22b"  # (f): 64 experts a "model" rank
 STEP_LONG_ARCH = "mixtral-8x7b"  # (g): batch 1, the KV sequence on "data"
-STEP_SERVED_MAX = 1_000_000  # (f), (g): bytes staged a decode step a rank
+STEP_SSD_ARCH = "zamba2-2.7b"  # (h): one group, the SSD's heads on "model"
+STEP_SERVED_MAX = 1_000_000  # (f)-(h): bytes staged a decode step a rank
+STEP_UNEVEN_ARCH = "whisper-large-v3"  # (i): its 20 heads over 8 ranks
+STEP_UNEVEN_MESH = (1, 8)  # (i): ("data", "model"), 8 ranks on the card
+STEP_UNEVEN_TOL = 1e-4  # (i): float32 loss / gnorm rtol against one rank
+STEP_UNEVEN_PARAM_ERR = 2e-3  # (i): a leaf's max abs err, 1 step x 2 lr
+# (i): tests/torch_train_parity.py's noise gate: a parameter is held where
+# its one-rank |grad| exceeds NOISE_FACTOR x max(GRAD_ATOL, GRAD_LEAF_ATOL
+# x its leaf's largest |grad|); elsewhere the grad is round-off and AdamW
+# moves the parameter by its sign (the cross-attention key biases)
+STEP_GRAD_ATOL, STEP_GRAD_LEAF_ATOL, STEP_NOISE_FACTOR = 1e-6, 1e-4, 10.0
+# (a): (arch, FSDP and remat, steps) of the smoke train steps; zamba2's
+# remat recomputes its split SSD on autograd's thread on the card.
+STEP_SMOKE_TRAIN = (("yi-9b", False, 2), ("qwen3-moe-235b-a22b", True, 1),
+                    ("zamba2-2.7b", True, 1))
 DRYRUN_CELLS = (("yi-9b", "train_4k", False),
                 ("qwen3-moe-235b-a22b", "train_4k", True))
 DRYRUN_TIMEOUT_S = 300  # the dry-run cells, awaited after the build
@@ -5041,7 +5104,8 @@ def _replicas_equal(mesh, trees) -> bool:
 
 def _steps_smoke(mesh, where):
     """(a) on ``where``: yi-9b smoke two train steps at accum 2 on (4, 32),
-    qwen3-moe smoke (FSDP, remat) one step at accum 2, a yi-9b prefill of
+    qwen3-moe and zamba2 smoke (FSDP, remat) one step at accum 2 each
+    (``STEP_SMOKE_TRAIN``), a yi-9b prefill of
     (4, 12) and three greedy decode steps; from the same CPU-made
     parameters and batches.  Returns metrics, gathered params and
     tokens."""
@@ -5057,8 +5121,7 @@ def _steps_smoke(mesh, where):
     out = {}
     hp = TrainHParams(lr=1e-3, warmup=0, accum_steps=2)
     cell = configs.ShapeCell("t", "train", 32, 4)
-    for arch, fsdp, steps in (("yi-9b", False, 2),
-                              ("qwen3-moe-235b-a22b", True, 1)):
+    for arch, fsdp, steps in STEP_SMOKE_TRAIN:
         cfg = configs.get_smoke(arch)
         if fsdp:
             cfg = dataclasses.replace(cfg, fsdp=True, remat=True)
@@ -5145,23 +5208,32 @@ def _steps_train_full(mesh, dev, sizes, arch, cut):
             "model_gathered": sorted(step.plan.model_gathered)}
 
 
-def _serve_ref(model, params, toks, length, steps, dev):
+def _serve_ref(model, params, toks, length, steps, dev, feed=None,
+               keep=False):
     """The one-rank prefill of ``toks`` (one row) and ``steps`` greedy
-    decode steps: the ``steps + 1`` tokens, (top logit, top-two gap) of
-    each step's bf16 logits, prefill ms and ms a decode step."""
+    decode steps (fed ``feed``'s tokens instead where given): the
+    ``steps + 1`` tokens, (top logit, top-two gap) of each step's
+    logits, prefill ms, ms a decode step, and with ``keep`` each step's
+    logits (float32, on the CPU; else None)."""
     from repro_torch.training.steps import _argmax
 
     with torch.no_grad():
         (logits, cache), pf = _timed(dev, lambda: model.prefill(
             params, toks, model.init_cache(1, length)))
-        tokens, gaps, tok_ms = [], [], []
+        tokens, gaps, tok_ms, kept = [], [], [], []
         while True:
             top2 = torch.topk(logits[0].float(), 2).values
             gaps.append((float(top2[0]), float(top2[0] - top2[1])))
+            if keep:
+                kept.append(logits[0].float().cpu())
             tok = _argmax(logits)
             tokens.append(int(tok[0]))
             if len(tokens) == steps + 1:
-                return tokens, gaps, pf, tok_ms
+                return (tokens, gaps, pf, tok_ms,
+                        torch.stack(kept).numpy() if keep else None)
+            if feed is not None:
+                tok = torch.tensor([feed[len(tokens) - 1]],
+                                   dtype=torch.int32, device=dev)
             (logits, cache), dt = _timed(dev, lambda: model.decode_step(
                 params, tok, cache))
             tok_ms.append(dt)
@@ -5253,14 +5325,19 @@ def _steps_serve_full(mesh, dev, sizes):
             "staged_prefill": dict(prefill.plan.staged)}
 
 
+SERVED_ARCHS = {"ep": STEP_EP_ARCH, "long": STEP_LONG_ARCH,
+                "ssd": STEP_SSD_ARCH}  # (f), (g), (h)
+
+
 def _served_cfg(part, sizes):
-    """(f) qwen3-moe / (g) mixtral at published widths, 2 layers (the
-    smoke config in a rehearsal), serving weights not split over "data"
-    (``serve_fsdp`` off: a 2-layer "model" slice fits on a rank, so a
-    decode step gathers no weight): (config, the cut as printed)."""
+    """(f) qwen3-moe / (g) mixtral at published widths, 2 layers, (h)
+    zamba2 one 6-layer group (the smoke config in a rehearsal), serving
+    weights not split over "data" (``serve_fsdp`` off: the "model" slice
+    fits on a rank, so a decode step gathers no weight): (config, the cut
+    as printed)."""
     import dataclasses
 
-    cfg = _sub_cfg(STEP_EP_ARCH if part == "ep" else STEP_LONG_ARCH, sizes)
+    cfg = _sub_cfg(SERVED_ARCHS[part], sizes)
     cut = "smoke"
     if not sizes["smoke"]:
         cfg, cut = _zoo_cut(cfg)
@@ -5268,13 +5345,13 @@ def _served_cfg(part, sizes):
 
 
 def _served_prompt(part, cfg, sizes):
-    """(f): (2, prompt) tokens, one row a data rank.  (g): (1, P) with P
-    = window + window / 2 - decode / 2: past the window, so the ring
-    wraps, and the decode steps write slots window / 2 - decode / 2 on,
-    across the boundary of the two data ranks' halves.  Returns (tokens,
-    P, decode steps)."""
+    """(f), (h): (2, prompt) tokens, one row a data rank.  (g): (1, P)
+    with P = window + window / 2 - decode / 2: past the window, so the
+    ring wraps, and the decode steps write slots window / 2 - decode / 2
+    on, across the boundary of the two data ranks' halves.  Returns
+    (tokens, P, decode steps)."""
     T = sizes["decode"]
-    if part == "ep":
+    if part != "long":
         rows, P = 2, sizes["prompt"]
     else:
         rows, P = 1, cfg.window + cfg.window // 2 - T // 2
@@ -5284,25 +5361,34 @@ def _served_prompt(part, cfg, sizes):
 
 
 def served_refs(dev, sizes):
-    """(f), (g): each row alone through the one-rank steps, in this
+    """(f)-(h): each row alone through the one-rank steps, in this
     process before the ranks start (four whole copies of the parameters
     beside the ranks' shards would not fit on the card): the tokens, the
     (top logit, top-two gap) of each step, prefill ms, ms a token and the
-    peak memory.  The parameters are freed after."""
+    peak memory; and (h)'s logits a step, of this bf16 run and of a
+    float32 run of the same weights fed the same tokens (:func:`_ssd_f32`),
+    kept apart (the ranks are not sent them).  The parameters are freed
+    after.  Returns (refs, {"bf16": rows, "f32": rows})."""
     from repro_torch.models import build
 
-    out = {}
-    for part in ("ep", "long"):
+    out, logits = {}, {}
+    for part in SERVED_ARCHS:
         cfg, cut = _served_cfg(part, sizes)
         toks, P, T = _served_prompt(part, cfg, sizes)
         model = build(cfg, dev)
         params = model.init(torch.Generator(device=dev).manual_seed(17))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
+        keep = part == "ssd"
         ref = [_serve_ref(model, params, toks[r:r + 1].to(dev), P + T, T,
-                          dev) for r in range(toks.shape[0])]
+                          dev, keep=keep) for r in range(toks.shape[0])]
+        if keep:
+            logits = {"bf16": [x[4] for x in ref],
+                      "f32": _ssd_f32(cfg, params, toks, P, T,
+                                      [x[0] for x in ref], dev)}
         margins = [_route_margins(model, params, toks[r:r + 1].to(dev),
-                                  P + T, x[0]) for r, x in enumerate(ref)]
+                                  P + T, x[0]) if cfg.moe else [None] * (T + 1)
+                   for r, x in enumerate(ref)]
         out[part] = {"cut": cut, "want": [x[0] for x in ref],
                      "gaps": [[(*g, m) for g, m in zip(x[1], ms)]
                               for x, ms in zip(ref, margins)],
@@ -5313,6 +5399,25 @@ def served_refs(dev, sizes):
         del params, model, ref
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return out, logits
+
+
+def _ssd_f32(cfg, params, toks, P, T, want, dev):
+    """(h): each row alone through a float32 one-rank run of the bf16
+    ``params`` cast up, fed the bf16 run's tokens ``want``: its logits a
+    step (the bf16 run's distance from them is its own round-off)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.models import build
+
+    model = build(dataclasses.replace(cfg, dtype=torch.float32), dev)
+    p32 = tree.map(lambda p: p.float() if p.is_floating_point() else p,
+                   params)
+    out = [_serve_ref(model, p32, toks[r:r + 1].to(dev), P + T, T, dev,
+                      feed=want[r], keep=True)[4]
+           for r in range(toks.shape[0])]
+    del p32
     return out
 
 
@@ -5327,18 +5432,22 @@ def _card_memory(dev) -> dict | None:
             "free_gb": round(free / 1e9, 3)}
 
 
-def _placed_params(mesh, model, spec, dev):
-    """The seed-17 parameters of ``model`` at ``spec`` on this rank: made
-    whole on ``dev`` and sliced one rank at a time (the whole copies of
-    the four ranks at once would not fit beside the shards)."""
+def _placed_params(mesh, model, spec, dev, dtype=None):
+    """The seed-17 parameters of ``model`` (cast to ``dtype`` where given)
+    at ``spec`` on this rank: made whole on ``dev`` and sliced one rank
+    at a time (the whole copies of the four ranks at once would not fit
+    beside the shards)."""
     import torch.distributed as dist
 
+    from repro_torch import tree
     from repro_torch.distributed import sharding
 
     placed = None
     for r in range(dist.get_world_size()):
         if r == dist.get_rank():
             whole = model.init(torch.Generator(device=dev).manual_seed(17))
+            if dtype is not None:
+                whole = tree.map(lambda p: p.to(dtype), whole)
             placed = sharding.put_tree(whole, spec, mesh, dev)
             del whole
             if dev.type == "cuda":
@@ -5347,11 +5456,47 @@ def _placed_params(mesh, model, spec, dev):
     return placed
 
 
+def _keep_logits(model, kept: list) -> None:
+    """``model``'s ``prefill`` and ``decode_step`` from now on append each
+    call's logits to ``kept`` (float32, on the CPU: on a mesh rank its
+    rows and its slice of the vocab)."""
+    for name in ("prefill", "decode_step"):
+        def call(*args, _fn=getattr(model, name)):
+            logits, cache = _fn(*args)
+            kept.append(logits.float().cpu())
+            return logits, cache
+        setattr(model, name, call)
+
+
+def _ssd_f32_prefill(mesh, dev, cfg, toks, P, rows):
+    """(h): the mesh's float32 prefill of ``toks`` on the bf16 parameters
+    cast up: this rank's logits (its row, its vocab slice)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    model = build(dataclasses.replace(cfg, dtype=torch.float32), dev)
+    kept = []
+    _keep_logits(model, kept)
+    prefill, in_specs = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", P, rows))[:2]
+    params = _placed_params(mesh, build(cfg, dev), in_specs[0], dev,
+                            torch.float32)
+    prefill(params, toks.to(dev), model.init_cache(rows, P))
+    del params
+    _free(dev)
+    return kept[0][0].numpy()
+
+
 def _steps_served_split(mesh, dev, sizes, part, ref):
-    """(f) / (g) on the (2, 2) mesh: the prefill of :func:`_served_prompt`
-    and ``decode`` greedy steps teacher-forced by the one-rank run's
-    tokens ``ref["want"]`` (as (c)): (f) the experts split over "model",
-    (g) the KV sequence over "data"."""
+    """(f) / (g) / (h) on the (2, 2) mesh: the prefill of
+    :func:`_served_prompt` and ``decode`` greedy steps teacher-forced by
+    the one-rank run's tokens ``ref["want"]`` (as (c)): (f) the experts
+    split over "model", (g) the KV sequence over "data", (h) the SSD's
+    heads (and the shared attention's) over "model", its logits a step
+    kept, then a float32 prefill (:func:`_ssd_f32_prefill`)."""
     from repro_torch import configs
     from repro_torch.distributed import sharding, spmd
     from repro_torch.models import build
@@ -5361,6 +5506,9 @@ def _steps_served_split(mesh, dev, sizes, part, ref):
     toks, P, T = _served_prompt(part, cfg, sizes)
     rows = toks.shape[0]
     model = build(cfg, dev)
+    kept = []
+    if part == "ssd":
+        _keep_logits(model, kept)
     prefill, in_specs = build_for_cell(model, mesh, configs.ShapeCell(
         "p", "prefill", P, rows))[:2]
     decode = build_for_cell(model, mesh, configs.ShapeCell(
@@ -5383,35 +5531,51 @@ def _steps_served_split(mesh, dev, sizes, part, ref):
     got = torch.stack([sharding.full_tensor(t, device="cpu")
                        for t in served], 1)
     k = cache.kv.k
-    return {"tokens": got, "prompt": [rows, P], "prefill_ms": pf_ms,
-            "token_ms": tok_ms,
-            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
-                        if dev.type == "cuda" else None),
-            "staged_decode": dict(decode.plan.staged),
-            "staged_prefill": dict(prefill.plan.staged),
-            "model_gathered": sorted(prefill.plan.model_gathered
-                                     | decode.plan.model_gathered),
-            "kv_shard": list(spmd.local(k).shape), "kv_whole": list(k.shape),
-            "experts": cfg.moe.n_experts, "memory_at_start": mem}
+    ssm = None if cache.ssm is None else cache.ssm.ssm
+    out = {"tokens": got, "prompt": [rows, P], "prefill_ms": pf_ms,
+           "token_ms": tok_ms,
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if dev.type == "cuda" else None),
+           "staged_decode": dict(decode.plan.staged),
+           "staged_prefill": dict(prefill.plan.staged),
+           "model_gathered": sorted(prefill.plan.model_gathered
+                                    | decode.plan.model_gathered),
+           "decode_gathered": sorted(decode.plan.model_gathered),
+           "kv_shard": list(spmd.local(k).shape), "kv_whole": list(k.shape),
+           "ssm_shard": None if ssm is None else list(spmd.local(ssm).shape),
+           "ssm_whole": None if ssm is None else list(ssm.shape),
+           "experts": cfg.moe.n_experts if cfg.moe else None,
+           "memory_at_start": mem, "logits": None}
+    if part == "ssd":  # after the peak is read
+        del params, cache, k, ssm
+        _free(dev)
+        out["logits"] = {
+            "bf16": torch.cat(kept).numpy(),
+            "f32": _ssd_f32_prefill(mesh, dev, cfg, toks, P, rows),
+            "coord": [int(c) for c in mesh.get_coordinate()]}
+    return out
 
 
-def _served_near_tie(gap) -> bool:
+def _served_near_tie(row, step, gap) -> bool:
     """Whether a step's (top logit, top-two gap[, router margin]) is a
-    near tie (:func:`_served_ties`)."""
+    near tie (:func:`_served_ties`): the gap within ``STEP_TIE_ULPS``
+    bf16 ulps of the top logit, or the router margin within
+    ``STEP_ROUTE_TIE``."""
     margin = gap[2] if len(gap) > 2 else None
     return (gap[1] <= STEP_TIE_ULPS * _bf16_ulp(gap[0])
             or (margin is not None and margin <= STEP_ROUTE_TIE))
 
 
-def _served_ties(label, sv, want, gaps, limit):
+def _served_ties(label, sv, want, gaps, limit, tie=_served_near_tie):
     """The near ties of a teacher-forced serving part, and its faults:
     every rank's tokens must equal rank 0's, and each row's the one-rank
-    run's ``want`` but at near ties, at most ``limit`` a row: the top-two
-    gap within ``STEP_TIE_ULPS`` bf16 ulps of the top logit, or (a gap
-    entry's third value, :func:`_route_margins`) a MoE router's K-th and
-    (K + 1)-th expert probabilities within ``STEP_ROUTE_TIE`` of each
-    other, where a token may go to another expert.  Returns ([(row,
-    step, gap entry)], [fault, ...])."""
+    run's ``want`` but at near ties, at most ``limit`` a row: where
+    ``tie(row, step, gap entry)`` holds (:func:`_served_near_tie`: the
+    top-two gap within ``STEP_TIE_ULPS`` bf16 ulps of the top logit, or
+    (a gap entry's third value, :func:`_route_margins`) a MoE router's
+    K-th and (K + 1)-th expert probabilities within ``STEP_ROUTE_TIE`` of
+    each other, where a token may go to another expert).  Returns
+    ([(row, step, gap entry)], [fault, ...])."""
     for r, x in enumerate(sv):
         if not np.array_equal(x["tokens"], sv[0]["tokens"]):
             return [], [f"mesh steps ({label}) rank {r}: tokens differ "
@@ -5422,7 +5586,7 @@ def _served_ties(label, sv, want, gaps, limit):
         bad = [t for t in range(got.shape[1]) if got[row_, t] !=
                int(want[row_, t])]
         near = [(t, gaps[row_][t]) for t in bad
-                if _served_near_tie(gaps[row_][t])]
+                if tie(row_, t, gaps[row_][t])]
         if len(near) < len(bad) or len(bad) > limit:
             faults.append(
                 f"mesh steps ({label}) row {row_}: steps {bad} differ from "
@@ -5432,25 +5596,81 @@ def _served_ties(label, sv, want, gaps, limit):
     return ties, faults
 
 
-def _served_row(label, part, ranks, refs, gpu):
-    """(f) / (g): the checks and the row of a split serving part: tokens
-    as the one-rank run's (:func:`_served_ties`), under
+def _ssd_logit_errs(sv, logits):
+    """(h), per row: the mesh's logits a step, assembled from its ranks'
+    vocab slices, against the one-rank runs' ``logits``
+    (:func:`served_refs`): each step's max abs err against the bf16 run
+    (``dev``), the bf16 run's against the float32 run (``rho``), and the
+    mesh's float32 prefill against the float32 run's, over its largest
+    |logit| (``f32_rel``)."""
+    by_row = {}
+    for x in sv:
+        d, m = x["logits"]["coord"]
+        by_row.setdefault(d, {})[m] = x["logits"]
+    out = []
+    for d in sorted(by_row):
+        parts = [by_row[d][m] for m in sorted(by_row[d])]
+        one, one32 = logits["bf16"][d], logits["f32"][d]  # (steps, V)
+        V = one.shape[-1]
+        got = np.concatenate([p["bf16"] for p in parts], -1)[:, :V]
+        got32 = np.concatenate([p["f32"] for p in parts], -1)[:V]
+        out.append({
+            "dev": np.abs(got - one).max(-1).tolist(),
+            "rho": np.abs(one - one32).max(-1).tolist(),
+            "f32_rel": float(np.abs(got32 - one32[0]).max()
+                             / np.abs(one32[0]).max())})
+    return out
+
+
+def _served_row(label, part, ranks, refs, gpu, logits=None):
+    """(f) / (g) / (h): the checks and the row of a split serving part:
+    tokens as the one-rank run's (:func:`_served_ties`), under
     ``STEP_SERVED_MAX`` bytes staged a decode step on every rank, no
     weight gathered (and (f): no expert leaf over "model"; (g): no KV
-    cache gathered, each rank's cache half the sequence)."""
+    cache gathered, each rank's cache half the sequence; (h): no leaf
+    gathered over "model" by a decode step, the SSM state half the heads
+    a rank; its conv tail, whole on "model", is its one input gathered;
+    the float32 prefill within ``STEP_SSD_F32_TOL`` of one rank's, every
+    bf16 step's logits within ``STEP_SSD_DEV`` times the one-rank bf16
+    run's own round-off of the one-rank run's, and a flipped token a tie
+    where its top-two gap is within twice that step's logit err:
+    :func:`_ssd_logit_errs` on ``logits``)."""
     sv = [r[part] for r in ranks]
-    ref = refs["ep" if part == "ep_serve" else "long"]
+    key = part.split("_")[0]
+    ref = refs[key]
+    errs, tie = None, _served_near_tie
+    if key == "ssd":
+        errs = _ssd_logit_errs(sv, logits)
+
+        def tie(row_, t, gap):
+            return gap[1] <= 2 * errs[row_]["dev"][t]
     ties, faults = _served_ties(label, sv, ref["want"], ref["gaps"],
-                                STEP_TIES_SPLIT)
+                                STEP_TIES_SPLIT, tie)
+    for row_, e in enumerate(errs or ()):
+        if e["f32_rel"] > STEP_SSD_F32_TOL:
+            faults.append(f"mesh steps ({label}) row {row_}: the float32 "
+                          f"prefill's logits {e['f32_rel']:.3g} of the "
+                          f"largest off the one-rank run's")
+        if max(e["dev"]) > STEP_SSD_DEV * max(e["rho"]):
+            faults.append(f"mesh steps ({label}) row {row_}: logit errs "
+                          f"{e['dev']} against the one-rank run, its own "
+                          f"round-off {max(e['rho'])}")
     n_dec = STEP_SIZES["decode"]
     per_step = [sum(x["staged_decode"].values()) / n_dec for x in sv]
     if max(per_step) >= STEP_SERVED_MAX:
         faults.append(f"mesh steps ({label}): {max(per_step)} bytes staged "
                       f"a decode step a rank")
     for r, x in enumerate(sv):
-        if x["staged_decode"]["gather"] or x["staged_decode"]["kv"]:
+        if ((x["staged_decode"]["gather"] and key != "ssd")
+                or x["staged_decode"]["kv"]):
             faults.append(f"mesh steps ({label}) rank {r}: a decode step "
                           f"gathered {x['staged_decode']}")
+        if key == "ssd" and (x["decode_gathered"] or x["ssm_shard"][3] * 2
+                             != x["ssm_whole"][3]):
+            faults.append(f"mesh steps ({label}) rank {r}: a decode step "
+                          f"gathered {x['decode_gathered']} over \"model\","
+                          f" SSM state {x['ssm_shard']} of "
+                          f"{x['ssm_whole']}")
         if part == "ep_serve" and any("moe" in n for n in
                                       x["model_gathered"]):
             faults.append(f"mesh steps ({label}) rank {r}: experts gathered "
@@ -5458,7 +5678,7 @@ def _served_row(label, part, ranks, refs, gpu):
         if part == "long_serve" and x["kv_shard"][2] * 2 != x["kv_whole"][2]:
             faults.append(f"mesh steps ({label}) rank {r}: KV cache "
                           f"{x['kv_shard']} of {x['kv_whole']}")
-    arch = STEP_EP_ARCH if part == "ep_serve" else STEP_LONG_ARCH
+    arch = SERVED_ARCHS[key]
     got = np.asarray(sv[0]["tokens"])
     tok_ms = [t for x in sv for t in x["token_ms"]]
     row = {"arch": arch, "cut": ref["cut"], "prompt": sv[0]["prompt"],
@@ -5474,12 +5694,35 @@ def _served_row(label, part, ranks, refs, gpu):
            "ref_peak_gb": ref["peak_gb"],
            "model_gathered": sv[0]["model_gathered"],
            "kv_shard": sv[0]["kv_shard"], "kv_whole": sv[0]["kv_whole"],
-           "near_ties": ties, "tokens_head": got[:, :8].tolist()}
+           "ssm_shard": sv[0]["ssm_shard"], "ssm_whole": sv[0]["ssm_whole"],
+           "decode_gathered": sv[0]["decode_gathered"],
+           "near_ties": ties, "tokens_head": got[:, :8].tolist(),
+           "logit_errs": errs}
     E = sv[0]["experts"]
-    what = (f"its {E} experts {E // 2} a \"model\" rank"
-            if part == "ep_serve" else
-            f"batch 1 (long_ctx), its KV ring of {row['kv_whole'][2]} slots "
-            f"{row['kv_shard'][2]} a \"data\" rank")
+    what = {"ep": f"its {E} experts {(E or 0) // 2} a \"model\" rank",
+            "long": f"batch 1 (long_ctx), its KV ring of "
+                    f"{row['kv_whole'][2]} slots {row['kv_shard'][2]} a "
+                    f"\"data\" rank",
+            "ssd": f"its SSM state {row['ssm_whole']} {row['ssm_shard']} a "
+                   f"rank (the SSD's heads on \"model\"), a decode step "
+                   f"gathering {row['decode_gathered'] or 'no'} leaf over "
+                   f"\"model\""}[key]
+    near = (f"top-two gap within {STEP_TIE_ULPS} bf16 ulps, or a router's "
+            f"K-th and (K+1)-th expert probabilities within "
+            f"{STEP_ROUTE_TIE:.0%}")
+    if errs:
+        near = (f"top-two gap within twice the step's max abs logit err "
+                f"against the one-rank run; by row, that err's max "
+                f"{[max(e['dev']) for e in errs]} (at most "
+                f"{STEP_SSD_DEV} x the one-rank bf16 run's own max err "
+                f"against its float32 run, "
+                f"{[max(e['rho']) for e in errs]}), at the "
+                f"flipped steps "
+                f"{[(r, t, errs[r]['dev'][t]) for r, t, _ in ties]}"
+                f"; the float32 prefill's max abs logit err over the "
+                f"largest |logit| "
+                f"{[e['f32_rel'] for e in errs]} (tol "
+                f"{STEP_SSD_F32_TOL})")
     print(f"[mesh-steps] ({label}) {arch} bf16 ({row['cut']}) on (data 2, "
           f"model 2), {what}: a prefill of {tuple(row['prompt'])} "
           f"{max(row['prefill_ms_by_rank']):.1f} ms (slowest rank), then "
@@ -5489,10 +5732,8 @@ def _served_row(label, part, ranks, refs, gpu):
           f"{max(row['ref_prefill_ms']):.1f} ms, "
           f"{row['ref_token_ms_median']:.1f} ms a token, peak "
           f"{row['ref_peak_gb']} GB; every token equal to the one-rank "
-          f"run's but at near ties (top-two gap within {STEP_TIE_ULPS} bf16 "
-          f"ulps, or a router's K-th and (K+1)-th expert probabilities "
-          f"within {STEP_ROUTE_TIE:.0%}; at most {STEP_TIES_SPLIT} a row; "
-          f"(top, gap, router margin)): {ties or 'none'}; "
+          f"run's but at near ties ({near}; at most {STEP_TIES_SPLIT} a "
+          f"row; (top, gap, router margin)): {ties or 'none'}; "
           f"staged bytes a decode "
           f"step a rank {[round(b) for b in per_step]} (the {n_dec} steps, "
           f"rank 0: {row['staged_bytes_decode_steps']}; prefill "
@@ -5503,6 +5744,17 @@ def _served_row(label, part, ranks, refs, gpu):
     if faults:  # after the row is printed
         raise AssertionError("; ".join(faults))
     return row
+
+
+def _free(dev) -> None:
+    """Collect the garbage (a part's reference cycles hold its tensors:
+    up to 18 GB a rank of an H100 after (b) and (c) without it) and empty
+    the card's cache, before a part's rank starts the next."""
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def _mesh_step_rank(rank, world, dev, sizes):
@@ -5524,8 +5776,9 @@ def _mesh_step_rank(rank, world, dev, sizes):
             ("serve", lambda: _steps_serve_full(mesh, dev, sizes)),
             ("tp_train", lambda: _steps_train_full(mesh, dev, sizes,
                                                    STEP_TP_ARCH, True))):
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        _free(dev)
+        print(f"[mesh-steps] rank {rank} before ({key}): "
+              f"{_card_memory(dev)}", flush=True)
         out[key] = fn()
     _sync(dev)
     out["counts"] = kernels.counts()
@@ -5533,9 +5786,9 @@ def _mesh_step_rank(rank, world, dev, sizes):
 
 
 def _served_rank(rank, world, dev, sizes, refs):
-    """Phase 19 (f), (g) on one of 4 ranks, in ranks of their own (the
-    parameters of (f) need the card's memory free of (a)-(e)'s), with the
-    kernel counters zeroed before and read after."""
+    """Phase 19 (f), (g), (h) on one of 4 ranks, in ranks of their own
+    (the parameters of (f) need the card's memory free of (a)-(e)'s), with
+    the kernel counters zeroed before and read after."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = torch.device(dev)
@@ -5545,13 +5798,291 @@ def _served_rank(rank, world, dev, sizes, refs):
     kernels.reset_counts()
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {}
-    for key, part in (("ep_serve", "ep"), ("long_serve", "long")):
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-        out[key] = _steps_served_split(mesh, dev, sizes, part, refs[part])
+    for part in SERVED_ARCHS:
+        _free(dev)
+        out[f"{part}_serve"] = _steps_served_split(mesh, dev, sizes, part,
+                                                   refs[part])
     _sync(dev)
     out["counts"] = kernels.counts()
     return out
+
+
+def _uneven_cfg(sizes, dtype):
+    """(i) whisper-large-v3 at published widths, 2 + 2 layers (the smoke
+    config in a rehearsal), in ``dtype``: (config, the cut as printed)."""
+    import dataclasses
+
+    cfg, cut = _sub_cfg(STEP_UNEVEN_ARCH, sizes), "smoke"
+    if not sizes["smoke"]:
+        cfg, cut = _zoo_cut(cfg)
+    elif sizes.get("uneven_heads"):  # a rehearsal's smoke heads
+        cfg = dataclasses.replace(cfg, n_heads=sizes["uneven_heads"])
+    return dataclasses.replace(cfg, dtype=dtype), cut
+
+
+def _uneven_inputs(cfg, sizes):
+    """(i): (2, uneven_len) tokens and labels, (2, enc_len, d_model)
+    frames, on the CPU, from seed 29."""
+    gen = torch.Generator().manual_seed(29)
+    return _train_batch(cfg, gen, 2, sizes["uneven_len"])
+
+
+def _uneven_model(sizes, dtype, dev):
+    """(i): the model, its seed-17 parameters on ``dev`` and the inputs."""
+    from repro_torch.models import build
+
+    cfg, cut = _uneven_cfg(sizes, dtype)
+    model = build(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    inputs = {k: v.to(dev) for k, v in _uneven_inputs(cfg, sizes).items()}
+    return model, params, inputs, cut
+
+
+def _uneven_cache(model, params, inputs, length):
+    """(i): the serving cache of the two rows (the encoder run whole)."""
+    with torch.no_grad():
+        enc = model.encode(params, inputs["frames"])
+        return model.init_cache(params, enc, 2, length)
+
+
+def uneven_refs(dev, sizes):
+    """(i): the one-rank bf16 prefill of the (2, uneven_prompt) prompt and
+    ``uneven_decode`` greedy steps, both rows at once (the shapes every
+    rank of the (1, 8) mesh computes): the tokens, each step's (top logit,
+    top-two gap) a row, prefill ms and ms a token."""
+    from repro_torch.training.steps import _argmax
+
+    model, params, inputs, cut = _uneven_model(sizes, torch.bfloat16, dev)
+    P, T = sizes["uneven_prompt"], sizes["uneven_decode"]
+    cache = _uneven_cache(model, params, inputs, P + T)
+    with torch.no_grad():
+        (logits, cache), pf = _timed(dev, lambda: model.prefill(
+            params, inputs["tokens"][:, :P], cache))
+        tokens, gaps, tok_ms = [], [], []
+        while True:
+            top2 = torch.topk(logits.float(), 2, dim=-1).values
+            gaps.append([(float(a), float(a - b)) for a, b in top2.tolist()])
+            tok = _argmax(logits)
+            tokens.append(tok.cpu())
+            if len(tokens) == T + 1:
+                break
+            (logits, cache), dt = _timed(dev, lambda: model.decode_step(
+                params, tok, cache))
+            tok_ms.append(dt)
+    del params, model, cache
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"cut": cut, "want": torch.stack(tokens, 1).tolist(),
+            "gaps": [list(g) for g in zip(*gaps)], "prefill_ms": pf,
+            "token_ms": tok_ms}
+
+
+def _uneven_train(mesh, dev, sizes):
+    """(i) one float32 train step (lr 1e-3, remat) of the (2, uneven_len)
+    batch on the (1, 8) mesh: its metrics and ms, staged bytes, the leaves
+    gathered over "model", every shard bitwise its slice and every replica
+    the others; rank 0 also runs the one-rank step first and holds the
+    gathered parameters to its leaf by leaf (:func:`_leaf_errs`)."""
+    from repro_torch import configs, tree
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainHParams, build_for_cell, steps
+
+    model, params, batch, cut = _uneven_model(sizes, torch.float32, dev)
+    hp = TrainHParams(lr=1e-3, warmup=0)
+    cell = configs.ShapeCell("t", "train", sizes["uneven_len"], 2)
+    ref = None
+    if mesh.get_rank() == 0:
+        grads = steps.loss_and_grads(model, params, batch)[2]
+        one = build_for_cell(model, None, cell, hp)[0]
+        p1, _, m1 = one(params, adamw_init(params), batch)
+        names, flat = tree.leaves_with_names(p1)
+        ref = {"metrics": {k: float(v) for k, v in m1.items()},
+               "names": names, "params": [x.detach().cpu() for x in flat],
+               "grads": [g.detach().cpu() for g in tree.leaves(grads)]}
+        del p1, grads
+        params = model.init(torch.Generator(device=dev).manual_seed(17))
+    step = build_for_cell(model, mesh, cell, hp)[0]
+    (params, opt, m), ms = _timed(dev, lambda: step(
+        params, adamw_init(params), batch))
+    wholes = _gathered(params)
+    out = {"cut": cut, "metrics": {k: float(v) for k, v in m.items()},
+           "step_ms": ms, "staged": dict(step.plan.staged),
+           "model_gathered": sorted(step.plan.model_gathered),
+           "bitwise": _shards_are_slices(mesh, params, wholes),
+           "replicas": _replicas_equal(mesh, (params, opt.m, opt.v))}
+    if ref is not None:
+        out["ref"] = {"metrics": ref["metrics"],
+                      **_leaf_errs(wholes, ref)}
+    return out
+
+
+def _leaf_errs(wholes, ref) -> dict:
+    """(i): the gathered parameters ``wholes`` against the one-rank
+    step's, leaf by leaf, where the noise gate of
+    ``tests/torch_train_parity.py`` holds them (``STEP_GRAD_ATOL``,
+    ``STEP_GRAD_LEAF_ATOL``, ``STEP_NOISE_FACTOR`` on the one-rank
+    grads): each leaf's (name, max abs err, share past
+    ``STEP_PARAM_TOL``, elements held, elements), the worst of each, and
+    the share of all elements held."""
+    leaves = []
+    for name, a, b, g in zip(ref["names"], wholes, ref["params"],
+                             ref["grads"], strict=True):
+        g = np.abs(np.asarray(g, np.float32))
+        noise = max(STEP_GRAD_ATOL,
+                    STEP_GRAD_LEAF_ATOL * float(g.max(initial=0.0)))
+        sure = g > STEP_NOISE_FACTOR * noise
+        err, past = _close(np.asarray(a)[sure], np.asarray(b)[sure],
+                           *STEP_PARAM_TOL)
+        leaves.append((name, err, past, int(sure.sum()), g.size))
+    return {"leaves": leaves,
+            "param_abs_err": max(x[1] for x in leaves),
+            "param_share_past_tol": max(x[2] for x in leaves),
+            "held": sum(x[3] for x in leaves) / sum(x[4] for x in leaves)}
+
+
+def _uneven_serve(mesh, dev, sizes, ref):
+    """(i) the bf16 prefill of the (2, uneven_prompt) prompt and
+    ``uneven_decode`` greedy steps teacher-forced by the one-rank run's
+    tokens ``ref["want"]`` on the (1, 8) mesh (as (c))."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding, spmd
+    from repro_torch.training import build_for_cell
+
+    model, params, inputs, _ = _uneven_model(sizes, torch.bfloat16, dev)
+    P, T = sizes["uneven_prompt"], sizes["uneven_decode"]
+    cache = _uneven_cache(model, params, inputs, P + T)
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", P, 2))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", P + T, 2))[0]
+    want = torch.tensor(ref["want"], dtype=torch.int32)
+    (tok, cache), pf_ms = _timed(dev, lambda: prefill(
+        params, inputs["tokens"][:, :P], cache))
+    served, tok_ms = [tok], []
+    for t in range(T):
+        feed = want[:, t].to(dev)
+        (tok, cache), dt = _timed(dev, lambda: decode(params, feed, cache))
+        served.append(tok)
+        tok_ms.append(dt)
+    got = torch.stack([sharding.full_tensor(t, device="cpu")
+                       for t in served], 1)
+    k = cache.kv.k
+    return {"tokens": got, "prefill_ms": pf_ms, "token_ms": tok_ms,
+            "staged_decode": dict(decode.plan.staged),
+            "staged_prefill": dict(prefill.plan.staged),
+            "model_gathered": sorted(prefill.plan.model_gathered
+                                     | decode.plan.model_gathered),
+            "kv_shard": list(spmd.local(k).shape), "kv_whole": list(k.shape)}
+
+
+def _uneven_rank(rank, world, dev, sizes, ref):
+    """Phase 19 (i) on one of 8 ranks of the (1, 8) mesh, with the kernel
+    counters zeroed before and read after."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(1)
+    kernels.reset_counts()
+    mesh = init_device_mesh("cpu", STEP_UNEVEN_MESH,
+                            mesh_dim_names=("data", "model"))
+    out = {"train": _uneven_train(mesh, dev, sizes)}
+    _free(dev)
+    out["serve"] = _uneven_serve(mesh, dev, sizes, ref)
+    _sync(dev)
+    out["counts"] = kernels.counts()
+    return out
+
+
+def _uneven_row(ranks, ref, gpu):
+    """(i): the checks and the row: the train step held to the one-rank
+    step (loss and gnorm within ``STEP_UNEVEN_TOL``; each leaf's
+    parameters behind the noise gate (:func:`_leaf_errs`) within
+    ``STEP_UNEVEN_PARAM_ERR`` and with at most ``STEP_FLIPS`` of them past
+    ``STEP_PARAM_TOL``, at least half of all held), shards bitwise and
+    replicas equal, the same metrics on every rank; the served tokens as
+    the one-rank run's but at near ties."""
+    tr = [r["train"] for r in ranks]
+    one = tr[0]["ref"]
+    faults = []
+    if not all(x["bitwise"] and x["replicas"] for x in tr):
+        faults.append("mesh steps (i): a shard is not its slice, or "
+                      "replicas differ")
+    if len({tuple(sorted(x["metrics"].items())) for x in tr}) != 1:
+        faults.append("mesh steps (i): the ranks' metrics differ")
+    rel = {k: abs(tr[0]["metrics"][k] - one["metrics"][k])
+           / abs(one["metrics"][k]) for k in ("loss", "gnorm")}
+    if max(rel.values()) > STEP_UNEVEN_TOL:
+        faults.append(f"mesh steps (i): {tr[0]['metrics']} against the "
+                      f"one-rank step's {one['metrics']}")
+    bad = [x for x in one["leaves"]
+           if x[2] > STEP_FLIPS or x[1] > STEP_UNEVEN_PARAM_ERR]
+    if bad or one["held"] < 0.5:
+        faults.append(f"mesh steps (i): params differ from the one-rank "
+                      f"step's, (leaf, max abs err, share past "
+                      f"{STEP_PARAM_TOL}, held, elements) {bad}, "
+                      f"{one['held']} of all elements held")
+    sv = [r["serve"] for r in ranks]
+    ties, more = _served_ties("i", sv, ref["want"], ref["gaps"], STEP_TIES)
+    faults += more
+    n_dec = STEP_SIZES["uneven_decode"]
+    per_step = [sum(x["staged_decode"].values()) / n_dec for x in sv]
+    tok_ms = [t for x in sv for t in x["token_ms"]]
+    row = {"arch": STEP_UNEVEN_ARCH, "cut": ref["cut"],
+           "mesh": list(STEP_UNEVEN_MESH), "rows": [2, STEP_SIZES[
+               "uneven_len"]], "train_metrics": tr[0]["metrics"],
+           "one_rank_metrics": one["metrics"], "metric_rel_err": rel,
+           "param_abs_err": one["param_abs_err"],
+           "param_share_past_tol": one["param_share_past_tol"],
+           "param_share_held": one["held"],
+           "step_ms_by_rank": [x["step_ms"] for x in tr],
+           "staged_bytes_a_step": tr[0]["staged"],
+           "model_gathered_train": tr[0]["model_gathered"],
+           "prompt": [2, STEP_SIZES["uneven_prompt"]], "decode": n_dec,
+           "prefill_ms_by_rank": [x["prefill_ms"] for x in sv],
+           "token_ms_median": float(np.median(tok_ms)),
+           "ref_prefill_ms": ref["prefill_ms"],
+           "ref_token_ms_median": float(np.median(ref["token_ms"])),
+           "staged_bytes_a_decode_step_by_rank": per_step,
+           "staged_bytes_prefill": sv[0]["staged_prefill"],
+           "model_gathered_serve": sv[0]["model_gathered"],
+           "kv_shard": sv[0]["kv_shard"], "kv_whole": sv[0]["kv_whole"],
+           "near_ties": ties,
+           "tokens_head": np.asarray(sv[0]["tokens"])[:, :8].tolist()}
+    H = _uneven_cfg(STEP_SIZES, torch.float32)[0].n_heads
+    m = STEP_UNEVEN_MESH[1]
+    print(f"[mesh-steps] (i) {STEP_UNEVEN_ARCH} ({row['cut']}) on (data 1, "
+          f"model {m}), its {H} heads {H // m} or {-(-H // m)} a rank: a "
+          f"float32 train step (remat,"
+          f" lr 1e-3) of a (2, {STEP_SIZES['uneven_len']}) batch "
+          f"{max(row['step_ms_by_rank']):.1f} ms (slowest rank), loss / "
+          f"gnorm {tr[0]['metrics']['loss']:.6f} / "
+          f"{tr[0]['metrics']['gnorm']:.6f} against the one-rank step's "
+          f"{one['metrics']['loss']:.6f} / {one['metrics']['gnorm']:.6f} "
+          f"(rel {rel['loss']:.2e}, {rel['gnorm']:.2e}; tol "
+          f"{STEP_UNEVEN_TOL}), params leaf by leaf behind the noise gate "
+          f"({one['held']} of all elements held): max abs err "
+          f"{one['param_abs_err']} (tol {STEP_UNEVEN_PARAM_ERR}), the "
+          f"worst leaf's share past {STEP_PARAM_TOL} "
+          f"{one['param_share_past_tol']} (tol {STEP_FLIPS}); shards "
+          f"bitwise and replicas "
+          f"equal; staged a step a rank {tr[0]['staged']}; leaves gathered "
+          f"over \"model\" {row['model_gathered_train']}; bf16 serving: a "
+          f"prefill of (2, {STEP_SIZES['uneven_prompt']}) "
+          f"{max(row['prefill_ms_by_rank']):.1f} ms (slowest rank), then "
+          f"{n_dec} greedy steps teacher-forced at "
+          f"{row['token_ms_median']:.1f} ms a token (median over the ranks),"
+          f" the one-rank run {row['ref_prefill_ms']:.1f} ms and "
+          f"{row['ref_token_ms_median']:.1f} ms a token; the cache "
+          f"{row['kv_whole']} {row['kv_shard']} a rank (d_head split); "
+          f"tokens as the one-rank run's but at near ties (at most "
+          f"{STEP_TIES} a row): {ties or 'none'}; staged bytes a decode step"
+          f" a rank {[round(b) for b in per_step]}; tokens[:, :8] "
+          f"{row['tokens_head']}; {gpu}", flush=True)
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return row
 
 
 def _close(a, b, rtol, atol):
@@ -5584,18 +6115,22 @@ def phase_mesh_steps(dev, gpu, recs):
     mamba2-370m whole training, (c) qwen3-14b serving, teacher-forced,
     (d) the records ``recs`` of the dry-run cells (:func:`start_dryruns`),
     (e) yi-9b training (2 of 48 layers), (f) qwen3-moe serving with its
-    experts split over "model" and (g) mixtral serving at batch 1 with its
-    KV sequence split over "data" (2 layers each; both teacher-forced by
-    the one-rank runs, made here first).  No kernel launches: the
-    counters, zeroed on every rank, must read 0.  Returns the rows."""
+    experts split over "model", (g) mixtral serving at batch 1 with its
+    KV sequence split over "data" (2 layers each) and (h) zamba2 serving
+    (one 6-layer group) with the SSD's heads split over "model" (all
+    three teacher-forced by the one-rank runs, made here first), (i)
+    whisper-large-v3 (2 + 2 layers) on a (1, 8) mesh of 8 ranks, which
+    does not divide its 20 heads: a float32 train step held to the
+    one-rank step, and bf16 serving teacher-forced.  No kernel launches:
+    the counters, zeroed on every rank, must read 0.  Returns the rows."""
     from repro_torch.distributed import launch
     from repro_torch.launch import dryrun
 
     kernels.reset_counts()
     t0 = time.perf_counter()
-    refs = served_refs(dev, STEP_SIZES)
+    refs, ssd_logits = served_refs(dev, STEP_SIZES)
     refs_s = time.perf_counter() - t0
-    print(f"[mesh-steps] (f), (g) one-rank runs in {refs_s:.1f} s; this "
+    print(f"[mesh-steps] (f)-(h) one-rank runs in {refs_s:.1f} s; this "
           f"process after them: {_card_memory(dev)}", flush=True)
     t0 = time.perf_counter()
     ranks = launch.spawn(_mesh_step_rank, STEP_RANKS,
@@ -5606,8 +6141,15 @@ def phase_mesh_steps(dev, gpu, recs):
     served = launch.spawn(_served_rank, STEP_RANKS, timeout_s=STEP_TIMEOUT_S,
                           args=(str(dev), STEP_SIZES, refs))
     served_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uneven_ref = uneven_refs(dev, STEP_SIZES)
+    uneven = launch.spawn(_uneven_rank, math.prod(STEP_UNEVEN_MESH),
+                          timeout_s=STEP_TIMEOUT_S,
+                          args=(str(dev), STEP_SIZES, uneven_ref))
+    uneven_s = time.perf_counter() - t0
     rows = {"ranks": STEP_RANKS, "mesh": [2, 2], "sizes": dict(STEP_SIZES),
             "launch_s": spawn_s, "served_launch_s": served_s,
+            "uneven_launch_s": uneven_s,
             "one_rank_refs_s": refs_s, "gpu": gpu}
 
     # (a) the card against the CPU
@@ -5617,7 +6159,7 @@ def phase_mesh_steps(dev, gpu, recs):
         if not np.array_equal(card["tokens"], cpu["tokens"]):
             raise AssertionError(f"mesh steps (a) rank {r}: tokens differ "
                                  f"on the card and the CPU")
-        for arch in ("yi-9b", "qwen3-moe-235b-a22b"):
+        for arch, _, _ in STEP_SMOKE_TRAIN:
             for m_d, m_c in zip(card[arch]["metrics"], cpu[arch]["metrics"]):
                 for key in ("loss", "gnorm"):
                     rel = abs(m_d[key] - m_c[key]) / abs(m_c[key])
@@ -5638,8 +6180,8 @@ def phase_mesh_steps(dev, gpu, recs):
     tokens = ranks[0]["smoke"][str(dev)]["tokens"]
     print(f"[mesh-steps] (a) (2, 2) mesh of {STEP_RANKS} ranks, "
           f"tensor-parallel on \"model\", card == CPU:"
-          f" yi-9b smoke 2 train steps (accum 2) and qwen3-moe smoke (FSDP, "
-          f"remat, accum 2) losses / gnorms within rtol "
+          f" yi-9b smoke 2 train steps (accum 2), qwen3-moe and zamba2 smoke "
+          f"(FSDP, remat, accum 2) losses / gnorms within rtol "
           f"{worst['loss']:.3g} (tol {STEP_TOL}), params max abs err "
           f"{worst['params']:.3g} ({worst['flips']:.2e} of a leaf past "
           f"{STEP_PARAM_TOL}); prefill + 3 greedy steps tokens equal "
@@ -5743,9 +6285,14 @@ def phase_mesh_steps(dev, gpu, recs):
           f"{staged_dec}; prefill {row['staged_bytes_prefill']}); "
           f"tokens[:, :8] {row['tokens_head']}; {gpu}", flush=True)
 
-    # (f) the experts on "model", (g) the KV sequence on "data"
-    for part, label in (("ep_serve", "f"), ("long_serve", "g")):
-        rows[part] = _served_row(label, part, served, refs, gpu)
+    # (f) the experts on "model", (g) the KV sequence on "data", (h) the
+    # SSD's heads on "model"
+    for part, label in (("ep_serve", "f"), ("long_serve", "g"),
+                        ("ssd_serve", "h")):
+        rows[part] = _served_row(label, part, served, refs, gpu, ssd_logits)
+
+    # (i) attention heads that "model" does not divide
+    rows["uneven"] = _uneven_row(uneven, uneven_ref, gpu)
 
     # (d) the dry-run
     rows["dryrun"] = recs
@@ -5770,17 +6317,18 @@ def phase_mesh_steps(dev, gpu, recs):
 
     counts = kernels.counts()
     totals = {key: counts[key] + sum(r["counts"][key]
-                                     for r in ranks + served)
+                                     for r in ranks + served + uneven)
               for key in KERNELS}
     if any(totals.values()):
         raise AssertionError(f"mesh steps: a kernel launched: {totals}")
     rows["kernel_launches"] = totals
     rows["kernel_launches_by_rank"] = [[r["counts"][k] for k in KERNELS]
-                                       for r in ranks + served]
+                                       for r in ranks + served + uneven]
     print(f"[mesh-steps] launches of {', '.join(KERNELS)} over phase 19, by "
-          f"rank ((a)-(e), then (f), (g)): "
-          f"{rows['kernel_launches_by_rank']}; launches {spawn_s:.1f} s and "
-          f"{served_s:.1f} s", flush=True)
+          f"rank ((a)-(e), then (f)-(h), then (i)): "
+          f"{rows['kernel_launches_by_rank']}; launches {spawn_s:.1f} s, "
+          f"{served_s:.1f} s and {uneven_s:.1f} s (its one-rank run "
+          f"included)", flush=True)
     return rows
 
 

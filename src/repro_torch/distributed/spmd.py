@@ -33,14 +33,20 @@ more than one rank):
   tokens that every ``"model"`` rank holds alike (no all-to-all), and its
   (B, L, D) partial of the combine is summed over ``"model"`` as a
   row-parallel product's;
-* what JAX does not split there (the SSD's leaves, attention whose heads
-  the axis does not divide in train and prefill, a MoE whose experts or
-  ffn it does not divide) is computed whole on every ``"model"`` rank,
-  its leaves gathered whole (:meth:`_Leaf.full`), on inputs that are the
-  same on those ranks after the reductions.
+* the SSD (:mod:`repro_torch.models.ssm`) and attention whose heads the
+  axis does not divide compute a balanced range of heads a rank
+  (:func:`~repro_torch.models.common.head_range`), from the leaves whole
+  where the stored shards are not their columns
+  (:meth:`_Leaf.share`); the gated norm's sum of squares is totalled
+  over ``"model"`` and its grad summed there too
+  (:func:`~repro_torch.models.common.rms_norm_split`);
+* a MoE whose experts and ffn the axis does not divide is computed whole
+  on every ``"model"`` rank, its leaves gathered whole
+  (:meth:`_Leaf.full`), on inputs that are the same on those ranks after
+  the reductions.
   :attr:`MeshPlan.model_gathered` names the leaves gathered over
-  ``"model"``, and those of a layer computed whole there (a MoE whose
-  leaves stay whole on the axis:
+  ``"model"`` (shares included), and those of a layer computed whole
+  there (a MoE whose leaves stay whole on the axis:
   :func:`~repro_torch.models.common.computed_whole`).
 
 **Sequence parallelism at ``long_ctx``.**  A serving step of batch 1
@@ -76,9 +82,11 @@ same bits on those ranks.
 
 **Which grads are partial.**  A leaf used whole inside a split layer
 (``wk`` / ``wv`` where ``"model"`` does not divide the kv heads, the qk
-norms) gets on each rank its share of the grad, summed over ``"model"``
-(:meth:`_Leaf.share`); a leaf used outside one (the norms, the SSD, the
-MoE router) gets the whole grad on each rank, averaged
+norms, ``wq`` / ``wo`` where it does not divide the heads, the SSD's
+``in_proj``, conv and (H,) leaves, B and C's columns included) gets on
+each rank its share of the grad, summed over ``"model"``
+(:meth:`_Leaf.share`); a leaf used outside one (the norms, the MoE
+router) gets the whole grad on each rank, averaged
 (:meth:`_Leaf.full`).  So the MoE's router, its softmax, top-k and
 load-balancing ``aux`` run outside the expert-parallel region, alike on
 every ``"model"`` rank (inside it the router's grad would be summed m
@@ -94,12 +102,13 @@ the data axes (:meth:`MeshPlan.data_mean`).
   same mean in its backward.
 * :meth:`MeshPlan.view` is a batch or cache input as this rank computes
   it (its rows, every other dim whole but the axes kept: the KV caches
-  stay split on ``"model"``, and at ``long_ctx`` on their sequence over
-  ``"data"``), from a DTensor at the input's spec
-  (gathered over the storage axes) or from a whole tensor every rank
-  holds (sliced); :meth:`MeshPlan.place` makes an output of it a DTensor
-  at its spec.  :func:`repro_torch.distributed.sharding.put_tree` places
-  the parameters and moments.
+  and the SSM state's heads stay split on ``"model"``, and at
+  ``long_ctx`` the KV caches on their sequence over ``"data"``), from a
+  DTensor at the input's spec (gathered over the storage axes) or from a
+  whole tensor every rank holds (sliced); :meth:`MeshPlan.place` makes
+  an output of it a DTensor at its spec.
+  :func:`repro_torch.distributed.sharding.put_tree` places the
+  parameters and moments.
 
 Every collective goes through :mod:`repro_torch.distributed.collective`
 (staged through pinned host memory on gloo with CUDA tensors, counted by
@@ -236,6 +245,24 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.to(ctx.dtype), None, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Every ``"model"`` rank's ``x`` concatenated along ``dim``; the
+    backward reduce-scatters the grad (the sum of every rank's, this
+    rank's part), summed one precision up as :meth:`MeshPlan.model_sum`
+    sums."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        ctx.plan, ctx.dim = plan, dim
+        return plan._gather_dim(x, dim, TP_AXIS, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        wide = g.to(common.WIDER.get(g.dtype, g.dtype))
+        return (ctx.plan._scatter(wide, ctx.dim, TP_AXIS, "tp").to(g.dtype),
+                None, None)
 
 
 def _mm_wide(a, b):
@@ -504,6 +531,12 @@ class MeshPlan:
         ``widen``)."""
         return _ReduceFromModel.apply(x, self, x.dtype if dtype is None
                                       else dtype, widen)
+
+    def gather_from_model(self, x, dim: int):
+        """Every ``"model"`` rank's ``x`` concatenated along ``dim``, its
+        grad reduce-scattered back
+        (:func:`~repro_torch.models.common.gather_from_model`)."""
+        return _GatherFromModel.apply(x, self, dim)
 
     def row_product(self, h, w):
         """``h @ w`` (``h`` (B, L, F), ``w`` (F, D)): this rank's partial

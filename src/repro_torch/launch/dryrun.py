@@ -48,11 +48,12 @@ An ``"ok"`` record has JAX's keys where the meaning carries: ``arch``,
   ``output_size_in_bytes`` and ``generated_code_size_in_bytes`` have no
   counterpart (the step updates its arguments in place);
 * ``accum_steps`` is recorded, and so is ``model_gathered``: the paths of
-  the parameters rank 0's step still gathers whole over ``"model"`` (the
-  SSD's leaves, attention whose heads ``"model"`` does not divide, a
-  ``"kv_whole"`` layer's ``wk`` / ``wv``, a MoE's where ``"model"``
-  divides neither its experts nor their ffn), the work A.10d part 3
-  leaves.
+  the parameters rank 0's step gathers whole over ``"model"``: the
+  leaves a split layer reads whole, whose stored shards are not its
+  columns (the SSD's ``in_proj`` / ``conv_w`` / ``conv_b``, ``wq`` /
+  ``wo`` where ``"model"`` does not divide the heads, ``wk`` / ``wv``
+  where it does not divide the kv heads), and a MoE's where ``"model"``
+  divides neither its experts nor their ffn (computed whole).
 
 The roofline's constants are an H100 SXM's, not JAX's v5e ones.
 """

@@ -21,28 +21,26 @@ constants when it is called, so a test can make them small.  Functions are
 pure: a cache passed in is never written, the new cache is a new tensor.
 
 **Heads on ``"model"``.**  Within
-:func:`~repro_torch.models.common.tensor_parallel` (m ranks on
-``"model"``), as JAX's hints put the heads there (:func:`_layout`):
+:func:`~repro_torch.models.common.tensor_parallel` (m > 1 ranks on
+``"model"``), as JAX's hints put the heads there, each rank computes a
+balanced range of q heads in train and prefill
+(:func:`~.common.head_range`: the even split where m divides H; 40 heads
+over 16 ranks are 2 or 3 a rank, where GSPMD pads) and the kv heads they
+read (:func:`_kv_heads`), each q head's picked by index.  Their columns
+of ``wq`` / ``wk`` / ``wv`` (and biases) and rows of ``wo`` come by
+:func:`~.common.model_slice`: the rank's ``"model"`` shard where the
+range is that shard, else the leaf whole (:func:`~.common.model_share`:
+each rank's grad is its share), sliced, as where the stored shards split
+heads mid-head or m does not divide the kv heads.  ``wo``'s partial is
+summed over ``"model"`` before ``bo``.  Outside the block every rank
+computes everything, as on one device.
 
-* ``"heads"`` (m divides H and K): each rank projects its q and kv heads
-  with its column shards of ``wq`` / ``wk`` / ``wv`` (and biases), attends
-  over them and multiplies its rows of ``wo`` (row-parallel, summed over
-  ``"model"`` before ``bo``); the KV cache is split on its heads;
-* ``"kv_whole"`` (m divides H, not K): the rank's q heads as above; in
-  train and prefill the kv heads its q heads read are projected from
-  ``wk`` / ``wv`` gathered whole (:func:`~.common.model_share`: each
-  rank's grad is its share) and expanded to its groups only;
-* ``"whole"`` (m does not divide H): train and prefill compute every head
-  on every rank, the leaves gathered whole (A.10d part 3 queues uneven
-  splits).
-
-Where m does not divide K, the cache is split on ``d_head`` (JAX's
-``cache_specs``): prefill writes its ``d_head`` slice, and decode
-(:func:`_decode_dh`) projects its columns, gathers the (B, 1, ·) q / k / v
-over ``"model"``, contracts QK^T on its ``d_head`` slice, sums the
-logits over ``"model"``, and gathers o back before the row-parallel
-``wo``.  Outside the block every rank computes everything (the
-``"whole"`` layout), as on one device.
+Where m divides K, the KV cache is split on its heads.  Else it is split
+on ``d_head`` (JAX's ``cache_specs``): prefill projects every kv head and
+writes its ``d_head`` slice, and decode (:func:`_decode_dh`) projects its
+columns, gathers the (B, 1, ·) q / k / v over ``"model"``, contracts
+QK^T on its ``d_head`` slice, sums the logits over ``"model"``, and
+gathers o back before the row-parallel ``wo``.
 
 **The KV sequence on ``"data"``.**  Within
 :func:`~repro_torch.models.common.seq_parallel` (a batch-1 serving step
@@ -164,15 +162,6 @@ def _heads(x, n, dh):
     return x.reshape(*x.shape[:-1], n, dh)
 
 
-def _layout(cfg: AttnConfig) -> str:
-    """How the ``"model"`` ranks split the heads in train and prefill
-    (module docstring): ``"whole"``, ``"heads"`` or ``"kv_whole"``."""
-    m = common.model_size()
-    if m == 1 or cfg.n_heads % m:
-        return "whole"
-    return "heads" if cfg.n_kv % m == 0 else "kv_whole"
-
-
 def _dh_split(cfg: AttnConfig) -> bool:
     """Whether the cache is split on ``d_head`` over ``"model"`` (m does
     not divide the kv heads), as JAX's ``cache_specs``."""
@@ -187,14 +176,24 @@ def _dh_slice(cfg: AttnConfig) -> slice:
 
 
 def _kv_heads(cfg: AttnConfig, every: bool, device):
-    """``"kv_whole"``: the kv heads ``[lo, hi)`` a rank projects (those
-    its q heads read, or ``every`` one) and each of its q heads' index
-    among them."""
-    m, r = common.model_size(), common.model_rank()
-    hm, g = cfg.n_heads // m, cfg.n_heads // cfg.n_kv
-    lo, hi = (0, cfg.n_kv) if every else (r * hm // g,
-                                          ((r + 1) * hm - 1) // g + 1)
-    return lo, hi, torch.arange(r * hm, (r + 1) * hm, device=device) // g - lo
+    """The kv heads ``[lo, hi)`` a rank projects (those its q heads
+    ``common.head_range(n_heads)`` read, or ``every`` one) and each of its
+    q heads' index among them."""
+    lo_q, hi_q = common.head_range(cfg.n_heads)
+    g = cfg.n_heads // cfg.n_kv
+    lo, hi = (0, cfg.n_kv) if every else (lo_q // g, -(-hi_q // g))
+    return lo, hi, torch.arange(lo_q, hi_q, device=device) // g - lo
+
+
+def _cols(params, w: str, b: str, lo: int, hi: int, n: int, dh: int):
+    """The columns of heads ``[lo, hi)`` (of ``n``) of the weight ``w``
+    and the bias ``b`` (None where there is none), for this rank:
+    :func:`~.common.model_slice` (its ``"model"`` shard where they are
+    that shard)."""
+    bias = params.get(b)
+    return (common.model_slice(params[w], 1, lo * dh, hi * dh, n * dh),
+            None if bias is None
+            else common.model_slice(bias, 0, lo * dh, hi * dh, n * dh))
 
 
 def _norm_rope(params, cfg: AttnConfig, q, k, positions):
@@ -208,40 +207,24 @@ def _norm_rope(params, cfg: AttnConfig, q, k, positions):
     return q, k
 
 
-def _qkv(params, cfg: AttnConfig, x, kv_src, positions, layout="whole",
-         every_kv=False):
-    """Project to (q, k, v) with qk-norm and RoPE applied: every head
-    (``"whole"``, ``params`` whole) or this rank's q heads and its kv
-    heads (``x`` and ``kv_src`` already through
-    :func:`~.common.copy_to_model`; ``"kv_whole"``: the kv heads its q
-    heads read, or ``every_kv`` one)."""
+def _qkv(params, cfg: AttnConfig, x, kv_src, positions, every_kv=False):
+    """Project to (q, k, v) with qk-norm and RoPE applied: this rank's q
+    heads and the kv heads they read, or ``every_kv`` one (every head
+    outside :func:`~.common.tensor_parallel`; ``params``, ``x`` and
+    ``kv_src`` as :func:`_enter` gives them; the columns by
+    :func:`_cols`)."""
     H, K, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    if layout == "whole":
-        q = _heads(_proj(x, params["wq"], params.get("bq")), H, dh)
-        k = _heads(_proj(kv_src, params["wk"], params.get("bk")), K, dh)
-        v = _heads(_proj(kv_src, params["wv"], params.get("bv")), K, dh)
-        q, k = _norm_rope(params, cfg, q, k, positions)
-    else:
-        m = common.model_size()
-        part = {n: common.model_part(params[n])
-                for n in ("wq", "bq", "wk", "bk", "wv", "bv")
-                if params.get(n) is not None}
-        q = _heads(_proj(x, part["wq"], part.get("bq")), H // m, dh)
-        if layout == "heads":
-            kv = part
-            n_kv = K // m
-        else:  # the kv heads this rank's q heads read, from wk / wv whole
-            lo, hi, _ = _kv_heads(cfg, every_kv, x.device)
-            cols = slice(lo * dh, hi * dh)
-            kv = {n: common.model_share(params[n])[..., cols]
-                  for n in ("wk", "bk", "wv", "bv")
-                  if params.get(n) is not None}
-            n_kv = hi - lo
-        k = _heads(_proj(kv_src, kv["wk"], kv.get("bk")), n_kv, dh)
-        v = _heads(_proj(kv_src, kv["wv"], kv.get("bv")), n_kv, dh)
-        norms = {n: common.model_share(params[n])
-                 for n in ("q_norm", "k_norm") if n in params}
-        q, k = _norm_rope(norms, cfg, q, k, positions)
+    lo_q, hi_q = common.head_range(H)
+    lo, hi, _ = _kv_heads(cfg, every_kv, x.device)
+    q = _heads(_proj(x, *_cols(params, "wq", "bq", lo_q, hi_q, H, dh)),
+               hi_q - lo_q, dh)
+    k = _heads(_proj(kv_src, *_cols(params, "wk", "bk", lo, hi, K, dh)),
+               hi - lo, dh)
+    v = _heads(_proj(kv_src, *_cols(params, "wv", "bv", lo, hi, K, dh)),
+               hi - lo, dh)
+    norms = {n: common.model_share(params[n])
+             for n in ("q_norm", "k_norm") if n in params}
+    q, k = _norm_rope(norms, cfg, q, k, positions)
     q = shard(q, DATA, None, "model", None)
     k = shard(k, DATA, None, "model" if K > 1 else None, None)
     v = shard(v, DATA, None, "model" if K > 1 else None, None)
@@ -390,38 +373,48 @@ def _expand_kv(k, v, n_heads: int):
     return k, v
 
 
-def _expand(k, v, cfg: AttnConfig, layout: str, every_kv=False):
-    """k / v at one kv head a q head of this rank: :func:`_expand_kv`, or
-    (``"kv_whole"``) its q heads' kv heads picked from those
-    :func:`_qkv` projected."""
-    if layout == "whole":
-        return _expand_kv(k, v, cfg.n_heads)
-    if layout == "heads":
-        return _expand_kv(k, v, cfg.n_heads // common.model_size())
-    idx = _kv_heads(cfg, every_kv, k.device)[2]
+def _expand(k, v, cfg: AttnConfig, every_kv=False):
+    """k / v at one kv head a q head of this rank: where its q heads are
+    whole groups of the kv heads :func:`_qkv` projected,
+    :func:`_expand_kv` (its backward a sum, not a scatter-add: no
+    atomics on the card), else its q heads' kv heads picked by index."""
+    lo, hi, idx = _kv_heads(cfg, every_kv, k.device)
+    lo_q, hi_q = common.head_range(cfg.n_heads)
+    g = cfg.n_heads // cfg.n_kv
+    if not every_kv and (lo_q, hi_q) == (lo * g, hi * g):
+        return _expand_kv(k, v, hi_q - lo_q)
     k = shard(k.index_select(2, idx), DATA, None, "model", None)
     v = shard(v.index_select(2, idx), DATA, None, "model", None)
     return k, v
 
 
-def _enter(params, layout: str, x, kv_src):
+def _enter(params, cfg: AttnConfig, x, kv_src):
     """``(params, x, kv_src)`` as :func:`_qkv` takes them: ``params``
-    gathered whole (``"whole"``) or the inputs entering the split layer."""
-    if layout == "whole":
+    gathered whole on one ``"model"`` rank, else the inputs entering the
+    split layer (m ranks split H heads: m <= H)."""
+    m = common.model_size()
+    if m == 1:
         return common.gathered(params), x, kv_src
+    if m > cfg.n_heads:
+        raise ValueError(f"\"model\" of {m} splits {cfg.n_heads} heads")
     xc = None if x is None else common.copy_to_model(x)
     return params, xc, xc if kv_src is x else common.copy_to_model(kv_src)
 
 
-def _out(params, o, B, L, layout="whole"):
-    """The output projection of ``o`` (this rank's rows of it outside
-    ``"whole"``: summed over ``"model"`` before ``bo``)."""
+def _wo(params, cfg: AttnConfig):
+    """This rank's rows of ``wo``: those of its q heads
+    (:func:`~.common.head_range`, by :func:`~.common.model_slice`)."""
+    lo, hi = common.head_range(cfg.n_heads)
+    return common.model_slice(params["wo"], 0, lo * cfg.d_head,
+                              hi * cfg.d_head, cfg.n_heads * cfg.d_head)
+
+
+def _out(params, o, B, L, wo):
+    """The output projection of ``o`` by ``wo``, this rank's rows of
+    ``params["wo"]`` (its partial summed over ``"model"`` before
+    ``bo``; the whole ``wo`` outside :func:`~.common.tensor_parallel`)."""
     o = o.reshape(B, L, -1)
-    if layout == "whole":
-        y = torch.einsum("blf,fd->bld", o, params["wo"])
-    else:
-        y = common.reduce_from_model(
-            common.row_product(o, common.model_part(params["wo"])), o.dtype)
+    y = common.reduce_from_model(common.row_product(o, wo), o.dtype)
     if params.get("bo") is not None:
         y = y + common.gathered(params["bo"])
     return y
@@ -436,13 +429,12 @@ def fwd_train(params, cfg: AttnConfig, x, kv_src=None, positions=None):
     kv_src = x if kv_src is None else kv_src
     if positions is None:
         positions = torch.arange(L, device=x.device)[None, :]
-    layout = _layout(cfg)
-    params, x, kv_src = _enter(params, layout, x, kv_src)
-    q, k, v = _qkv(params, cfg, x, kv_src, positions, layout)
-    k, v = _expand(k, v, cfg, layout)
+    params, x, kv_src = _enter(params, cfg, x, kv_src)
+    q, k, v = _qkv(params, cfg, x, kv_src, positions)
+    k, v = _expand(k, v, cfg)
     o = attend(q, k, v, causal=cfg.causal and not cfg.cross, window=cfg.window,
                q_offset=_zeros_b(B, x.device))
-    return shard(_out(params, o, B, L, layout), DATA, None, None)
+    return shard(_out(params, o, B, L, _wo(params, cfg)), DATA, None, None)
 
 
 def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
@@ -450,14 +442,13 @@ def fwd_prefill(params, cfg: AttnConfig, x, cache: KVCache, positions=None):
     B, L, _ = x.shape
     if positions is None:
         positions = torch.arange(L, device=x.device)[None, :]
-    layout = _layout(cfg)
     dh_split = _dh_split(cfg)
-    params, xc, _ = _enter(params, layout, x, x)
-    q, k, v = _qkv(params, cfg, xc, xc, positions, layout, every_kv=dh_split)
-    ke, ve = _expand(k, v, cfg, layout, every_kv=dh_split)
+    params, xc, _ = _enter(params, cfg, x, x)
+    q, k, v = _qkv(params, cfg, xc, xc, positions, every_kv=dh_split)
+    ke, ve = _expand(k, v, cfg, every_kv=dh_split)
     o = attend(q, ke, ve, causal=True, window=cfg.window,
                q_offset=_zeros_b(B, x.device))
-    y = _out(params, o, B, L, layout)
+    y = _out(params, o, B, L, _wo(params, cfg))
     if dh_split:  # the cache holds this rank's d_head slice of every head
         k, v = k[..., _dh_slice(cfg)], v[..., _dh_slice(cfg)]
     sp = common.seq_split()
@@ -581,7 +572,7 @@ def _out_dh(params, o, B, L):
     o = common.gather_model(o, -1).reshape(B, L, -1)
     n = o.shape[-1] // common.model_size()
     rows = o[..., common.model_rank() * n:(common.model_rank() + 1) * n]
-    return _out(params, rows, B, L, "heads")
+    return _out(params, rows, B, L, common.model_part(params["wo"]))
 
 
 def _decode_dh(params, cfg: AttnConfig, x, cache: KVCache):
@@ -611,13 +602,12 @@ def fwd_decode(params, cfg: AttnConfig, x, cache: KVCache):
         return _decode_dh(params, cfg, x, cache)
     B = x.shape[0]
     pos = cache.length[:, None]  # (B, 1)
-    layout = _layout(cfg)
-    params, xc, _ = _enter(params, layout, x, x)
-    q, k, v = _qkv(params, cfg, xc, xc, pos, layout)
+    params, xc, _ = _enter(params, cfg, x, x)
+    q, k, v = _qkv(params, cfg, xc, xc, pos)
     newk, newv = _write(cfg, cache, k, v)
     o = _attend_cache(cfg, q, newk, newv, cache)
-    return _out(params, o, B, 1, layout), KVCache(newk, newv,
-                                                  cache.length + 1)
+    return _out(params, o, B, 1, _wo(params, cfg)), KVCache(
+        newk, newv, cache.length + 1)
 
 
 def fwd_cross_decode(params, cfg: AttnConfig, x, enc_k, enc_v, enc_len=None,
@@ -638,35 +628,31 @@ def fwd_cross_decode(params, cfg: AttnConfig, x, enc_k, enc_v, enc_len=None,
                    window=0, q_offset=_zeros_b(B, x.device), kv_len=enc_len,
                    d_head=dh, reduce_logits=_sum_logits)
         return _out_dh(params, o, B, Lq)
-    if dh_cache:  # a prompt: the heads whole
-        enc_k = common.gather_model(enc_k, -1)
-        enc_v = common.gather_model(enc_v, -1)
-    layout = _layout(cfg)
-    params, xc, _ = _enter(params, layout, x, x)
-    if layout == "whole":
-        q = _heads(_proj(xc, params["wq"], params.get("bq")), H, dh)
-    else:
-        bq = params.get("bq")
-        q = _heads(_proj(xc, common.model_part(params["wq"]),
-                         None if bq is None else common.model_part(bq)),
-                   H // common.model_size(), dh)
+    if dh_cache:  # a prompt: the heads whole, then the rank's kv heads
+        lo, hi, _ = _kv_heads(cfg, False, x.device)
+        enc_k = common.gather_model(enc_k, -1)[:, :, lo:hi]
+        enc_v = common.gather_model(enc_v, -1)[:, :, lo:hi]
+    params, xc, _ = _enter(params, cfg, x, x)
+    lo_q, hi_q = common.head_range(H)
+    q = _heads(_proj(xc, *_cols(params, "wq", "bq", lo_q, hi_q, H, dh)),
+               hi_q - lo_q, dh)
     if cfg.qk_norm:
         q = common.rms_norm(q, common.model_share(params["q_norm"]))
+    enc_k, enc_v = _expand(enc_k, enc_v, cfg)
     o = attend(q, enc_k, enc_v, causal=False, window=0,
                q_offset=_zeros_b(B, x.device), kv_len=enc_len)
-    return _out(params, o, B, Lq, layout)
+    return _out(params, o, B, Lq, _wo(params, cfg))
 
 
 def cross_kv(params, cfg: AttnConfig, enc_out):
-    """Precompute cross-attention K/V from encoder output (this rank's
-    heads where ``"model"`` splits them)."""
+    """Precompute cross-attention K/V from encoder output (where
+    ``"model"`` splits the heads: the kv heads this rank's q heads read,
+    :func:`_kv_heads`)."""
     K, dh = cfg.n_kv, cfg.d_head
-    layout = _layout(cfg)
-    params, _, enc_out = _enter(params, layout, None, enc_out)
-    if layout != "whole":
-        K //= common.model_size()
-        params = {n: common.model_part(params[n])
-                  for n in ("wk", "bk", "wv", "bv") if n in params}
-    k = _heads(_proj(enc_out, params["wk"], params.get("bk")), K, dh)
-    v = _heads(_proj(enc_out, params["wv"], params.get("bv")), K, dh)
+    params, _, enc_out = _enter(params, cfg, None, enc_out)
+    lo, hi, _ = _kv_heads(cfg, False, enc_out.device)
+    k = _heads(_proj(enc_out, *_cols(params, "wk", "bk", lo, hi, K, dh)),
+               hi - lo, dh)
+    v = _heads(_proj(enc_out, *_cols(params, "wv", "bv", lo, hi, K, dh)),
+               hi - lo, dh)
     return k, v

@@ -36,8 +36,13 @@ layers compute their part of the heads, the ffn and the vocab, as
 Megatron splits them: :func:`model_part` is a leaf's ``"model"`` shard
 (the weight of a column- or row-parallel product), :func:`model_share` a
 leaf used whole inside such a layer (its grad is each rank's share),
-:func:`copy_to_model` / :func:`reduce_from_model` bracket the split
-computation, :func:`row_product` is a row-parallel partial,
+:func:`head_range` a rank's balanced range of heads and
+:func:`model_slice` a leaf's slice for it, :func:`copy_to_model` /
+:func:`reduce_from_model` bracket the split computation
+(:func:`rms_norm_split` totals the SSD's gated norm's statistic by the
+two in turn), :func:`gather_from_model` gathers a split activation that every
+rank reads whole (the SSD's B and C), :func:`row_product` is a
+row-parallel partial,
 :func:`gather_model` moves a serving step's small tensors between splits,
 and :func:`vocab_lookup` / :func:`vocab_nll` work on a vocab split over
 ``"model"`` (the serving steps take its greedy tokens by
@@ -72,6 +77,7 @@ __all__ = [
     "DATA",
     "WIDER",
     "rms_norm",
+    "rms_norm_split",
     "layer_norm",
     "rope",
     "apply_rope",
@@ -96,7 +102,10 @@ __all__ = [
     "model_rank",
     "model_part",
     "model_share",
+    "head_range",
+    "model_slice",
     "copy_to_model",
+    "gather_from_model",
     "reduce_from_model",
     "row_product",
     "gather_model",
@@ -280,6 +289,27 @@ def model_share(leaf):
     return leaf.share() if isinstance(leaf, ShardedLeaf) else leaf
 
 
+def head_range(n: int) -> tuple[int, int]:
+    """This rank's balanced range ``[lo, hi)`` of ``n`` heads over
+    ``"model"``: rank r of m takes ``[floor(r n / m), floor((r + 1) n /
+    m))`` (the even split where m divides ``n``; ``(0, n)`` outside
+    :func:`tensor_parallel`)."""
+    m, r = model_size(), model_rank()
+    return r * n // m, (r + 1) * n // m
+
+
+def model_slice(leaf, dim: int, lo: int, hi: int, n: int):
+    """``[lo, hi)`` along ``dim`` (of ``n``) of ``leaf``, a leaf whose
+    ``dim`` the specs split on ``"model"``, for this rank's part of a
+    split layer: its ``"model"`` shard where the range is that shard (m
+    divides ``n`` and the range is the even one), else the leaf whole
+    through :func:`model_share` (each rank's grad its share), sliced."""
+    m, r = model_size(), model_rank()
+    if n % m == 0 and (lo, hi) == (r * n // m, (r + 1) * n // m):
+        return model_part(leaf)
+    return model_share(leaf).narrow(dim, lo, hi - lo)
+
+
 def copy_to_model(x):
     """``x`` entering a split layer (its grad summed over ``"model"``)."""
     tp = _tp()
@@ -294,6 +324,14 @@ def reduce_from_model(x, dtype=None, widen: bool = True):
     if tp is None:
         return x if dtype is None else x.to(dtype)
     return tp.reduce_from_model(x, dtype, widen)
+
+
+def gather_from_model(x, dim: int):
+    """Every ``"model"`` rank's ``x`` concatenated along ``dim``, its grad
+    reduce-scattered back (each rank's part of the sum: every rank's work
+    reads the whole; outside: ``x``)."""
+    tp = _tp()
+    return x if tp is None else tp.gather_from_model(x, dim)
 
 
 def row_product(h, w):
@@ -358,6 +396,25 @@ def rms_norm(x, w, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+def rms_norm_split(x, w, width: int, eps: float = 1e-6):
+    """:func:`rms_norm` over a vector of ``width`` of which ``x`` (and
+    ``w``) is this rank's slice within :func:`tensor_parallel`: the mean
+    of squares divides the slices' sums, totalled over ``"model"``, by
+    the whole ``width``; the same float32 arithmetic and ``eps``.  Each
+    rank normalises its own slice by the total, so the total's grad is
+    summed over ``"model"`` too (:func:`copy_to_model` after
+    :func:`reduce_from_model`, whose backward alone passes it through).
+    Outside: :func:`rms_norm` (``x`` is the whole vector)."""
+    if _tp() is None:
+        return rms_norm(x, w, eps)
+    dt = x.dtype
+    x = x.float()
+    ss = copy_to_model(reduce_from_model(torch.sum(x * x, dim=-1,
+                                                   keepdim=True)))
+    x = x * torch.rsqrt(ss / width + eps)
     return (x * w).to(dt)
 
 

@@ -23,8 +23,8 @@ SwiGLU MLP compute their part of the heads and the ffn
 (:mod:`.attention`, :mod:`.mlp`), the MoE layer its experts or its
 experts' ffn (:mod:`.moe`), the embedding, the head and the loss their
 part of the vocab (``embed`` split on its rows, ``lm_head`` on its
-columns, the tied head ``embed``'s rows); the SSD computes whole on its
-leaves gathered whole.
+columns, the tied head ``embed``'s rows), the SSD its heads
+(:mod:`.ssm`; its leaves reach it ungathered).
 Parameters are a :class:`~repro_torch.models.common.ParamTree` (or the
 nested dict it holds) at JAX's paths, so
 ``convert.model_params_from_jax_numpy`` is a copy by path.
@@ -133,9 +133,10 @@ class LMCache(NamedTuple):
     kv: Any  # KVCache with leading layer dim, or None
     ssm: Any  # SSMState with leading layer dims, or None
 
-    # The fields the tensor-parallel layers keep split on "model" as
-    # cache_specs splits them (heads or d_head); the SSM state is gathered.
-    MODEL_SPLIT = ("kv",)
+    # The fields (or "field.sub-field"s) the tensor-parallel layers keep
+    # split on "model" as cache_specs splits them: the KV caches (heads or
+    # d_head) and the SSM state's heads; its conv tail and pos stay whole.
+    MODEL_SPLIT = ("kv", "ssm.ssm")
 
 
 class LM:
@@ -252,12 +253,12 @@ class LM:
 
     def _ssm_block(self, p, x, mode, state=None):
         cfg = self.cfg
-        p = common.gathered(p)
-        h = common.rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = common.rms_norm(x, common.gathered(p["ln1"]), cfg.norm_eps)
         if mode == "decode":
             y, state = ssm_lib.fwd_decode(p["ssm"], cfg.ssm, h, state)
         else:
-            y, state = ssm_lib.fwd_train(p["ssm"], cfg.ssm, h, state)
+            y, state = ssm_lib.fwd_train(p["ssm"], cfg.ssm, h, state,
+                                         with_state=mode != "train")
         return x + y, state
 
     def _embed(self, p, tokens):

@@ -305,14 +305,22 @@ def _argmax(logits):
 
 def _model_split(cache) -> list[bool]:
     """Per leaf of ``cache``, whether the serving step keeps it at its
-    ``"model"`` split: the leaves of the fields that its type names in
-    ``MODEL_SPLIT`` (the attention caches)."""
+    ``"model"`` split: the leaves of the fields, or ``"field.sub-field"``s
+    of a field that is itself a NamedTuple, that its type names in
+    ``MODEL_SPLIT`` (the attention caches, the SSM state's heads)."""
     split = type(cache).MODEL_SPLIT
-    unknown = set(split) - set(cache._fields)
+    unknown = {s for s in split if s.split(".")[0] not in cache._fields}
     if unknown:
         raise ValueError(f"{type(cache).__name__} has no field {unknown}")
-    return [f in split for f in cache._fields
-            for _ in tree_lib.leaves(getattr(cache, f))]
+    out = []
+    for f in cache._fields:
+        node = getattr(cache, f)
+        if f in split or not hasattr(node, "_fields"):
+            out += [f in split] * len(tree_lib.leaves(node))
+        else:
+            out += [f"{f}.{g}" in split for g in node._fields
+                    for _ in tree_lib.leaves(getattr(node, g))]
+    return out
 
 
 def _mesh_serve_step(model, plan, method, in_specs, out_specs,

@@ -67,25 +67,8 @@ LONG = [(m, name) for name, c in torch_ranks.LONG_CASES.items()
         for m in c["meshes"]]
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_inputs(arch):
-    """JAX's parameters and batch of ``arch`` as ``parity.jax_side`` makes
-    them (without its steps, so that the ranks can start first)."""
-    import jax
-
-    import repro.configs as j_cfgs
-    from repro.models import build as j_build
-
-    cfg = j_cfgs.get_smoke(arch)
-    batch = parity._batch(cfg, np.random.default_rng(len(arch)),
-                          2 * parity.B)
-    with parity._mesh():
-        params = parity._np_tree(j_build(cfg).init(jax.random.PRNGKey(0)))
-    return params, batch
-
-
 def _moe_serve_case(arch, rows):
-    params, batch = _jax_inputs(arch)
+    params, batch = parity.jax_inputs(arch)
     return dict(arch=arch, params=params, meshes=MESHES,
                 tokens=batch["tokens"][:rows, :torch_ranks.EP_PROMPT],
                 length=torch_ranks.EP_LEN, decode=torch_ranks.EP_DECODE)
@@ -103,7 +86,7 @@ def _long_case(name):
 def _cases() -> dict:
     train = {}
     for arch, accum in TRAIN:
-        params, batch = _jax_inputs(arch)
+        params, batch = parity.jax_inputs(arch)
         train[arch, accum] = dict(arch=arch, params=params, accum=accum,
                                   batch=parity._rows(batch, accum * parity.B),
                                   steps=1)
@@ -180,7 +163,7 @@ def test_ep_jax_inputs_are_jax_sides():
     (made here without its steps, so that the spawn runs beside them)."""
     _spawned()
     for arch in ARCHS:
-        params, batch = _jax_inputs(arch)
+        params, batch = parity.jax_inputs(arch)
         want = parity.jax_side(arch)
         for a, b in zip(tree.leaves(params), tree.leaves(want["params"]),
                         strict=True):

@@ -21,10 +21,11 @@ steps and the port's one-process steps.
 * A prefill and three greedy decode steps: tokens equal to JAX's and the
   one-process steps'.  On (1, 4) yi-9b smoke has 2 kv heads over 4 ranks
   (the cache split on ``d_head``, decode contracting QK^T on a slice)
-  and command-r smoke 6 heads over 4 (train and prefill compute the
-  heads whole); whisper's cross-attention caches follow its heads, and
-  a 6-head whisper smoke (the port's parameters, held to one process)
-  splits its self and cross caches on ``d_head``.
+  and command-r smoke 6 heads over 4 (train and prefill compute a
+  balanced 1 or 2 heads a rank: ``tests/test_torch_ssd_parallel.py``);
+  whisper's cross-attention caches follow its heads, and a 6-head whisper
+  smoke (the port's parameters, held to one process) splits its self and
+  cross caches on ``d_head``.
 * The vocab-parallel helpers: the NLL and its grad equal
   ``models.transformer._nll``'s on the gathered logits within 1e-6, the
   argmax ``torch.argmax``'s with ties across a shard boundary.

@@ -660,10 +660,13 @@ def step_variant(arch: str, variant: str):
 
 def case_cfg(case: dict):
     """:func:`step_variant` of a case (``variant`` "smoke" by default),
-    with its ``n_kv`` / ``n_experts`` overrides, where set."""
+    with its ``n_heads`` / ``n_kv`` / ``n_experts`` overrides, where
+    set."""
     import dataclasses
 
     cfg = step_variant(case["arch"], case.get("variant", "smoke"))
+    if case.get("n_heads"):
+        cfg = dataclasses.replace(cfg, n_heads=case["n_heads"])
     if case.get("n_kv"):
         cfg = dataclasses.replace(cfg, n_kv=case["n_kv"])
     if case.get("n_experts"):
@@ -916,8 +919,8 @@ def dryrun_real_body(rank, world):
 TP_MESHES = ((2, 2), (1, 4))  # ("data", "model")
 TP_TRAIN_ARCHS = ("yi-9b", "whisper-large-v3")
 # yi-9b smoke on (1, 4): kv 2 < 4, the d_head-split cache; command-r smoke:
-# 6 heads over 4, the heads computed whole in train and prefill; whisper
-# smoke with 6 heads (the port's own parameters, held to one process):
+# 6 heads over 4, 1 or 2 a rank in train and prefill; whisper smoke with 6
+# heads (the port's own parameters, held to one process):
 # the self and cross caches split on d_head, the prompt's cross attention
 # on the gathered heads.
 WHISPER_6H = "whisper-large-v3/6-heads"
@@ -1216,5 +1219,195 @@ def ep_body(rank, world, cases):
             res["whole"] = train_case(cases["whole"], mesh)
             res["flops"] = {arch: tp_matmul_flops(c, mesh)
                             for arch, c in cases["flops"].items()}
+        out[shape] = res
+    return out
+
+
+# -- the SSD's heads and uneven attention heads on "model" (A.10d part 3) -----
+
+SSD_MESHES = ((2, 2), (1, 4))  # ("data", "model")
+SSD_ARCHS = ("mamba2-370m", "zamba2-2.7b")  # H = 8 heads of the SSD
+# qwen3 smoke with 6 heads (2 kv heads): 4 ranks on "model" divide neither,
+# qwen3-14b's case (40 heads, 8 kv) at the production "model" of 16.
+UNEVEN = "qwen3-14b/6-heads"
+UNEVEN_CASE = dict(arch="qwen3-14b", n_heads=6)
+UNEVEN_FLOPS_ARCH = "command-r-plus-104b"  # 6 heads over 4 as it is
+
+
+def _ssd_leaves(grads) -> dict:
+    """The SSD's leaves of a grad tree (numpy, stacked over the layers)."""
+    return {k: np.asarray(v) for k, v in grads["blocks"]["ssm"].items()}
+
+
+def ssd_grads(case: dict, mesh=None) -> dict:
+    """The SSD's grads (before clipping, whole) of a case's accumulated
+    step, on ``mesh`` (each local grad gathered whole) or in one
+    process."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding, spmd
+    from repro_torch.models import build, common
+    from repro_torch.training import steps
+
+    cfg = case_cfg(case)
+    model = build(cfg, "cpu")
+    params = step_params(cfg, case.get("params"))
+    batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
+    A = case["accum"]
+    if mesh is None:
+        return _ssd_leaves(steps.loss_and_grads(model, params, batch, A)[2])
+    plan = spmd.MeshPlan(mesh)
+    with common.axis_env(mesh):
+        pspecs = model.param_specs()
+    placed = sharding.put_tree(params, pspecs, mesh, "cpu")
+    specs = tree.prefix_leaves(placed, pspecs)
+    batch_spec = {k: ("data", None) for k in batch}
+    grads = steps._mesh_loss_and_grads(model, plan, placed, specs, batch,
+                                       batch_spec, A)[2]
+    whole = [plan.gather(g, plan.dim_axes(s, g.ndim))
+             for g, s in zip(grads, specs)]
+    return _ssd_leaves(tree.unflatten_like(common.as_tree(params), whole))
+
+
+def ssd_serve(case: dict, mesh=None) -> dict:
+    """:func:`tp_serve`'s prefill and greedy steps of ``case_cfg(case)``,
+    with the SSM state after each step (None without one): ``ssm`` and
+    ``conv`` (on a mesh: (spec, this rank's shard)); on a mesh also the
+    bytes the decode steps' collectives took and the leaves gathered over
+    "model"."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.models import build
+    from repro_torch.training import build_for_cell
+
+    cfg = case_cfg(case)
+    model = build(cfg, "cpu")
+    params = step_params(cfg, case["params"])
+    toks = torch.tensor(case["tokens"])
+    rows, prompt = toks.shape
+    length = prompt + case["decode"]
+    prefill = build_for_cell(model, mesh, configs.ShapeCell(
+        "p", "prefill", prompt, rows))[0]
+    decode = build_for_cell(model, mesh, configs.ShapeCell(
+        "d", "decode", length, rows))[0]
+
+    def state(c):
+        if c.ssm is None:
+            return None
+        if mesh is None:
+            return {f: getattr(c.ssm, f).numpy() for f in ("ssm", "conv")}
+        return {f: (sharding._spec_of(getattr(c.ssm, f)),
+                    getattr(c.ssm, f).to_local().numpy())
+                for f in ("ssm", "conv")}
+
+    tok, cache = prefill(params, toks, model.init_cache(rows, length))
+    out, states = [tok], [state(cache)]
+    for _ in range(case["decode"]):
+        tok, cache = decode(params, tok, cache)
+        out.append(tok)
+        states.append(state(cache))
+    res = {"tokens": torch.stack([sharding.full_tensor(t) for t in out],
+                                 1).numpy(), "states": states}
+    if mesh is not None:
+        res.update(sent_decode=dict(decode.plan.sent),
+                   gathered=sorted(prefill.plan.model_gathered
+                                   | decode.plan.model_gathered),
+                   decode_gathered=sorted(decode.plan.model_gathered),
+                   sizes=dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+                   coord=dict(zip(mesh.mesh_dim_names,
+                                  mesh.get_coordinate())))
+    return res
+
+
+def ssd_flops(case: dict, mesh=None, rows: int = 2, seed: int = 3) -> int:
+    """The matrix-product flops of the SSD of layer 0 of ``case``'s model,
+    forward and backward (the grad of the sum of squares of its output
+    on (rows, 32) inputs from ``seed``, the grads of the input and of
+    every leaf), on this rank of ``mesh`` (its leaves placed at their
+    specs, within ``tensor_parallel``) or in one process."""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding, spmd
+    from repro_torch.models import build, common, ssm
+
+    cfg = case_cfg(case)
+    model = build(cfg, "cpu")
+    params = common.as_tree(step_params(cfg, case.get("params")))
+    x = torch.randn((rows, STEP_L, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed))
+    x.requires_grad_(True)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in
+              common.tree_index(params["blocks"]["ssm"], 0).items()}
+    plan = None
+    if mesh is not None:
+        plan = spmd.MeshPlan(mesh)
+        with common.axis_env(mesh):
+            specs = model.param_specs()["blocks"]["ssm"]
+        placed = sharding.put_tree(params["blocks"]["ssm"], specs, mesh,
+                                   "cpu")
+        names, flat = tree.leaves_with_names(placed)
+        leaves = common.tree_index(tree.unflatten_like(placed, [
+            plan.leaf(p, s, n) for p, s, n in zip(
+                flat, tree.prefix_leaves(placed, specs), names)]), 0)
+        for leaf in tree.leaves(placed):
+            spmd.local(leaf).requires_grad_(True)
+    with MatmulFlops() as counted, common.tensor_parallel(
+            None if plan is None else plan.tp):
+        out = ssm.fwd_train(leaves, cfg.ssm, x, with_state=False)[0]
+        (out.float() ** 2).sum().backward()
+    return counted.flops
+
+
+def gather_from_model_case(mesh, width: int = 8) -> dict:
+    """``common.gather_from_model`` of a seeded bf16 (2, 3, ``width``)
+    share a rank over "model" and the backward of a seeded bf16
+    cotangent a rank: whether the value is every rank's share in rank
+    order, whether the grad is the float32 sum of every rank's cotangent
+    slice cast to bf16 (its dtype beside), and the bytes the backward's
+    reduce-scatter sent against a float32 full (2, 3, m ``width``)."""
+    from repro_torch.distributed import spmd
+    from repro_torch.models import common
+
+    plan = spmd.MeshPlan(mesh)
+    m, r = plan.tp_size, plan.tp_rank
+
+    def draw(seed, *shape):
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randn(*shape, generator=gen).to(torch.bfloat16)
+
+    shares = [draw(100 + i, 2, 3, width) for i in range(m)]
+    cots = [draw(200 + i, 2, 3, width * m) for i in range(m)]
+    x = shares[r].clone().requires_grad_()
+    with common.tensor_parallel(plan.tp):
+        y = common.gather_from_model(x, -1)
+        before = plan.sent["tp"]
+        y.backward(cots[r])
+    want = sum(c.float() for c in cots)[..., r * width:(r + 1) * width]
+    return {"value": bool(torch.equal(y.detach(), torch.cat(shares, -1))),
+            "grad": bool(torch.equal(x.grad, want.to(torch.bfloat16))),
+            "grad_dtype": str(x.grad.dtype),
+            "sent": plan.sent["tp"] - before, "want_sent": 2 * 3 * width * m
+            * 4}
+
+
+def ssd_body(rank, world, cases):
+    """Every case of ``cases`` on each ``SSD_MESHES`` mesh of the 4 ranks:
+    the train steps, the SSD's grads, the served tokens and states,
+    :func:`gather_from_model_case`, and on (1, 4) the flops of the SSD
+    alone and of the uneven-head step."""
+    torch.set_num_threads(1)
+    out = {}
+    for shape in SSD_MESHES:
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        res = {"train": {key: train_case(c, mesh)
+                         for key, c in cases["train"].items()},
+               "grads": {arch: ssd_grads(c, mesh)
+                         for arch, c in cases["grads"].items()},
+               "serve": {arch: ssd_serve(c, mesh)
+                         for arch, c in cases["serve"].items()},
+               "gather": gather_from_model_case(mesh)}
+        if shape == (1, 4):
+            res["flops"] = {"ssd": ssd_flops(cases["flops"]["ssd"], mesh),
+                            "uneven": tp_matmul_flops(
+                                cases["flops"]["uneven"], mesh)}
         out[shape] = res
     return out

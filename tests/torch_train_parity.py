@@ -94,6 +94,18 @@ def _hp(accum):
 
 
 @functools.lru_cache(maxsize=None)
+def jax_inputs(arch):
+    """JAX's parameters and batch of ``arch`` as :func:`jax_side` makes
+    them (without its steps, so that ranks can start first): (params,
+    batch)."""
+    cfg = j_cfgs.get_smoke(arch)
+    batch = _batch(cfg, np.random.default_rng(len(arch)), 2 * B)
+    with _mesh():
+        params = _np_tree(j_build(cfg).init(jax.random.PRNGKey(0)))
+    return params, batch
+
+
+@functools.lru_cache(maxsize=None)
 def jax_side(arch):
     cfg = j_cfgs.get_smoke(arch)
     model = j_build(cfg)
