@@ -357,6 +357,38 @@ Phases, in order; any failure exits nonzero:
    shards bitwise and replicas equal, and a bf16 prefill of (2, 120) and
    8 steps teacher-forced by the one-rank run.
 
+20. ``sim.run_dynamic`` (Figs. 6-8's problem: bias 0.2, std 2.0, d = 2,
+   k = 3; 400 cycles, warm-up a quarter) at 80,000 peers through the
+   kernels, the launch counters zeroed before each run and read after it:
+   (a) grid at drift 1,000 and 100,000 ppmc, grid, Chord and BA at drift
+   1,000 and ``drop_rate`` 0.05, grid at drift 1,000 and churn 1,000 ppmc;
+   each prints avg_accuracy, msgs_per_link_per_cycle, alive_frac (equal to
+   the host's replay of the numpy churn draws), the median µs a cycle
+   (between consecutive drains), launches and host reads a cycle and the
+   host seconds in each driver method; avg_accuracy at least 0.90 at
+   ``drop_rate`` 0; the table rebuild a churn cycle costs on a
+   ``DynTopology`` at 80,089 peers; (b) at 4,096 peers on grid (drift
+   10,000, churn 1,000 ppmc, 200 cycles) the fused and reference suites
+   equal in every key at ``drop_rate`` 0 and 0.05, and the card equal to
+   the CPU at 0; (c) ``engine=EngineConfig(num_shards=8)`` on grid 80,089
+   (drift 1,000, 200 cycles) equal to the core in every key; (d) at 4,096
+   peers a ``DynTopology`` whose peers leave (drift 10,000, churn 500,
+   80 cycles, the first seed whose churn never draws a dead peer again)
+   equal to the alive-mask run.
+
+21. the demo twins (``examples/*_torch.py``) on the card at their
+   defaults, the counters zeroed before and read after each: quickstart
+   (its dict equal to its CPU run's), sensor_grid (alive_frac the
+   replay's, accuracy at least 0.90), engine_demo (quiesced, the sweep's
+   statistics), serve_monitor (64 tenants in 48 slots of a 4,096-peer
+   grid, the priority scheduler with preemption, a join burst forcing a
+   regrow: at least one preemption, resume and regrow; the fused and
+   reference services equal in records, SLO reports, control trail and
+   epochs); then serve_monitor on grid 283² (80,089 peers), 64 tenants in
+   48 slots, 10 dispatches of K = 8, 24 joins: dispatch wall, tenant-cycles
+   a second, preemptions, resumes, epochs, each class's attainment,
+   launches and host reads a dispatch, peak memory.
+
 It prints phase 16's rows as a JSON line (``{"zoo": [...]}``), phase 17's
 (``{"train": [...]}``), phase 18's (``{"distributed": {...}}``), phase
 19's (``{"mesh_steps": {...}}``), then a
@@ -366,9 +398,11 @@ service's shape, ``by_shape`` for the others, ``launches`` summed over the
 churned-service, engine-backed-service, overlapped-service,
 audited-service and collective-engine (``engine-mesh``: phase 14's (a)
 and both ranks of (b)) runs, the autotuner's (``autotune``: phase 15
-(a)'s probes and its ``auto_plan`` run) and the async and moved mesh
-engines' (``engine-mesh-async``: phase 15 (b)-(d)), each path's in
-``launches_by_path``;
+(a)'s probes and its ``auto_plan`` run), the async and moved mesh
+engines' (``engine-mesh-async``: phase 15 (b)-(d)), the dynamic runs'
+(``dynamic``: phase 20's fused runs), the demos' (``demos``: phase 21's
+twins at their defaults) and the contended service at 80,089 peers
+(``monitor-contended``), each path's in ``launches_by_path``;
 ``share_of_bound`` = bound / time beside each time, ``device_ms`` the
 profiler's device time a launch, ``bitwise_values`` the values held
 bitwise; ``correction``'s also carries
@@ -6332,6 +6366,373 @@ def phase_mesh_steps(dev, gpu, recs):
     return rows
 
 
+# --- phases 20 and 21: the dynamic runs and the demos ---------------------
+
+DYN_SPEC = dict(bias=0.2, std=2.0)  # benchmarks/fig6-8's problem
+DYN_CYCLES = 400  # benchmarks/fig6-8's cycles (warm-up a quarter)
+DYN_RUNS = (  # (label, topology, noise ppmc, churn ppmc, drop rate)
+    ("fig6 drift 1000", "grid", 1_000.0, 0.0, 0.0),
+    ("fig6 drift 100000", "grid", 100_000.0, 0.0, 0.0),
+    ("fig7 drop 0.05", "grid", 1_000.0, 0.0, 0.05),
+    ("fig7 drop 0.05", "chord", 1_000.0, 0.0, 0.05),
+    ("fig7 drop 0.05", "ba", 1_000.0, 0.0, 0.05),
+    ("fig8 churn 1000", "grid", 1_000.0, 1_000.0, 0.0),
+)
+DYN_MIN_ACC = 0.90  # (a): avg_accuracy of every run at drop_rate 0
+DYN_SMALL = dict(noise_ppmc=10_000.0, churn_ppmc=1_000.0)  # (b)
+DYN_SMALL_CYCLES = 200
+# (d): peers leave a DynTopology; at these rates some seeds' churn never
+# draws a dead peer again (the first is 13 at 4,096 peers)
+DYN_LEAVE = dict(noise_ppmc=10_000.0, churn_ppmc=500.0)
+DYN_LEAVE_CYCLES = 80
+DYN_ENGINE_CYCLES = 200  # (c)
+DYN_DROP = 0.05  # (b)'s lossy pair
+DEMOS = ("quickstart_torch", "sensor_grid_torch", "engine_demo_torch",
+         "serve_monitor_torch")
+DEMO_ARGS = dict.fromkeys(DEMOS, ())  # each twin at its defaults
+MONITOR_FULL = ("--n", str(283 * 283))  # the twin's other defaults
+
+
+def _churn_replay(n, spec, cycles, noise_ppmc, churn_ppmc):
+    """``run_dynamic``'s numpy stream replayed on the host alone (the
+    initial inputs, then a cycle's noise and churn draws, as
+    ``core/sim.py`` draws them): the alive fraction at the end, and whether
+    a churn draw picked a peer already dead."""
+    rng = np.random.default_rng(spec.seed + 1)
+    rng.standard_normal((n, spec.d))
+    alive = np.ones(n, bool)
+    rekill = False
+    for _ in range(cycles):
+        changes = rng.binomial(n, min(noise_ppmc * 1e-6, 1.0))
+        if changes:
+            rng.choice(n, size=changes, replace=False)
+            rng.standard_normal((changes, spec.d))
+        dead = rng.binomial(n, min(churn_ppmc * 1e-6, 1.0))
+        if dead:
+            cand = rng.choice(n, size=dead, replace=False)
+            rekill = rekill or not alive[cand].all()
+            alive[cand] = False
+    return float(alive.mean()), rekill
+
+
+class _DriverClock:
+    """Host seconds spent in ``sim._Driver``'s methods while a
+    ``run_dynamic`` call runs (wrapped on the class for the call, restored
+    after), and the clock at each ``drain``'s return: the driver drains
+    once a cycle and the drain reads the send count, so consecutive
+    returns bound one cycle each."""
+
+    METHODS = ("advance", "drain", "observe", "set_inputs", "kill_peers")
+
+    def __enter__(self):
+        self.spent = dict.fromkeys(self.METHODS, 0.0)
+        self.ticks = []
+        self._orig = {m: getattr(sim._Driver, m) for m in self.METHODS}
+        for name, fn in self._orig.items():
+            setattr(sim._Driver, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(drv, *args, **kw):
+            t0 = time.perf_counter()
+            out = fn(drv, *args, **kw)
+            t1 = time.perf_counter()
+            self.spent[name] += t1 - t0
+            if name == "drain":
+                self.ticks.append(t1)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(sim._Driver, name, fn)
+
+
+def _dyn_run(label, topo, spec, dev, cycles, cfg=lss.LSSConfig(),
+             fused=True, **kw):
+    """One ``run_dynamic`` (warm-up a quarter of ``cycles``) with the
+    launch counters and the do-while's read counter zeroed before it and
+    read after it.  Fused runs must launch every kernel and no plain
+    version; others no kernel.  Returns (result, counts, a line of
+    stats)."""
+    _sync(dev)
+    kernels.reset_counts()
+    lss.host_syncs = 0
+    t0 = time.perf_counter()
+    with _DriverClock() as clock:
+        res = sim.run_dynamic(topo, spec, cfg, cycles=cycles,
+                              warmup=cycles // 4, device=dev,
+                              use_kernels=fused, **kw)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()
+    if fused:
+        _require_launched(label, counts)
+    elif any(counts[k] for k in KERNELS):
+        raise AssertionError(f"{label}: the reference run launched a kernel")
+    acc = res["avg_accuracy"]
+    if (not 0.0 <= acc <= 1.0 or res["msgs_per_link_per_cycle"] <= 0
+            or not 0.0 < res["alive_frac"] <= 1.0):
+        raise AssertionError(f"{label}: implausible result {res}")
+    us = np.diff(clock.ticks) * 1e6
+    observes = cycles - cycles // 4
+    stats = (f"median {np.median(us):.1f} us a cycle (min {us.min():.1f}, "
+             f"max {us.max():.1f}; wall {wall:.3f} s for {cycles}); "
+             f"launches a cycle "
+             f"{ {k: round(counts[k] / cycles, 3) for k in KERNELS} }; host "
+             f"syncs a cycle {lss.host_syncs / cycles:.3f} do-while reads + 1 "
+             f"drain + {2 * observes / cycles:.2f} observe reads; host s in "
+             f"{ {k: round(v, 3) for k, v in clock.spent.items()} }")
+    return res, counts, stats
+
+
+def _add_counts(totals, counts):
+    for key in KERNELS:
+        totals[key] += counts[key]
+
+
+def _same_result(label, got, want):
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in {*got, *want}
+                if got.get(k) != want.get(k)}
+        raise AssertionError(f"{label}: results differ in {diff}")
+
+
+def phase_dynamic(topos, dev):
+    """Figs. 6-8's ``run_dynamic`` on the card: (a) at 80,000 peers through
+    the kernels, (b) fused == reference (and card == CPU) at 4,096, (c) the
+    engine == the core, (d) a churned DynTopology == the alive mask."""
+    totals = dict.fromkeys(KERNELS, 0)
+    for label, name, noise, churn, drop in DYN_RUNS:
+        topo = topos[name]
+        spec = sim.ProblemSpec(n=topo.n, **DYN_SPEC)
+        res, counts, stats = _dyn_run(
+            f"{label} {name}", topo, spec, dev, DYN_CYCLES,
+            lss.LSSConfig(drop_rate=drop), noise_ppmc=noise,
+            churn_ppmc=churn)
+        _add_counts(totals, counts)
+        alive, _ = _churn_replay(topo.n, spec, DYN_CYCLES, noise, churn)
+        if res["alive_frac"] != alive:
+            raise AssertionError(f"{label} {name}: alive_frac "
+                                 f"{res['alive_frac']} != the host's "
+                                 f"replay {alive}")
+        if drop == 0.0 and res["avg_accuracy"] < DYN_MIN_ACC:
+            raise AssertionError(f"{label} {name}: avg_accuracy "
+                                 f"{res['avg_accuracy']} < {DYN_MIN_ACC}")
+        print(f"[dynamic] (a) {label} {name} n={topo.n} D={topo.max_deg} "
+              f"drift={noise:g} churn={churn:g} drop={drop:g}: avg_accuracy "
+              f"{res['avg_accuracy']!r} msgs_per_link_per_cycle "
+              f"{res['msgs_per_link_per_cycle']!r} alive_frac "
+              f"{res['alive_frac']!r} (the host's replay of the churn "
+              f"draws); {stats}", flush=True)
+    grid = topos["grid"]
+    dyn = topology.DynTopology.from_topology(grid)
+    ms = []
+    for _ in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        lss.TopoArrays.from_topology(dyn, dev)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[dynamic] (a) the table rebuild a churn cycle costs on a "
+          f"DynTopology (TopoArrays.from_topology) at n={dyn.n}: "
+          f"{[round(m, 3) for m in ms]} ms", flush=True)
+
+    # (b) fused == reference == CPU at 4,096 on grid.
+    side = int(round(N_SMALL ** 0.5))
+    small = topology.grid(side * side)
+    spec = sim.ProblemSpec(n=small.n, **DYN_SPEC)
+    for drop in (0.0, DYN_DROP):
+        cfg = lss.LSSConfig(drop_rate=drop)
+        fused, counts, stats = _dyn_run(f"(b) drop {drop}", small, spec, dev,
+                                        DYN_SMALL_CYCLES, cfg, **DYN_SMALL)
+        _add_counts(totals, counts)
+        plain, _, _ = _dyn_run(f"(b) drop {drop} reference", small, spec,
+                               dev, DYN_SMALL_CYCLES, cfg, fused=False,
+                               **DYN_SMALL)
+        _same_result(f"(b) drop {drop} fused vs reference", fused, plain)
+        line = "== the reference suite's on the card"
+        if drop == 0.0:
+            cpu = sim.run_dynamic(small, spec, cfg, cycles=DYN_SMALL_CYCLES,
+                                  warmup=DYN_SMALL_CYCLES // 4,
+                                  device="cpu", **DYN_SMALL)
+            _same_result("(b) card vs CPU", fused, cpu)
+            line += " == the CPU's"
+        print(f"[dynamic] (b) grid n={small.n} drift 10000 churn 1000 drop "
+              f"{drop:g}, {DYN_SMALL_CYCLES} cycles: fused {fused} {line} "
+              f"in every key; {stats}", flush=True)
+
+    # (c) the engine (S = 8) == the core, grid 80,089, drift 1,000.
+    spec = sim.ProblemSpec(n=grid.n, **DYN_SPEC)
+    eng, counts, eng_stats = _dyn_run(
+        "(c) engine", grid, spec, dev, DYN_ENGINE_CYCLES,
+        engine=EngineConfig(num_shards=ENGINE["num_shards"]),
+        noise_ppmc=1_000.0)
+    _add_counts(totals, counts)
+    core, counts, core_stats = _dyn_run("(c) core", grid, spec, dev,
+                                        DYN_ENGINE_CYCLES, noise_ppmc=1_000.0)
+    _add_counts(totals, counts)
+    _same_result("(c) engine vs core", eng, core)
+    print(f"[dynamic] (c) grid n={grid.n} drift 1000, {DYN_ENGINE_CYCLES} "
+          f"cycles: engine (S = {ENGINE['num_shards']}) {eng} == the core's "
+          f"in every key; engine {eng_stats}; core {core_stats}", flush=True)
+
+    # (d) a churned DynTopology == the alive mask, at a seed whose churn
+    # never draws a dead peer again.
+    seed = next(s for s in range(200) if not _churn_replay(
+        small.n, sim.ProblemSpec(n=small.n, seed=s), DYN_LEAVE_CYCLES,
+        **DYN_LEAVE)[1])
+    spec = sim.ProblemSpec(n=small.n, seed=seed, **DYN_SPEC)
+    masked, counts, _ = _dyn_run("(d) alive mask", small, spec, dev,
+                                 DYN_LEAVE_CYCLES, **DYN_LEAVE)
+    _add_counts(totals, counts)
+    left, counts, stats = _dyn_run(
+        "(d) DynTopology", topology.DynTopology.from_topology(small), spec,
+        dev, DYN_LEAVE_CYCLES, **DYN_LEAVE)
+    _add_counts(totals, counts)
+    _same_result("(d) DynTopology vs alive mask", left, masked)
+    print(f"[dynamic] (d) grid n={small.n} drift 10000 churn 500, "
+          f"{DYN_LEAVE_CYCLES} cycles, seed {seed} (no churn draw picks a "
+          f"dead peer): DynTopology {left} == the alive mask's in every "
+          f"key; {stats}", flush=True)
+    print(f"[dynamic] launches {totals}", flush=True)
+    return totals
+
+
+def _demo(name):
+    """The demo twin ``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _demo_run(name, argv, fused=True, echo=True):
+    """``main(argv)`` of a demo twin with its stdout captured (and printed,
+    prefixed, with ``echo``), the launch counters and the do-while's read
+    counter zeroed before it and read after it.  Returns (result, counts,
+    do-while reads, wall s, peak GiB on the card)."""
+    import contextlib
+    import io
+
+    mod = _demo(name)
+    out = io.StringIO()
+    dev = torch.device("cpu" if "cpu" in argv else "cuda")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    lss.host_syncs = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(argv)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts, syncs = kernels.counts(), lss.host_syncs
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    if fused:
+        _require_launched(name, counts)
+    elif any(counts[k] for k in KERNELS):
+        raise AssertionError(f"{name} {argv}: launched a kernel")
+    if echo:
+        for line in out.getvalue().splitlines():
+            print(f"[demo {name}] {line}", flush=True)
+    return res, counts, syncs, wall, peak
+
+
+def _monitor_line(label, res, counts, syncs, peak):
+    walls = res["walls"]
+    served = [len(r) for r in res["records"]]
+    k = res["k"]
+    tc = sum(served) * k / sum(walls)
+    n = len(walls)
+    print(f"[monitor] {label} n={res['peers']} n_cap {res['n_cap']}: "
+          f"dispatch wall ms {[round(w * 1e3, 3) for w in walls]} (median "
+          f"{np.median(walls) * 1e3:.3f}); tenant-cycles/s {tc:.1f} "
+          f"({sum(served)} tenant windows of {k} cycles); "
+          f"{res['preemptions']} preemptions, {res['resumes']} resumes, "
+          f"epochs {[e['kind'] for e in res['epochs']]}; attainment by "
+          f"class { {p: round(c['attainment'], 4) for p, c in res['classes'].items()} }; "
+          f"launches a dispatch "
+          f"{ {key: counts[key] / n for key in KERNELS} }; host syncs a "
+          f"dispatch {syncs / n:.3f} do-while reads + 1 observe transfer; "
+          f"peak memory {peak:.3f} GiB", flush=True)
+
+
+def phase_demos(dev):
+    """The four demo twins on the card at their defaults, and the contended
+    priority service at 80,089 peers."""
+    demos = dict.fromkeys(KERNELS, 0)
+    args = {name: list(DEMO_ARGS[name]) for name in DEMOS}
+    res, counts, _, wall, _ = _demo_run("quickstart_torch",
+                                        args["quickstart_torch"])
+    _add_counts(demos, counts)
+    cpu = _demo_run("quickstart_torch",
+                    args["quickstart_torch"] + ["--device", "cpu"],
+                    fused=False, echo=False)[0]
+    if res != cpu:
+        raise AssertionError(f"quickstart: card {res} != CPU {cpu}")
+    print(f"[demos] quickstart {wall:.3f} s: its dict equals its CPU "
+          f"run's ({len(res['printed'])} printed cycles, quiesced at "
+          f"{res['quiesced_at']}); launches {counts}", flush=True)
+
+    res, counts, _, wall, _ = _demo_run("sensor_grid_torch",
+                                        args["sensor_grid_torch"])
+    _add_counts(demos, counts)
+    spec = sim.ProblemSpec(n=res["n"], seed=res["seed"])
+    alive, _ = _churn_replay(spec.n, spec, res["cycles"], res["noise_ppmc"],
+                             res["churn_ppmc"])
+    if res["alive_frac"] != alive or res["avg_accuracy"] < DYN_MIN_ACC:
+        raise AssertionError(f"sensor_grid: {res} (replayed alive {alive})")
+    print(f"[demos] sensor_grid {wall:.3f} s: {res}; launches {counts}",
+          flush=True)
+
+    res, counts, _, wall, _ = _demo_run("engine_demo_torch",
+                                        args["engine_demo_torch"])
+    _add_counts(demos, counts)
+    if res["quiesced_at"] is None or res["final_accuracy"] != 1.0:
+        raise AssertionError(f"engine_demo: {res}")
+    print(f"[demos] engine_demo {wall:.3f} s: quiesced_at "
+          f"{res['quiesced_at']} msgs_per_link {res['msgs_per_link']!r} "
+          f"c95 {res['c95']} c100 {res['c100']} msgs/link at end "
+          f"{res['msgs_per_link_end']}; launches {counts}", flush=True)
+
+    fused, counts, syncs, wall, peak = _demo_run(
+        "serve_monitor_torch", args["serve_monitor_torch"])
+    _add_counts(demos, counts)
+    if (fused["preemptions"] < 1 or fused["resumes"] < 1
+            or "regrow" not in [e["kind"] for e in fused["epochs"]]):
+        raise AssertionError(f"serve_monitor: no preemption, resume or "
+                             f"regrow: {fused['preemptions']}, "
+                             f"{fused['resumes']}, {fused['epochs']}")
+    plain = _demo_run("serve_monitor_torch",
+                      args["serve_monitor_torch"] + ["--plain"], fused=False,
+                      echo=False)[0]
+    for key in ("records", "slo_report", "controls", "epochs"):
+        if fused[key] != plain[key]:
+            raise AssertionError(f"serve_monitor: fused and reference "
+                                 f"services differ in {key}")
+    print(f"[demos] serve_monitor {wall:.3f} s: the fused and reference "
+          f"services gave equal records ({sum(map(len, fused['records']))} "
+          f"over {len(fused['records'])} dispatches), SLO reports, control "
+          f"trail and epochs", flush=True)
+    _monitor_line("defaults", fused, counts, syncs, peak)
+    print(f"[demos] launches {demos}", flush=True)
+
+    res, monitor, syncs, wall, peak = _demo_run(
+        "serve_monitor_torch", list(MONITOR_FULL), echo=False)
+    if (res["preemptions"] < 1
+            or "regrow" not in [e["kind"] for e in res["epochs"]]):
+        raise AssertionError(f"monitor at {res['peers']}: {res['epochs']}")
+    _monitor_line(f"contended {res['queries']} tenants in {res['slots']} "
+                  f"slots ({wall:.1f} s in all)", res, monitor, syncs, peak)
+    return demos, {k: monitor[k] for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6399,6 +6800,8 @@ def main() -> int:
     train = phase("phase 17", phase_train, dev, gpu)
     substrate = phase("phase 18", phase_substrate, dev, gpu)
     mesh_steps = phase("phase 19", phase_mesh_steps, dev, gpu, dry_recs)
+    dyn_totals = phase("phase 20", phase_dynamic, topos, dev)
+    demo_totals, monitor_totals = phase("phase 21", phase_demos, dev)
 
     line = {"kernels": []}
     decide = batched["region_decide"]
@@ -6463,7 +6866,8 @@ def main() -> int:
                          + churn_totals[name] + engine_svc_totals[name]
                          + overlap_totals[name] + audit_totals[name]
                          + mesh_totals[name] + plan_totals[name]
-                         + mesh_async_totals[name]),
+                         + mesh_async_totals[name] + dyn_totals[name]
+                         + demo_totals[name] + monitor_totals[name]),
             "launches_by_path": {"run_static": totals[name],
                                  "service": svc_totals[name],
                                  "engine": eng_totals[name],
@@ -6477,7 +6881,10 @@ def main() -> int:
                                  "engine-mesh": mesh_totals[name],
                                  "autotune": plan_totals[name],
                                  "engine-mesh-async":
-                                     mesh_async_totals[name]},
+                                     mesh_async_totals[name],
+                                 "dynamic": dyn_totals[name],
+                                 "demos": demo_totals[name],
+                                 "monitor-contended": monitor_totals[name]},
             "library_ms": None, **entry, "by_shape": shapes, "gpu": gpu})
     print(json.dumps({"zoo": zoo, "gpu": gpu}), flush=True)
     print(json.dumps({"train": train, "gpu": gpu}), flush=True)

@@ -12,7 +12,7 @@ Data, noise and churn draw from numpy's RNG in the JAX twin's order, so
 both packages see identical inputs and event streams.  The driver runs on
 ``device`` (default: CUDA, see :func:`repro_torch.default_device`) and steps
 Alg. 1 through the CUDA kernels on the card and the reference formulas on
-the CPU (``run_static``'s ``use_kernels`` overrides that choice), either
+the CPU (``use_kernels`` overrides that choice), either
 on the single-device core loop or, with ``engine=``, on the sharded
 :class:`repro_torch.engine.ShardedLSS`.
 """
@@ -291,17 +291,18 @@ def run_dynamic(
     warmup: int = 100,
     engine=None,
     device=None,
+    use_kernels=None,
 ):
     """Dynamic data / churn run; returns average accuracy + msgs/link/cycle.
 
     Passing a :class:`~repro_torch.core.topology.DynTopology` routes churn
     through the real membership ops (dead peers *leave*); the live link set
-    and so the reported dynamics are identical either way.  ``engine`` and
-    ``device`` as in :func:`run_static` (noise/churn edits land between
-    cycles, so the engine route dispatches one cycle at a time); the kernel
-    suite is the default one for ``device``.
+    and so the reported dynamics are identical either way.  ``engine``,
+    ``device`` and ``use_kernels`` as in :func:`run_static` (noise/churn
+    edits land between cycles, so the engine route dispatches one cycle at
+    a time).
     """
-    drv, sample, rng = _driver(topo, spec, cfg, engine, device, None)
+    drv, sample, rng = _driver(topo, spec, cfg, engine, device, use_kernels)
     edges = max(topo.num_edges, 1)
     n = topo.n
     accs, loads = [], []

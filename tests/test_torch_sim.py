@@ -26,6 +26,9 @@ from repro_torch.core import topology as t_top
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLE_TWINS = ("serve_lm_torch", "train_lm_torch", "quickstart_torch",
+                 "sensor_grid_torch", "engine_demo_torch",
+                 "serve_monitor_torch")
 
 STATIC_KEYS = ("n", "cycles_95", "cycles_100", "quiesced_at",
                "final_accuracy", "quiescent", "msgs_per_link", "total_msgs")
@@ -151,9 +154,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py",
-        ROOT / "examples" / "train_lm_torch.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "examples" / f"{name}.py" for name in EXAMPLE_TWINS]
     assert len(files) > 10
     assert PORT / "models" / "attention.py" in files
     assert PORT / "configs" / "zamba2_27b.py" in files
@@ -177,7 +179,7 @@ def test_port_import_leaves_jax_unloaded():
             "import repro_torch.checkpoint, repro_torch.training\n"
             "[cfgs.get(a) for a in cfgs.ARCH_IDS]\n"
             "import importlib.util\n"
-            "for name in ('serve_lm_torch', 'train_lm_torch'):\n"
+            f"for name in {EXAMPLE_TWINS!r}:\n"
             "    spec = importlib.util.spec_from_file_location(name, "
             f"{str(ROOT / 'examples')!r} + f'/{{name}}.py')\n"
             "    spec.loader.exec_module("
