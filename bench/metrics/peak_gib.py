@@ -1,0 +1,6 @@
+"""peak_gib: ``torch.cuda.max_memory_allocated`` over set-up and window,
+GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30
